@@ -15,15 +15,35 @@ printing a result:
    main path's 256), at odd shapes in fp32 and, for K2, the RN50
    attention-pool shape; then CUDA-event timings of the kernel, its plain
    version and `scaled_dot_product_attention` (timed as a yardstick only);
-4. the main path at full width: a seeded random CLIP ViT-B/32 tower in bf16
-   with seeded entropy-bottleneck params, `compress_dataset` over 8 batches
-   of 256 raw uint8 96x96 images, then `decompress_dataset`. The decoded
-   features must equal the dequantize path to 1e-5, the launch counters must
-   read 11 x K1 and 1 x K2 per batch, and a re-encode with the attention on
-   the plain versions must flip at most 1% of the symbols; then a
-   torch.profiler trace of 4 encode batches gives the device time by kernel
-   group and the device idle share;
-5. the `kernels` JSON line and, last, `{"ok": true, "device": {...}}`.
+3b. K3 (entropy-bottleneck likelihood) at the training shape (128, 512) and
+   at odd shapes in fp32, to rtol 1e-5 / atol 1e-7, and K4 (fused MLP
+   half-block) at the training shape (128 x 50 tokens, width 768) and odd
+   shapes in bf16, to atol 2e-2 plus one bf16 ulp of the value; then
+   CUDA-event timings of each, of its plain version and, for K4, of the op
+   path it replaces (LayerNorm, two matmuls, elementwise: a yardstick);
+4. the encode/decode path at full width: a seeded random CLIP ViT-B/32
+   tower in bf16 with seeded entropy-bottleneck params, `compress_dataset`
+   over 8 batches of 256 raw uint8 96x96 images, then `decompress_dataset`.
+   The decoded features must equal the dequantize path to 1e-5, the launch
+   counters must read 11 x K1 and 1 x K2 per batch, and a re-encode with the
+   attention on the plain versions must flip at most 1% of the symbols; then
+   a torch.profiler trace of 4 encode batches gives the device time by
+   kernel group and the device idle share;
+5. the training path at full width: the `clip_hub` recipe with K3 and K4
+   switched on (`rate.eb_use_pallas=True`,
+   `encoder.arch_kwargs.mlp_impl=pallas`) through `pipeline.run.
+   run_featurizer`, batch 128 of seeded random normalized 224x224 images,
+   20 steps: median step ms, img/s, finite loss, rate and distortion, and
+   launches per step K1 11, K2 1, K3 1, K4 11; a torch.profiler trace of 3
+   more steps (device idle share, device ms by kernel group); then 3 steps
+   twice from the same weights and noise, on the kernels and on the plain
+   versions of attention, MLP and likelihood, whose logged loss, rate and
+   distortion must agree to rtol 1e-2;
+6. from training to serving: `save_hub` the trained rate, load it with
+   `load_hub_npz` into `ClipCompressor` with the same tower weights,
+   `compress_dataset` and `decompress_dataset` one batch; the decoded
+   features must equal the dequantize path to 1e-5;
+7. the `kernels` JSON line and, last, `{"ok": true, "device": {...}}`.
 
 It needs a CUDA card and the repository around it: with no card, or run
 from a directory that holds only this file, it fails.
@@ -46,6 +66,18 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 N_BATCHES, BATCH, RAW_HW = 8, 256, (96, 96)
 SLICE = dict(N=50, heads=12, d=64)   # ViT-B/32 attention shapes
+TRAIN_BATCH, TRAIN_STEPS, PROFILE_STEPS, AB_STEPS = 128, 20, 3, 3
+DEVICE = "cuda"   # the training and serving phases' device
+TRAIN_OVERRIDES = ["rate.eb_use_pallas=True",
+                   "encoder.arch_kwargs.mlp_impl=pallas",
+                   "trainer.log_every=5"]
+
+
+def sync():
+    import torch
+
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
 
 
 def card_line() -> str:
@@ -209,8 +241,7 @@ def main_path(card: str) -> dict:
 
     with tempfile.TemporaryDirectory() as tmp:
         data, labels = Path(tmp) / "z.bin", Path(tmp) / "y.npy"
-        for key in fa.LAUNCHES:
-            fa.LAUNCHES[key] = 0
+        reset_launches()
         t0 = time.perf_counter()
         rate, _ = comp.compress_dataset(iter(batches), data, labels,
                                         is_info=False)
@@ -218,12 +249,14 @@ def main_path(card: str) -> dict:
         t0 = time.perf_counter()
         z_hat, y = comp.decompress_dataset(data, labels, is_info=False)
         t_dec = time.perf_counter() - t0
-        launches = dict(fa.LAUNCHES)
+        launches = read_launches()
     print(f"main path launches: {launches}", flush=True)
 
     n_layers = len(comp.model.blocks)
+    # the encode path's MLPs are torch ops and it computes no likelihood
     want = {"fused_attention": (n_layers - 1) * N_BATCHES,
-            "fused_attention_cls": N_BATCHES}
+            "fused_attention_cls": N_BATCHES, "fused_mlp_block": 0,
+            "eb_likelihood": 0}
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
     if rans._get_lib()._name != str(_build.library_path("rans")):
@@ -264,39 +297,373 @@ def main_path(card: str) -> dict:
     return launches
 
 
-def profile_encode(comp, batches, card: str):
-    """Phase 4b: where the encode time goes, from a torch.profiler trace of
-    `compress_dataset` over a few batches (after the timed run, so the
-    profiler's cost is not in the img/s above)."""
+def eb_params_for(C: int, filters, seed: int) -> dict:
+    """Seeded entropy-bottleneck params on the card, every coefficient moved
+    off its init value (the factors start at zero)."""
+    import torch
+
+    from lossyless_tpu_torch.coding import entropy_bottleneck as eb
+
+    g = torch.Generator().manual_seed(seed)
+    p = eb.init_params(eb.EBConfig(C, tuple(filters)), g)
+    return {k: (v if k == "quantiles" else
+                v + 0.3 * torch.randn(v.shape, generator=g)).cuda()
+            for k, v in p.items()}
+
+
+def mlp_inputs(B: int, N: int, D: int, seed: int):
+    """x (B, N, D) bf16 and the block's weights, CLIP-init scales."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape, std=1.0, mean=0.0):
+        return torch.randn(*shape, generator=g, device="cuda") * std + mean
+
+    H = 4 * D
+    return (rnd(B, N, D, std=0.5).to(torch.bfloat16), rnd(D, std=0.1, mean=1),
+            rnd(D, std=0.1), rnd(D, H, std=0.02), rnd(H, std=0.02),
+            rnd(H, D, std=0.02), rnd(D, std=0.02))
+
+
+def op_path_mlp(x, lns, lnb, fcw, fcb, prw, prb):
+    """The MLP half-block as the tower's ops compute it (`Block`, ops path):
+    the yardstick K4 replaces."""
+    import torch
+    import torch.nn.functional as F
+
+    dt = x.dtype
+    y = F.layer_norm(x.float(), (x.shape[-1],), lns, lnb, 1e-5).to(dt)
+    h = y @ fcw + fcb
+    h = h * torch.sigmoid(1.702 * h)
+    return x + (h @ prw + prb)
+
+
+def check_k3_k4() -> dict:
+    """Phase 3b: K3 and K4 vs their plain versions, then timings."""
+    import torch
+
+    from lossyless_tpu_torch.coding import eb_kernel
+    from lossyless_tpu_torch.nn import flash_attn as fa
+
+    results = {}
+    with torch.inference_mode():
+        # K3: fp32, rtol 1e-5 / atol 1e-7 (the CPU tests' tolerance)
+        errs = []
+        for i, (B, C, filters) in enumerate([(TRAIN_BATCH, 512, (3, 3, 3, 3)),
+                                             (37, 13, (3, 3, 3)),
+                                             (5, 130, (2, 4)),
+                                             (1, 1, (3, 3, 3, 3))]):
+            p = eb_params_for(C, filters, seed=i)
+            g = torch.Generator(device="cuda").manual_seed(i)
+            z = torch.randn(B, C, generator=g, device="cuda") * 4
+            got = eb_kernel.likelihood(p, z)
+            torch.cuda.synchronize()
+            want = eb_kernel.likelihood_plain(p, z)
+            err = (got - want).abs().max().item()
+            ok = bool(torch.isfinite(got).all()) and bool(
+                ((got - want).abs() <= 1e-5 * want.abs() + 1e-7).all())
+            print(f"check eb_likelihood B={B} C={C} filters={filters} fp32: "
+                  f"max_abs_err={err!r} tol=rtol 1e-5 atol 1e-7 "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                raise AssertionError(f"eb_likelihood disagrees with its plain "
+                                     f"version at B={B} C={C}")
+            errs.append(err)
+        B, C = TRAIN_BATCH, 512
+        p = eb_params_for(C, (3, 3, 3, 3), seed=100)
+        z = torch.randn(B, C, device="cuda") * 4
+        K = eb_kernel.pack_coefficients(p).shape[1]
+        w = eb_kernel.widths(p)
+        chain = sum(2 * o * i + o + (3 * o if l < len(w) - 2 else 0)
+                    for l, (i, o) in enumerate(zip(w[:-1], w[1:])))
+        nbytes = 2 * B * C * 4 + C * K * 4
+        flops = B * C * (2 * chain + 10)   # two chains, sign trick, floor
+        ms = median_ms(lambda: eb_kernel.likelihood(p, z))
+        plain_ms = median_ms(lambda: eb_kernel.likelihood_plain(p, z))
+        bound_ms, bound_by = bound(nbytes, flops, "float32")
+        results["eb_likelihood"] = dict(
+            max_abs_err=errs[0], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=None)
+        print(f"time eb_likelihood B={B} C={C} fp32: kernel {ms!r} ms, "
+              f"plain {plain_ms!r} ms, bound {bound_ms!r} ms ({bound_by}: "
+              f"{nbytes} bytes, {flops} flop)", flush=True)
+
+        # K4: bf16, atol 2e-2 plus one bf16 ulp of the value (two roundings
+        # of sums taken in another order can each flip an ulp)
+        errs = []
+        for i, (B, N, D) in enumerate([(TRAIN_BATCH, 50, 768), (3, 7, 64),
+                                       (1, 3, 96), (2, 9, 72)]):
+            args = mlp_inputs(B, N, D, seed=i)
+            got = fa.fused_mlp_block(*args)
+            torch.cuda.synchronize()
+            want = fa.mlp_block_plain(*args)
+            diff = (got.float() - want.float()).abs()
+            err = diff.max().item()
+            ok = bool(torch.isfinite(got).all()) and bool(
+                (diff <= 2e-2 + 2 ** -7 * want.float().abs()).all())
+            print(f"check fused_mlp_block B={B} N={N} D={D} bf16: "
+                  f"max_abs_err={err!r} tol=atol 2e-2 + 1 ulp "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                raise AssertionError(f"fused_mlp_block disagrees with its "
+                                     f"plain version at B={B} N={N} D={D}")
+            errs.append(err)
+        B, N, D = TRAIN_BATCH, 50, 768
+        args = mlp_inputs(B, N, D, seed=100)
+        # the ops path holds its weights in bf16, its LayerNorm params fp32
+        ops_args = [*args[:3], *(a.to(torch.bfloat16) for a in args[3:])]
+        M, H = B * N, 4 * D
+        nbytes = 2 * M * D * 2 + 2 * D * H * 2 + (H + D) * 2 + 2 * D * 4
+        flops = 4 * M * D * H
+        ms = median_ms(lambda: fa.fused_mlp_block(*args))
+        plain_ms = median_ms(lambda: fa.mlp_block_plain(*args))
+        op_ms = median_ms(lambda: op_path_mlp(*ops_args))
+        bound_ms, bound_by = bound(nbytes, flops, "bfloat16")
+        results["fused_mlp_block"] = dict(
+            max_abs_err=errs[0], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=None, op_path_ms=op_ms)
+        print(f"time fused_mlp_block B={B} N={N} D={D} bf16: kernel {ms!r} "
+              f"ms, plain {plain_ms!r} ms, op path {op_ms!r} ms, bound "
+              f"{bound_ms!r} ms ({bound_by}: {nbytes} bytes, {flops} flop)",
+              flush=True)
+    return results
+
+
+def reset_launches():
+    from lossyless_tpu_torch.coding import eb_kernel
+    from lossyless_tpu_torch.nn import flash_attn as fa
+
+    for counts in (fa.LAUNCHES, eb_kernel.LAUNCHES):
+        for key in counts:
+            counts[key] = 0
+
+
+def read_launches() -> dict:
+    from lossyless_tpu_torch.coding import eb_kernel
+    from lossyless_tpu_torch.nn import flash_attn as fa
+
+    return {**fa.LAUNCHES, **eb_kernel.LAUNCHES}
+
+
+def train_images(n: int, seed: int):
+    """`n` batches of TRAIN_BATCH seeded random CLIP-normalized 224x224
+    images (NHWC) made on the card, with labels and unused aux targets."""
+    import torch
+
+    from lossyless_tpu_torch.nn.vit import CLIP_MEAN, CLIP_STD
+
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    mean = torch.as_tensor(CLIP_MEAN, device=DEVICE)
+    std = torch.as_tensor(CLIP_STD, device=DEVICE)
+    out = []
+    for i in range(n):
+        x = torch.rand(TRAIN_BATCH, 224, 224, 3, generator=g, device=DEVICE)
+        y = torch.arange(i * TRAIN_BATCH, (i + 1) * TRAIN_BATCH,
+                         device=DEVICE)
+        out.append(((x - mean) / std, y, torch.zeros(TRAIN_BATCH,
+                                                     device=DEVICE)))
+    return out
+
+
+class PlainMlp:
+    """Inside the block, the MLP on K4's plain version (for the A/B run)."""
+
+    def __enter__(self):
+        from lossyless_tpu_torch.nn import flash_attn as fa
+        from lossyless_tpu_torch.nn import vit
+
+        self.saved = vit.fused_mlp_block
+        vit.fused_mlp_block = fa.mlp_block_plain
+
+    def __exit__(self, *exc):
+        from lossyless_tpu_torch.nn import vit
+
+        vit.fused_mlp_block = self.saved
+
+
+def train_path(card: str):
+    """Phase 5: the clip_hub recipe at full width on the kernels."""
+    import torch
+
+    from lossyless_tpu_torch.pipeline import config
+    from lossyless_tpu_torch.pipeline.run import run_featurizer
+
+    cfg = config.apply_overrides(config.preset("clip_hub"), TRAIN_OVERRIDES)
+    cfg.in_shape = (224, 224, 3)
+    batches = train_images(TRAIN_STEPS + PROFILE_STEPS, seed=7)
+    step_s, last = [], {}
+    t_prev = [0.0]
+
+    def on_step(step, state, logs):
+        sync()
+        now = time.perf_counter()
+        step_s.append(now - t_prev[0])
+        t_prev[0] = now
+        last.update(logs)
+
+    reset_launches()
+    t_prev[0] = time.perf_counter()
+    state = run_featurizer(cfg, batches[:TRAIN_STEPS],
+                           total_steps=TRAIN_STEPS, on_step=on_step,
+                           device=DEVICE)
+    launches = read_launches()
+    print(f"training path launches over {TRAIN_STEPS} steps: {launches}",
+          flush=True)
+    L = cfg.encoder.arch_kwargs.get("layers", 12)
+    want = {"fused_attention": (L - 1) * TRAIN_STEPS,
+            "fused_attention_cls": TRAIN_STEPS,
+            "fused_mlp_block": (L - 1) * TRAIN_STEPS,
+            "eb_likelihood": TRAIN_STEPS}
+    if launches != want:
+        raise AssertionError(f"launch counts {launches}, expected {want}")
+    logs = {k: float(v) for k, v in last.items()}
+    if not all(np.isfinite(logs[k]) for k in ("loss", "rate", "distortion")):
+        raise AssertionError(f"non-finite training logs {logs}")
+    steady = step_s[2:]   # the first steps include cuBLAS and kernel set-up
+    step_ms = float(np.median(steady)) * 1e3
+    result = dict(card=card, batch=TRAIN_BATCH, steps=TRAIN_STEPS,
+                  step_ms_median=step_ms,
+                  step_ms_all=[t * 1e3 for t in step_s],
+                  img_per_s=TRAIN_BATCH / (step_ms / 1e3),
+                  final_logs=logs,
+                  launches_per_step={k: v / TRAIN_STEPS
+                                     for k, v in launches.items()})
+    print(json.dumps({"training_path": result}), flush=True)
+
+    prof = device_profile(
+        lambda: run_featurizer(cfg, batches[TRAIN_STEPS:], state=state,
+                               log=lambda _: None, device=DEVICE),
+        card, steps=PROFILE_STEPS, batch=TRAIN_BATCH)
+    print(json.dumps({"training_profile": prof}), flush=True)
+    train_ab(cfg, batches[:AB_STEPS])
+    return state, launches
+
+
+def train_ab(cfg, batches):
+    """Phase 5c: 3 steps on the kernels and 3 on the plain versions, from
+    the same weights and the same noise."""
+    import contextlib
+    import copy
+
+    from lossyless_tpu_torch.pipeline import config
+    from lossyless_tpu_torch.pipeline.run import build_state, run_featurizer
+
+    plain_cfg = config.apply_overrides(cfg, [
+        "rate.eb_use_pallas=False", "encoder.arch_kwargs.attn_impl=einsum"])
+    runs = {}
+    init = None
+    for name, c in (("kernels", cfg), ("plain", plain_cfg)):
+        state = build_state(config.apply_precision(copy.deepcopy(c)),
+                            AB_STEPS, device=DEVICE)
+        if init is None:
+            init = {k: v.clone() for k, v in
+                    state.model.state_dict().items()}
+        state.model.load_state_dict(init)
+        logs = []
+        reset_launches()
+        with PlainMlp() if name == "plain" else contextlib.nullcontext():
+            run_featurizer(c, batches, state=state, log=lambda _: None,
+                           device=DEVICE, on_step=lambda s, st, lg: logs.append(
+                               {k: float(lg[k]) for k in
+                                ("loss", "rate", "distortion")}))
+        launched = read_launches()
+        if name == "plain" and any(launched.values()):
+            raise AssertionError(f"the plain run launched {launched}")
+        runs[name] = logs
+    worst = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
+                for a, b in zip(runs["kernels"], runs["plain"]) for k in a)
+    print(json.dumps({"training_kernels_vs_plain": dict(
+        steps=AB_STEPS, kernels=runs["kernels"], plain=runs["plain"],
+        max_rel_diff=worst, tolerance=1e-2)}), flush=True)
+    if not worst <= 1e-2:
+        raise AssertionError(f"kernels vs plain training logs differ by "
+                             f"{worst} relative")
+
+
+def train_to_serve(state, card: str):
+    """Phase 6: save_hub -> load_hub_npz -> ClipCompressor -> encode and
+    decode one batch."""
+    import copy
+
+    from lossyless_tpu_torch.hub.compressor import ClipCompressor
+    from lossyless_tpu_torch.hub.save_hub import load_hub_npz, save_hub
+
+    (x, _, _), = train_images(1, seed=11)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = save_hub(state.model, tmp, beta=0.05)
+        files = sorted(p.name for p in out.iterdir())
+        eb_params, scaling, biasing = load_hub_npz(
+            out / "factorized_rate.npz")
+        # the trained tower's architecture and weights (bf16 storage, as
+        # the compressor keeps its tower)
+        tower = state.model.p_ZlX.mapper
+        comp = ClipCompressor(eb_params, scaling, biasing,
+                              clip_params=tower.state_dict(),
+                              model=copy.deepcopy(tower), device=DEVICE)
+        data, labels = Path(tmp) / "z.bin", Path(tmp) / "y.npy"
+        y = np.arange(TRAIN_BATCH)
+        rate, _ = comp.compress_dataset(iter([(x, y)]), data, labels,
+                                        is_info=False)
+        z_hat, y_dec = comp.decompress_dataset(data, labels, is_info=False)
+    features = comp(x)
+    err = float(np.abs(z_hat - features).max())
+    ok = (z_hat.shape == (TRAIN_BATCH, 512) and np.isfinite(z_hat).all()
+          and np.array_equal(y_dec, y) and err <= 1e-5)
+    print(json.dumps({"train_to_serve": dict(
+        card=card, files=files, bits_per_img=rate, decode_max_abs_err=err, ok=ok)}), flush=True)
+    if not ok:
+        raise AssertionError(f"trained compressor round trip off by {err}")
+
+
+KERNEL_GROUPS = {"attention K1/K2": ("attention_kernel",),
+                 "mlp K4": ("mlp_block_kernel",),
+                 "likelihood K3": ("eb_likelihood_kernel",),
+                 "matmul": ("gemm", "xmma", "cutlass", "nvjet", "cublas"),
+                 "copies": ("memcpy", "memset")}
+
+
+def device_profile(fn, card: str, **fields) -> dict:
+    """Run `fn()` under torch.profiler; the device time by kernel group and
+    the device idle share against the host clock around the call (which
+    ends in a synchronize)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with tempfile.TemporaryDirectory() as tmp, profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        comp.compress_dataset(iter(batches), Path(tmp) / "p.bin",
-                              is_info=False)
+        fn()
+        sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     by_name = {e.key: e.self_device_time_total / 1e3 for e in kernels}
     busy_ms = sum(by_name.values())
-    groups = {"attention K1/K2": ("attention_kernel",),
-              "matmul": ("gemm", "xmma", "cutlass", "nvjet", "cublas"),
-              "copies": ("memcpy", "memset")}
-    by_group = dict.fromkeys([*groups, "other"], 0.0)
+    by_group = dict.fromkeys([*KERNEL_GROUPS, "other"], 0.0)
     for name, ms in by_name.items():
-        group = next((g for g, keys in groups.items()
+        group = next((g for g, keys in KERNEL_GROUPS.items()
                       if any(k in name.lower() for k in keys)), "other")
         by_group[group] += ms
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    print(json.dumps({"profile": dict(
-        card=card, images=sum(len(x) for x, _ in batches), wall_ms=wall_ms,
+    return dict(
+        card=card, **fields, wall_ms=wall_ms,
         device_busy_ms=busy_ms if busy_ms else "not measured",
         device_idle_share=1 - busy_ms / wall_ms if busy_ms else
         "not measured", by_group_ms=by_group,
-        top_kernels_ms=[[name[:80], ms] for name, ms in top])}),
-        flush=True)
+        top_kernels_ms=[[name[:80], ms] for name, ms in top])
+
+
+def profile_encode(comp, batches, card: str):
+    """Phase 4b: where the encode time goes, from a torch.profiler trace of
+    `compress_dataset` over a few batches (after the timed run, so the
+    profiler's cost is not in the img/s above)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        result = device_profile(
+            lambda: comp.compress_dataset(iter(batches), Path(tmp) / "p.bin",
+                                          is_info=False),
+            card, images=sum(len(x) for x, _ in batches))
+    print(json.dumps({"profile": result}), flush=True)
 
 
 def main() -> int:
@@ -316,26 +683,45 @@ def main() -> int:
     seconds = _build.build()
     print(f"build: {seconds} (wall {time.perf_counter() - t0:.1f} s)",
           flush=True)
-    for line in _build.build_log("attention").splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            print("ptxas:", line.strip(), flush=True)
+    for name in _build.SOURCES:
+        for line in _build.build_log(name).splitlines():
+            if "registers" in line or "smem" in line or "spill" in line:
+                print(f"ptxas {name}:", line.strip(), flush=True)
 
     timings = check_kernels()
-    launches = main_path(card)
+    timings.update(check_k3_k4())
+    encode_launches = main_path(card)
+    state, train_launches = train_path(card)
+    train_to_serve(state, card)
 
+    sources = {"fused_attention": "lossyless_tpu_torch/nn/csrc/attention.cu",
+               "fused_attention_cls":
+                   "lossyless_tpu_torch/nn/csrc/attention.cu",
+               "eb_likelihood":
+                   "lossyless_tpu_torch/coding/csrc/eb_likelihood.cu",
+               "fused_mlp_block": "lossyless_tpu_torch/nn/csrc/mlp_block.cu"}
     replaces = {"fused_attention": "lossyless_tpu/nn/flash_attn.py:211",
-                "fused_attention_cls": "lossyless_tpu/nn/flash_attn.py:349"}
-    kernels = [dict(name=name, route="cuda",
-                    source="lossyless_tpu_torch/nn/csrc/attention.cu",
-                    replaces=replaces[name], launches=launches[name],
-                    launches_per_batch=launches[name] / N_BATCHES,
-                    **timings[name])
-               for name in ("fused_attention", "fused_attention_cls")]
+                "fused_attention_cls": "lossyless_tpu/nn/flash_attn.py:349",
+                "eb_likelihood": "lossyless_tpu/coding/pallas_eb.py:117",
+                "fused_mlp_block": "lossyless_tpu/nn/flash_attn.py:433"}
+    kernels = []
+    for name in sources:
+        # launches: K1/K2 on the encode path, K3/K4 on the training path
+        # (K1/K2 run there too: launches_per_training_step)
+        on_encode = name.startswith("fused_attention")
+        launches = (encode_launches if on_encode else train_launches)[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=sources[name],
+            replaces=replaces[name], launches=launches,
+            launches_per_encode_batch=encode_launches[name] / N_BATCHES,
+            launches_per_training_step=train_launches[name] / TRAIN_STEPS,
+            **timings[name]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
+    # every phase ran on the current device: one card
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+        "count": 1}}), flush=True)
     return 0
 
 

@@ -1,0 +1,249 @@
+"""The learnable compressor: encoder + rate + distortion.
+
+Counterpart of `lossyless_tpu/compressors/compressor.py`. One `step`
+computes the combined objective
+
+    loss = lambda * distortion + beta_t * rate   (annealed-beta trick)
+         + coder quantile aux loss
+
+and the trainer (`train/state.py`) splits the parameters into optimizer
+groups by path. Ported so far: the deterministic/Gaussian encoder on the
+CLIP tower, the factorized rate and the lossy_Z distortion (the hub
+compressor's recipe). The online probe and the two-view contrastive
+branches wait for ROADMAP queue 1 item 6.
+
+Two differences of form from JAX, with the same updates:
+
+* With `is_endToEnd=False` JAX calls the rate estimator twice with the
+  same noise (live, and on `stop_gradient(z)`), and XLA merges the equal
+  forwards. Here the estimator evaluates the likelihood once on the
+  detached z (`detach_rate=True`), for the rates and their log, and keeps
+  the live `z_hat` for the distortion.
+* A frozen encoder (`frozen` names a path of it) runs under
+  `torch.no_grad()`: JAX computes its gradients and zeroes them
+  (`optax.set_to_zero`), XLA drops the dead work; here it is never built.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..core.annealer import Annealer
+from ..nn.registry import get_architecture
+from ..nn.vit import params_from_flax
+from .distortions import DistortionConfig, make_distortion_estimator
+from .distributions import from_suff_param, n_suff_params
+from .rates import LOG2, RateConfig, make_rate_estimator
+
+
+@dataclasses.dataclass(frozen=True)
+class EncoderConfig:
+    arch: str = "mlp"
+    z_dim: int = 128
+    family: str = "deterministic"        # deterministic|diaggaussian
+    arch_kwargs: dict = dataclasses.field(default_factory=dict)
+    pretrained_path: str = ""
+
+
+@dataclasses.dataclass(frozen=True)
+class OnlineEvalConfig:
+    is_online: bool = True
+    arch: str = "mlp"
+    arch_kwargs: dict = dataclasses.field(default_factory=dict)
+    is_classification: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class LossConfig:
+    beta: float = 0.1
+    factor_beta_rate: float = 1.0        # rate.factor_beta
+    factor_beta_dist: float = 1.0        # distortion.factor_beta (=> lambda)
+    beta_anneal: str = "linear"          # mode for the Annealer
+    n_steps_anneal: int = 1000
+
+
+@dataclasses.dataclass(frozen=True)
+class CompressorConfig:
+    encoder: EncoderConfig = EncoderConfig()
+    rate: RateConfig = RateConfig()
+    distortion: DistortionConfig = DistortionConfig()
+    online: OnlineEvalConfig = OnlineEvalConfig()
+    loss: LossConfig = LossConfig()
+    in_shape: Sequence[int] = (2,)
+    target_shape: int = 1
+    aux_shape: Any = None
+
+
+class CondEncoder(nn.Module):
+    """Architecture -> sufficient stats -> conditional distribution."""
+
+    def __init__(self, cfg: EncoderConfig, in_shape):
+        super().__init__()
+        self.cfg = cfg
+        shape = tuple(in_shape) if not isinstance(in_shape, int) \
+            else in_shape
+        self.mapper = get_architecture(
+            cfg.arch, shape, cfg.z_dim * n_suff_params(cfg.family),
+            **cfg.arch_kwargs)
+
+    def forward(self, x):
+        return from_suff_param(self.cfg.family, self.mapper(x).float())
+
+
+class LearnableCompressor(nn.Module):
+    """Encoder p(Z|X), rate estimator and distortion estimator.
+
+    `frozen` names module-path components whose subtree is frozen (as the
+    trainer's `frozen_paths`): a frozen encoder runs without autograd.
+    `generator` seeds the random init of the tower and the entropy
+    bottleneck (the JAX package's numbers differ for the same seed; carry
+    weights across with `compressor_params_from_flax`).
+    """
+
+    def __init__(self, cfg: CompressorConfig, frozen: tuple = (),
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        c = self.cfg = cfg
+        if c.online.is_online:
+            raise NotImplementedError(
+                "the online probe is not ported yet (ROADMAP queue 1 item 6)")
+        self.frozen = tuple(frozen)
+        generator = generator or torch.Generator().manual_seed(0)
+        self.p_ZlX = CondEncoder(c.encoder, c.in_shape)
+        init = getattr(self.p_ZlX.mapper, "init_weights", None)
+        if init is not None:
+            init(generator)
+        self.rate_estimator = make_rate_estimator(c.encoder.z_dim, c.rate,
+                                                  generator)
+        self.distortion_estimator = make_distortion_estimator(
+            c.distortion, c.encoder.z_dim, c.aux_shape)
+        # careful: this "beta" is 1/beta from the paper
+        final_beta = c.loss.beta * c.loss.factor_beta_rate
+        self.beta_annealer = Annealer(
+            final_beta * 1e-5, final_beta,
+            n_steps_anneal=max(1, c.loss.n_steps_anneal),
+            mode=c.loss.beta_anneal)
+
+    def _p_zlx(self, x):
+        if "p_ZlX" in self.frozen:
+            with torch.no_grad():
+                return self.p_ZlX(x)
+        return self.p_ZlX(x)
+
+    # -- inference ----------------------------------------------------------
+
+    @torch.no_grad()
+    def encode(self, x):
+        """x -> mean of p(Z|X) (the raw encoder forward, no quantization)."""
+        return self.p_ZlX(x).mean
+
+    def features(self, x, *, training: bool = False, generator=None,
+                 noise=None):
+        """x -> z_hat (with `generator`, z is sampled and noised)."""
+        p_zlx = self._p_zlx(x)
+        z = p_zlx.rsample(generator) if generator is not None else p_zlx.mean
+        z_hat, _, _ = self.rate_estimator(z, p_zlx, training=training,
+                                          generator=generator, noise=noise)
+        return z_hat
+
+    # -- training objective -------------------------------------------------
+
+    def step(self, x, targets, aux_target, *, training: bool, step: int,
+             generator: torch.Generator | None = None,
+             noise: torch.Tensor | None = None, is_rate_only: bool = False):
+        """One RD step. Returns (loss, logs).
+
+        In training the rate's U(-0.5, 0.5) noise is `noise` when given
+        (the parity tests pass JAX's draws), else drawn from `generator`.
+        """
+        c = self.cfg
+        if c.distortion.mode == "contrastive":
+            raise NotImplementedError(
+                "the two-view contrastive step is not ported yet (ROADMAP "
+                "queue 1 item 6)")
+        p_zlx = self._p_zlx(x)
+        z = p_zlx.rsample(generator) if generator is not None else p_zlx.mean
+        # the rate trains without backprop into the encoder, always or for
+        # the first warmup_steps
+        detach_rate = not c.rate.is_endToEnd or step < c.rate.warmup_steps
+        z_hat, rates, r_logs = self.rate_estimator(
+            z, p_zlx, training=training, noise=noise, generator=generator,
+            step=step, detach_rate=detach_rate)
+
+        if is_rate_only:
+            r_logs = dict(r_logs)
+            r_logs["rate"] = rates.mean() / LOG2
+            return rates.mean(), r_logs
+
+        distortions, d_logs = self.distortion_estimator(
+            z_hat, aux_target, p_zlx, training=training)
+
+        loss, logs = self._rd_loss(rates, distortions, step)
+        logs.update(r_logs)
+        logs.update(d_logs)
+        logs.update(zmin=z_hat.min(), zmax=z_hat.max(), zmean=z_hat.mean())
+
+        # coder aux loss (quantile optimizer group)
+        if hasattr(self.rate_estimator, "aux_loss"):
+            aux = self.rate_estimator.aux_loss()
+            loss = loss + aux
+            logs["coder_loss"] = aux
+        return loss, logs
+
+    def _rd_loss(self, rates, distortions, step: int):
+        """distortion + beta*rate with the annealed-beta gradient trick."""
+        c = self.cfg.loss
+        rates = rates.float()
+        distortions = distortions.float()
+
+        curr_beta = self.beta_annealer(step)
+        final_beta = c.beta * c.factor_beta_rate
+        labda = 1.0 / c.factor_beta_dist
+
+        loose_loss = (labda * distortions + final_beta * rates).mean() \
+            .detach()
+        rate = rates.mean()
+        distortion = distortions.mean()
+
+        # gradients from the annealed beta; the reported value uses the
+        # final beta
+        beta_rate = curr_beta * rate
+        beta_rate = beta_rate - beta_rate.detach() \
+            + final_beta * rate.detach()
+
+        loss = labda * distortion + beta_rate
+        logs = {
+            "loose_loss": loose_loss / LOG2,
+            "loss": loss / LOG2,
+            "rate": rate / LOG2,
+            "distortion": distortion / LOG2,
+            "ratedist": (rate + distortion) / LOG2,
+            "beta": curr_beta,
+        }
+        return loss, logs
+
+    def forward(self, x, targets, aux_target, *, training: bool = False,
+                step: int = 0, generator=None, noise=None):
+        return self.step(x, targets, aux_target, training=training,
+                         step=step, generator=generator, noise=noise)
+
+
+def compressor_params_from_flax(tree) -> dict:
+    """JAX `LearnableCompressor` param tree (numpy arrays) -> state dict.
+
+    The tower goes through `nn.vit.params_from_flax`; the rate estimator's
+    `affine/*` and `entropy_bottleneck/*` map by name. Values come back as
+    fp32 tensors.
+    """
+    out = {f"p_ZlX.mapper.{k}": v
+           for k, v in params_from_flax(tree["p_ZlX"]["mapper"]).items()}
+    for sub in ("affine", "entropy_bottleneck"):
+        for k, v in tree["rate_estimator"][sub].items():
+            out[f"rate_estimator.{sub}.{k}"] = torch.from_numpy(
+                np.array(v, dtype=np.float32, copy=True))
+    return out

@@ -1,16 +1,18 @@
 """Build the port's native libraries from the sources in the checkout.
 
-Two shared libraries with plain C interfaces, loaded with ctypes:
+Shared libraries with plain C interfaces, loaded with ctypes:
 
-* ``attention`` — ``nn/csrc/attention.cu``, the hand-written Hopper
-  attention kernels, compiled with nvcc for ``sm_90a``;
-* ``rans`` — ``coding/csrc/rans.cpp``, the host rANS codec, compiled with
-  g++ for the build host's ISA.
+* ``attention`` — ``nn/csrc/attention.cu``, the attention kernels K1, K2;
+* ``mlp_block`` — ``nn/csrc/mlp_block.cu``, the fused MLP half-block K4;
+* ``eb_likelihood`` — ``coding/csrc/eb_likelihood.cu``, the
+  entropy-bottleneck likelihood K3;
+* ``rans`` — ``coding/csrc/rans.cpp``, the host rANS codec.
 
-Both go into ``lossyless_tpu_torch/_build/`` at first use, under a file name
-keyed on a hash of the sources and the compile command (plus the host's ISA
-for the ``-march=native`` codec), so an edited source or another CPU never
-picks up a stale library. Each build writes a per-pid temp file and
+A ``.cu`` source is compiled with nvcc for ``sm_90a``, a ``.cpp`` one with
+g++ for the build host's ISA. All go into ``lossyless_tpu_torch/_build/``
+at first use, under a file name keyed on a hash of the sources and the
+compile command (plus the host's ISA for the ``-march=native`` codec), so
+an edited source or another CPU never picks up a stale library. Each build writes a per-pid temp file and
 ``os.replace``s it into place: processes racing the first build never
 interleave writes into one library. A failed build raises; nothing falls
 back to another path.
@@ -33,6 +35,8 @@ BUILD_DIR = _PKG / "_build"
 
 SOURCES = {
     "attention": (_PKG / "nn" / "csrc" / "attention.cu",),
+    "mlp_block": (_PKG / "nn" / "csrc" / "mlp_block.cu",),
+    "eb_likelihood": (_PKG / "coding" / "csrc" / "eb_likelihood.cu",),
     "rans": (_PKG / "coding" / "csrc" / "rans.cpp",),
 }
 
@@ -65,13 +69,17 @@ def _nvcc() -> str:
             nvcc = str(Path(CUDA_HOME) / "bin" / "nvcc")
     if nvcc is None:
         raise RuntimeError("nvcc not found (neither on PATH nor under "
-                           "CUDA_HOME); the attention kernels cannot be built")
+                           "CUDA_HOME); the CUDA kernels cannot be built")
     return nvcc
+
+
+def _is_cuda(name: str) -> bool:
+    return SOURCES[name][0].suffix == ".cu"
 
 
 def _command(name: str, out: Path) -> list[str]:
     srcs = [str(s) for s in SOURCES[name]]
-    if name == "attention":
+    if _is_cuda(name):
         return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
                 "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                 "-Xptxas", "-v", "-o", str(out), *srcs]
@@ -86,7 +94,7 @@ def library_path(name: str) -> Path:
         h.update(src.read_bytes())
     # the command minus its tool path and output name: a flag change rebuilds
     h.update(" ".join(_command(name, Path("out"))[1:]).encode())
-    if name == "rans":
+    if not _is_cuda(name):
         h.update(_host_stamp().encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -9,18 +9,23 @@ Counterpart of the Pallas kernels in `lossyless_tpu/nn/flash_attn.py`:
 * K2 `fused_attention_cls(q0, kv, heads)` — the class-token query only:
   q0 (B, 1, D), kv (B, N, 2D), out (B, 1, D). Replaces
   `fused_attention_cls` / `_attn_cls_kernel`. Runs the last ViT block.
+* K4 `fused_mlp_block(x, ln_scale, ln_bias, fc_w, fc_b, pr_w, pr_b)` —
+  the MLP half-block `x + proj(QuickGELU(fc(LN(x))))` in one kernel, bf16.
+  Replaces `fused_mlp_block` / `_mlp_kernel`. Runs the MLP of ViT blocks
+  0..L-2 with `mlp_impl="kernel"`.
 
-Both kernels are CUDA C++ in `csrc/attention.cu` (design and bounds noted
-there), built with nvcc at first use (`_build.py`) and called through
-ctypes on PyTorch's current stream. Each wrapper checks device, dtype,
-shape and contiguity, allocates the output, launches, raises if the launch
-returned a CUDA error, and adds one to its entry of `LAUNCHES`.
+K1 and K2 are CUDA C++ in `csrc/attention.cu`, K4 in `csrc/mlp_block.cu`
+(design and bounds noted there), built with nvcc at first use
+(`_build.py`) and called through ctypes on PyTorch's current stream. Each
+wrapper checks device, dtype, shape and contiguity, allocates the output,
+launches, raises if the launch returned a CUDA error, and adds one to its
+entry of `LAUNCHES`.
 
 A CPU tensor goes to the plain version (`attention_plain`,
-`attention_cls_plain`: plain torch with the kernel's arithmetic). A CUDA
-tensor goes to the kernel or the call raises; nothing falls back. The
-backward of both recomputes through the plain version, as the JAX
-`custom_vjp`s do.
+`attention_cls_plain`, `mlp_block_plain`: plain torch with the kernel's
+arithmetic). A CUDA tensor goes to the kernel or the call raises; nothing
+falls back. The backward of each recomputes through the plain version, as
+the JAX `custom_vjp`s do.
 """
 
 from __future__ import annotations
@@ -32,7 +37,8 @@ import torch
 
 # launches of each kernel, counted where the kernel is launched and nowhere
 # else (a run reads them to show its main path went through the kernels)
-LAUNCHES = {"fused_attention": 0, "fused_attention_cls": 0}
+LAUNCHES = {"fused_attention": 0, "fused_attention_cls": 0,
+            "fused_mlp_block": 0}
 
 MAX_D = 128
 MAX_SMEM = 232448          # bytes of shared memory a Hopper block can use
@@ -195,7 +201,7 @@ def _on_cpu(*tensors) -> bool:
         return True
     if devices == {"cuda"}:
         return False
-    raise ValueError(f"attention inputs must all be on the CPU or all on a "
+    raise ValueError(f"kernel inputs must all be on the CPU or all on a "
                      f"CUDA device, got {sorted(devices)}")
 
 
@@ -246,3 +252,131 @@ def fused_attention_cls(q0: torch.Tensor, kv: torch.Tensor,
                         heads: int) -> torch.Tensor:
     """K2: fused MHSA for token-0 queries: (B,1,D) q, (B,N,2D) kv -> (B,1,D)."""
     return _FusedAttentionCls.apply(q0, kv, heads)
+
+
+# ---------------------------------------------------------------------------
+# K4: the fused MLP half-block x + proj(QuickGELU(fc(LN(x))))
+# ---------------------------------------------------------------------------
+
+_mlp_lib = None
+
+
+def _get_mlp_lib():
+    global _mlp_lib
+    if _mlp_lib is None:
+        with _lib_lock:
+            if _mlp_lib is None:
+                from . import _build
+
+                lib = _build.load("mlp_block")
+                i, f, p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
+                lib.lossyless_mlp_block_smem_bytes.restype = ctypes.c_size_t
+                lib.lossyless_mlp_block_smem_bytes.argtypes = [i]
+                lib.lossyless_mlp_block_max_d.restype = i
+                lib.lossyless_mlp_block_chunk.restype = i
+                lib.lossyless_fused_mlp_block.restype = i
+                lib.lossyless_fused_mlp_block.argtypes = [
+                    p, p, p, p, p, p, p, p, i, i, i, f, i, p]
+                _mlp_lib = lib
+    return _mlp_lib
+
+
+def mlp_block_plain(x, ln_scale, ln_bias, fc_w, fc_b, pr_w, pr_b,
+                    eps: float = 1e-5) -> torch.Tensor:
+    """Plain K4, in the kernel's order and rounding points
+    (`_mlp_kernel`): fp32 LayerNorm statistics, y cast to the io dtype,
+    each dot accumulated in fp32 then cast, bias adds and QuickGELU
+    `h * (1 / (1 + exp(-1.702 h)))` in the io dtype (the constant too)."""
+    dt = x.dtype
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = torch.square(xf - mean).mean(dim=-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    y = (y * ln_scale.float() + ln_bias.float()).to(dt)
+    h = torch.matmul(y.float(), fc_w.to(dt).float()).to(dt) + fc_b.to(dt)
+    one = torch.ones((), dtype=dt, device=x.device)
+    k = torch.full((), -1.702, dtype=dt, device=x.device)
+    h = h * (one / (one + torch.exp(k * h)))
+    o = torch.matmul(h.float(), pr_w.to(dt).float()).to(dt) + pr_b.to(dt)
+    return x + o
+
+
+def _launch_mlp_block(x, ln_scale, ln_bias, fc_w, fc_b, pr_w, pr_b,
+                      eps: float) -> torch.Tensor:
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"the fused MLP kernel takes bfloat16 activations "
+                        f"(its products run on bf16 tensor cores), got "
+                        f"{x.dtype}; use mlp_impl='ops' for {x.dtype}")
+    if x.dim() < 2:
+        raise ValueError(f"x must be (..., D), got {tuple(x.shape)}")
+    D = x.shape[-1]
+    if fc_w.dim() != 2 or fc_w.shape[0] != D:
+        raise ValueError(f"fc_w must be (D={D}, H), got {tuple(fc_w.shape)}")
+    H = fc_w.shape[1]
+    if D % 8 or H % 8:
+        raise ValueError(f"D={D} and H={H} must be multiples of 8")
+    lib = _get_mlp_lib()
+    if D > lib.lossyless_mlp_block_max_d() \
+            or H % lib.lossyless_mlp_block_chunk():
+        raise ValueError(
+            f"D={D}, H={H}: the kernel takes D <= "
+            f"{lib.lossyless_mlp_block_max_d()} and H a multiple of "
+            f"{lib.lossyless_mlp_block_chunk()}")
+    bf16 = torch.bfloat16
+    x2 = x.reshape(-1, D).contiguous()
+    args = [x2, ln_scale.float().contiguous(), ln_bias.float().contiguous(),
+            fc_w.to(bf16).contiguous(), fc_b.to(bf16).contiguous(),
+            pr_w.to(bf16).contiguous(), pr_b.to(bf16).contiguous()]
+    shapes = [(x2.shape[0], D), (D,), (D,), (D, H), (H,), (H, D), (D,)]
+    names = ["x", "ln_scale", "ln_bias", "fc_w", "fc_b", "pr_w", "pr_b"]
+    for name, t, shape in zip(names, args, shapes):
+        if t.device != x.device:
+            raise ValueError(f"{name} on {t.device} but x on {x.device}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{shape}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    out = torch.empty_like(x2)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = lib.lossyless_fused_mlp_block(
+        *(t.data_ptr() for t in args), out.data_ptr(), x2.shape[0], D, H,
+        eps, x.device.index, stream)
+    _raise_on(rc, "fused_mlp_block")
+    LAUNCHES["fused_mlp_block"] += 1
+    return out.reshape(x.shape)
+
+
+class _FusedMlpBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, lns, lnb, fcw, fcb, prw, prb, eps):
+        ctx.eps = eps
+        ctx.save_for_backward(x, lns, lnb, fcw, fcb, prw, prb)
+        if _on_cpu(x, lns, lnb, fcw, fcb, prw, prb):
+            return mlp_block_plain(x, lns, lnb, fcw, fcb, prw, prb, eps)
+        return _launch_mlp_block(x, lns, lnb, fcw, fcb, prw, prb, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            ts = [t.detach().requires_grad_(need)
+                  for t, need in zip(saved, ctx.needs_input_grad)]
+            out = mlp_block_plain(*ts, ctx.eps)
+            inputs = [t for t in ts if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, inputs, g)
+                         if inputs else ())
+        return (*(next(grads) if t.requires_grad else None for t in ts),
+                None)
+
+
+def fused_mlp_block(x, ln_scale, ln_bias, fc_w, fc_b, pr_w, pr_b,
+                    eps: float = 1e-5) -> torch.Tensor:
+    """K4: `x + proj(QuickGELU(fc(LayerNorm(x))))` as one kernel.
+
+    x (..., D); fc_w (D, H), fc_b (H,), pr_w (H, D), pr_b (D,), LayerNorm
+    scale/bias (D,). Weights are used in x's dtype. The backward
+    recomputes through `mlp_block_plain`.
+    """
+    return _FusedMlpBlock.apply(x, ln_scale, ln_bias, fc_w, fc_b, pr_w,
+                                pr_b, eps)

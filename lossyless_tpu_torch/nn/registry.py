@@ -1,0 +1,62 @@
+"""Architecture registry.
+
+Counterpart of `lossyless_tpu/nn/registry.py`: maps a mode string + kwargs
+to a module taking (in_shape, out_shape). Image shapes are channels-last
+(H, W, C). Only the CLIP ViT tower is ported so far; the other
+architectures wait for ROADMAP queue 1 item 7.
+
+The JAX config vocabulary is translated, so a JAX preset or override
+string works unchanged: `mlp_impl` "pallas" -> "kernel", "xla" -> "ops";
+`attn_impl` "pallas"/"auto" -> "kernel", "einsum" -> "plain"; a dtype
+given by name ("bfloat16", "float32") becomes the torch dtype.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .vit import VisionTransformer
+
+_MLP_IMPL = {"pallas": "kernel", "xla": "ops", "kernel": "kernel",
+             "ops": "ops"}
+_ATTN_IMPL = {"pallas": "kernel", "auto": "kernel", "einsum": "plain",
+              "kernel": "kernel", "plain": "plain"}
+_DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
+           "float32": torch.float32, "fp32": torch.float32}
+
+
+def _translate(kwargs: dict) -> dict:
+    kwargs = dict(kwargs)
+    if "mlp_impl" in kwargs:
+        kwargs["mlp_impl"] = _MLP_IMPL[kwargs["mlp_impl"]]
+    if "attn_impl" in kwargs:
+        kwargs["attn_impl"] = _ATTN_IMPL[kwargs["attn_impl"]]
+    if isinstance(kwargs.get("dtype"), str):
+        kwargs["dtype"] = _DTYPES[kwargs["dtype"]]
+    return kwargs
+
+
+def get_architecture(mode: str, in_shape, out_shape, **kwargs):
+    """Instantiate an architecture module.
+
+    `in_shape`: int or tuple (H, W, C); `out_shape`: int or tuple.
+    """
+    if mode in ("clip", "clip_vit"):
+        # the requested output dim and the dataset's resolution: the tower
+        # patchifies at any square size (pos-embedding sized accordingly)
+        if isinstance(in_shape, int) or not isinstance(out_shape, int):
+            raise ValueError("clip tower is an encoder (image -> vector)")
+        h, w, _ = in_shape
+        if h != w:
+            raise ValueError(f"clip tower needs square inputs, got {h}x{w}")
+        kwargs = _translate(kwargs)
+        kwargs.setdefault("image_size", h)
+        # flax's default compute dtype for the tower is bf16
+        kwargs.setdefault("dtype", torch.bfloat16)
+        return VisionTransformer(out_dim=out_shape, **kwargs)
+    if mode in ("mlp", "linear", "identity", "cnn", "balle", "resnet",
+                "clip_rn50", "simclr", "swav"):
+        raise NotImplementedError(
+            f"architecture {mode!r} is not ported yet (ROADMAP queue 1 "
+            f"item 7)")
+    raise ValueError(f"unknown architecture mode={mode}")

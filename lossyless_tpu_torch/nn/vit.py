@@ -17,7 +17,9 @@ bias add rounds again, as flax's Dense does.
 
 Attention runs on the hand-written kernels of `nn/flash_attn.py`
 (`attn_impl="kernel"`, the default; on CPU tensors they take their plain
-version) or on the plain versions directly (`attn_impl="plain"`).
+version) or on the plain versions directly (`attn_impl="plain"`). The MLP
+half-blocks run as torch ops (`mlp_impl="ops"`, the default) or on the
+fused kernel K4 (`mlp_impl="kernel"`).
 
 `convert_openai_clip_weights` maps an OpenAI CLIP state dict onto this
 module's state dict. Images are NHWC at the public functions, as in JAX.
@@ -33,7 +35,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from .flash_attn import (attention_cls_plain, attention_plain,
-                         fused_attention, fused_attention_cls)
+                         fused_attention, fused_attention_cls,
+                         fused_mlp_block)
 
 LN_EPS = 1e-5
 
@@ -125,12 +128,21 @@ def quick_gelu(y):
 
 class Block(nn.Module):
     """Pre-LN transformer block; `cls_only` computes the class token only
-    (valid as the last block, when downstream reads x[:, 0] alone)."""
+    (valid as the last block, when downstream reads x[:, 0] alone).
+
+    `mlp_impl="kernel"` runs the MLP half-block (LN2, fc, QuickGELU, proj,
+    residual) as the hand-written kernel K4 (`fused_mlp_block`); `"ops"`
+    (the default) as torch ops. A cls-only block keeps the ops path, as in
+    JAX. The parameters are the same either way.
+    """
 
     def __init__(self, width: int, heads: int, dtype, attn_impl: str,
-                 cls_only: bool = False):
+                 cls_only: bool = False, mlp_impl: str = "ops"):
         super().__init__()
+        if mlp_impl not in ("ops", "kernel"):
+            raise ValueError(f"unknown mlp_impl={mlp_impl!r}")
         self.dtype, self.cls_only = dtype, cls_only
+        self.mlp_impl = mlp_impl
         self.ln_1 = LayerNorm(width)
         self.attn = MHSA(width, heads, dtype, attn_impl, cls_only)
         self.ln_2 = LayerNorm(width)
@@ -141,6 +153,11 @@ class Block(nn.Module):
         y = self.ln_1(x).to(self.dtype)
         # the residual stream narrows to the class token in a cls-only block
         x = (x[:, :1] if self.cls_only else x) + self.attn(y)
+        if self.mlp_impl == "kernel" and not self.cls_only:
+            return fused_mlp_block(
+                x, self.ln_2.scale, self.ln_2.bias, self.mlp_fc.kernel,
+                self.mlp_fc.bias, self.mlp_proj.kernel, self.mlp_proj.bias,
+                LN_EPS)
         y = self.ln_2(x).to(self.dtype)
         return x + self.mlp_proj(quick_gelu(self.mlp_fc(y)))
 
@@ -151,7 +168,8 @@ class VisionTransformer(nn.Module):
     def __init__(self, patch_size: int = 32, width: int = 768,
                  layers: int = 12, heads: int = 12, out_dim: int = 512,
                  image_size: int = 224, dtype=torch.bfloat16,
-                 attn_impl: str = "kernel", cls_only_last: bool = True):
+                 attn_impl: str = "kernel", cls_only_last: bool = True,
+                 mlp_impl: str = "ops"):
         super().__init__()
         self.patch_size, self.width, self.image_size = patch_size, width, \
             image_size
@@ -164,7 +182,8 @@ class VisionTransformer(nn.Module):
         self.ln_pre = LayerNorm(width)
         self.blocks = nn.ModuleList(
             Block(width, heads, dtype, attn_impl,
-                  cls_only=cls_only_last and i == layers - 1)
+                  cls_only=cls_only_last and i == layers - 1,
+                  mlp_impl=mlp_impl)
             for i in range(layers))
         self.ln_post = LayerNorm(width)
         self.proj = nn.Parameter(torch.empty(width, out_dim))

@@ -1,0 +1,339 @@
+"""Experiment configuration: dataclass tree + dotted overrides + presets.
+
+Counterpart of `lossyless_tpu/pipeline/config.py`: `DataConfig`,
+`TrainerConfig`, `ExperimentConfig` (with `PredictorConfig`, as a dataclass
+only), `apply_overrides` (the `a.b.c=value` override syntax, literal-eval
+coercion), `apply_precision` and the presets of the hub compressor's
+recipe, `clip_bottleneck_pretrain` and `clip_hub`. The other presets wait
+for ROADMAP queue 1 item 10.
+"""
+
+from __future__ import annotations
+
+import ast
+import copy
+import dataclasses
+from dataclasses import field
+from pathlib import Path
+from typing import Any
+
+from ..compressors.compressor import (CompressorConfig, EncoderConfig,
+                                      LossConfig, OnlineEvalConfig)
+from ..compressors.distortions import DistortionConfig
+from ..compressors.rates import RateConfig
+from ..train.state import OptimConfig
+
+
+@dataclasses.dataclass
+class PredictorConfig:
+    arch: str = "mlp"
+    arch_kwargs: dict = dataclasses.field(
+        default_factory=lambda: dict(hid_dim=2048, n_hid_layers=2,
+                                     norm_layer="batchnorm"))
+    is_classification: bool = True
+    lr: float = 3e-4
+    n_epochs: int = 20
+    batch_size: int = 256
+    is_on_the_fly: bool = False
+
+
+@dataclasses.dataclass
+class DataConfig:
+    name: str = "banana"
+    batch_size: int = 1024
+    val_batch_size: int = 2048
+    n_epochs: int = 10
+    kwargs: dict = field(default_factory=dict)   # forwarded to the dataset
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    seed: int = 123
+    log_every: int = 100
+    ckpt_every_epochs: int = 1
+    monitor: str = "loss"
+    monitor_mode: str = "min"
+    limit_train_batches: float = 1.0   # dev-mode caps (config/mode/dev.yaml)
+    limit_eval_batches: float = 1.0
+    # kept for config compatibility with the JAX package; the port's loop
+    # (pipeline/run.py) runs one step per batch
+    use_fused_epochs: bool = True
+    # devices for training: only 1 is ported (multi-GPU: ROADMAP queue 1)
+    n_devices: int = 1
+    # training metrics sink; the port's loop prints (loggers: queue 1 item 8)
+    logger: str = "csv"
+    # compute precision for encoder/decoder bodies: fp32 | bf16 (fp32
+    # params and norm statistics either way; the entropy-model likelihoods
+    # and the rate affine stay fp32)
+    precision: str = "fp32"
+
+
+@dataclasses.dataclass
+class ExperimentConfig:
+    experiment: str = "dev"
+    stage: str = "featurizer"
+    out_dir: str = "results"
+    ckpt_dir: str = "checkpoints"
+    is_only_feat: bool = False
+    is_skip_comm: bool = False
+
+    data_feat: DataConfig = field(default_factory=DataConfig)
+    data_pred: DataConfig | None = None          # defaults to data_feat
+
+    encoder: EncoderConfig = field(default_factory=EncoderConfig)
+    rate: RateConfig = field(default_factory=RateConfig)
+    distortion: DistortionConfig = field(default_factory=DistortionConfig)
+    online: OnlineEvalConfig = field(default_factory=OnlineEvalConfig)
+    loss: LossConfig = field(default_factory=LossConfig)
+
+    # the reference's global optimizer defaults (config/main.yaml:17-22):
+    # AdamW lr 1e-3 (featurizer) / 3e-4 (coder, online), weight decay 1e-5,
+    # exponential lr decay by 100x over training (scheduler expdecay100);
+    # presets/CLI override per recipe. total_steps=0 -> span the planned
+    # training (bound at dataset-bind time, run.py).
+    optimizer_feat: OptimConfig = field(
+        default_factory=lambda: OptimConfig(mode="adamw", lr=1e-3,
+                                            weight_decay=1e-5,
+                                            scheduler="expdecay",
+                                            decay_factor=100.,
+                                            total_steps=0))
+    optimizer_coder: OptimConfig = field(
+        default_factory=lambda: OptimConfig(mode="adamw", lr=3e-4,
+                                            weight_decay=1e-5,
+                                            scheduler="expdecay",
+                                            decay_factor=100.,
+                                            total_steps=0))
+    optimizer_online: OptimConfig = field(
+        default_factory=lambda: OptimConfig(mode="adamw", lr=3e-4,
+                                            weight_decay=1e-5,
+                                            scheduler="expdecay",
+                                            decay_factor=100.,
+                                            total_steps=0))
+
+    predictor: PredictorConfig = field(default_factory=PredictorConfig)
+
+    trainer: TrainerConfig = field(default_factory=TrainerConfig)
+
+    # parameter-subtree names receiving zero updates — the reference's
+    # Freezer callback (callbacks.py:503-531) for staggered training, e.g.
+    # ("p_ZlX",) freezes the encoder in a stag_step2 run
+    frozen: tuple = ()
+
+    # filled from the dataset at runtime (main.py:346-373)
+    in_shape: Any = None
+    target_shape: Any = None
+    aux_shape: Any = None
+
+    def compressor_config(self) -> CompressorConfig:
+        return CompressorConfig(
+            encoder=self.encoder, rate=self.rate, distortion=self.distortion,
+            online=self.online, loss=self.loss, in_shape=self.in_shape,
+            target_shape=self.target_shape, aux_shape=self.aux_shape)
+
+    @property
+    def long_name(self) -> str:
+        """Path segment encoding the config (config/main.yaml:47-49 scheme)."""
+        return "/".join([
+            f"exp_{self.experiment}",
+            f"datafeat_{self.data_feat.name}",
+            f"dist_{self.distortion.mode}",
+            f"enc_{self.encoder.arch}",
+            f"rate_{self.rate.mode}",
+            f"zdim_{self.encoder.z_dim}",
+            f"beta_{self.loss.beta:.1e}",
+            f"seed_{self.trainer.seed}",
+        ])
+
+    @property
+    def stage_dir(self) -> Path:
+        return Path(self.out_dir) / self.long_name
+
+
+# architectures whose modules accept a dtype= compute-precision kwarg
+_DTYPE_ARCHS = {"mlp", "cnn", "balle", "resnet", "clip", "clip_vit",
+                "clip_rn50", "simclr", "swav"}
+
+
+def apply_precision(cfg: ExperimentConfig) -> ExperimentConfig:
+    """Resolve trainer.precision into arch dtype kwargs (idempotent).
+
+    bf16 is injected into the encoder and distortion-decoder arch kwargs
+    (probes stay fp32 — they are tiny and their CE/acc metrics are the
+    product). An explicit arch_kwargs.dtype always wins.
+    """
+    if cfg.trainer.precision in ("fp32", "float32", "32", None):
+        return cfg
+    if cfg.trainer.precision not in ("bf16", "bfloat16", "16"):
+        raise ValueError(
+            f"trainer.precision={cfg.trainer.precision!r}: use fp32 or bf16")
+
+    def with_dtype(kw):
+        kw = dict(kw)
+        kw.setdefault("dtype", "bfloat16")
+        return kw
+
+    if cfg.encoder.arch in _DTYPE_ARCHS:
+        cfg.encoder = dataclasses.replace(
+            cfg.encoder, arch_kwargs=with_dtype(cfg.encoder.arch_kwargs))
+    # arch=None resolves to cnn/mlp decoders inside the estimator — all
+    # dtype-capable for the direct mode
+    if cfg.distortion.arch in _DTYPE_ARCHS or (
+            cfg.distortion.arch is None and cfg.distortion.mode == "direct"):
+        cfg.distortion = dataclasses.replace(
+            cfg.distortion,
+            arch_kwargs=with_dtype(cfg.distortion.arch_kwargs))
+    return cfg
+
+
+# ---------------------------------------------------------------------------
+# Overrides
+# ---------------------------------------------------------------------------
+
+
+def _coerce(value: str):
+    try:
+        return ast.literal_eval(value)
+    except (ValueError, SyntaxError):
+        return value
+
+
+def apply_overrides(cfg: ExperimentConfig, overrides: list[str]) -> ExperimentConfig:
+    """Apply `a.b.c=value` assignments; frozen dataclasses are rebuilt."""
+    cfg = copy.deepcopy(cfg)
+    for ov in overrides:
+        if "=" not in ov:
+            raise ValueError(f"override must be key=value, got {ov!r}")
+        key, value = ov.split("=", 1)
+        parts = key.split(".")
+        if parts[0] == "data_pred" and len(parts) > 1 and cfg.data_pred is None:
+            # reference begin() (main.py:246-251): data_pred defaults to
+            # data_feat and overrides are merged on top of that copy
+            cfg.data_pred = copy.deepcopy(cfg.data_feat)
+        _set_path(cfg, parts, _coerce(value))
+    return cfg
+
+
+def _set_path(obj, parts: list[str], value):
+    head, rest = parts[0], parts[1:]
+    if not rest:
+        _set_attr(obj, head, value)
+        return
+    child = _get_attr(obj, head)
+    if dataclasses.is_dataclass(child) and _is_frozen(child):
+        # rebuild the frozen child with the nested assignment applied
+        _set_attr(obj, head, _rebuild_frozen(child, rest, value))
+    else:
+        _set_path(child, rest, value)
+
+
+def _rebuild_frozen(child, parts, value):
+    kw = {f.name: getattr(child, f.name) for f in dataclasses.fields(child)}
+    head, rest = parts[0], parts[1:]
+    if not rest:
+        if head not in kw:
+            raise AttributeError(
+                f"{type(child).__name__} has no field {head!r}")
+        kw[head] = value
+    else:
+        inner = kw[head]
+        if dataclasses.is_dataclass(inner) and _is_frozen(inner):
+            kw[head] = _rebuild_frozen(inner, rest, value)
+        elif isinstance(inner, dict):
+            inner = dict(inner)
+            _set_dict_path(inner, rest, value)
+            kw[head] = inner
+        else:
+            _set_path(inner, rest, value)
+    return type(child)(**kw)
+
+
+def _set_dict_path(d: dict, parts, value):
+    if len(parts) == 1:
+        d[parts[0]] = value
+    else:
+        _set_dict_path(d.setdefault(parts[0], {}), parts[1:], value)
+
+
+def _is_frozen(obj) -> bool:
+    return getattr(type(obj), "__dataclass_params__").frozen
+
+
+def _get_attr(obj, name):
+    if isinstance(obj, dict):
+        return obj[name]
+    if not hasattr(obj, name):
+        raise AttributeError(f"{type(obj).__name__} has no field {name!r}")
+    return getattr(obj, name)
+
+
+def _set_attr(obj, name, value):
+    if isinstance(obj, dict):
+        obj[name] = value
+        return
+    if not hasattr(obj, name):
+        raise AttributeError(f"{type(obj).__name__} has no field {name!r}")
+    if dataclasses.is_dataclass(obj) and _is_frozen(obj):
+        raise AttributeError(
+            f"cannot set {name} on frozen {type(obj).__name__} directly")
+    setattr(obj, name, value)
+
+
+# ---------------------------------------------------------------------------
+# Presets (the reference's experiment groups)
+# ---------------------------------------------------------------------------
+
+
+def preset(name: str) -> ExperimentConfig:
+    cfg = _preset_impl(name)
+    # the reference trains in half precision except for the banana
+    # recipes, as the JAX package's presets do (bf16); overrides applied
+    # after preset() still win
+    if not cfg.experiment.startswith("banana") and \
+            cfg.trainer.precision == "fp32":
+        cfg.trainer = dataclasses.replace(cfg.trainer, precision="bf16")
+    return cfg
+
+
+def _preset_impl(name: str) -> ExperimentConfig:
+    if name in ("clip_bottleneck_pretrain",):
+        # bin/clip/clip_bottleneck_pretrain.sh: pretrain the CLIP
+        # bottleneck on COCO — featurizer=bottleneck_clip_lossyZ (frozen
+        # tower, lossy_Z, H_hyper rate, beta 5e-2, featurizer only)
+        return ExperimentConfig(
+            experiment="clip_bottleneck_pretrain",
+            is_only_feat=True,
+            data_feat=DataConfig(name="coco_clip", batch_size=128,
+                                 n_epochs=30, kwargs=dict()),
+            encoder=EncoderConfig(arch="clip", z_dim=512),
+            rate=RateConfig(mode="H_hyper", is_endToEnd=False),
+            distortion=DistortionConfig(mode="lossy_Z"),
+            online=OnlineEvalConfig(is_online=False),
+            loss=LossConfig(beta=0.05),
+            frozen=("p_ZlX",),
+            optimizer_feat=OptimConfig(mode="adamw", lr=1e-3,
+                                       weight_decay=3e-8,
+                                       scheduler="unifmultistep",
+                                       decay_factor=1000., total_steps=0),
+            optimizer_coder=OptimConfig(mode="adamw", lr=3e-4,
+                                        weight_decay=1e-6,
+                                        scheduler="unifmultistep",
+                                        decay_factor=1000., total_steps=0),
+        )
+    if name in ("clip_hub",):
+        # bin/clip/clip_hub.sh: train the three hub betas on COCO with
+        # featurizer=bottleneck_clip_lossyZ_factorized — same recipe but
+        # the FACTORIZED rate, whose EB state dict becomes the published
+        # hub/beta*/factorized_rate.pt (sweep loss.beta over
+        # {1e-2, 5e-2, 1e-1} on the CLI; export via hub.save_hub)
+        cfg = preset("clip_bottleneck_pretrain")
+        cfg.experiment = "clip_hub"
+        cfg.rate = RateConfig(mode="H_factorized", eb_filters=(3, 3, 3, 3),
+                              is_endToEnd=False)
+        return cfg
+    raise NotImplementedError(
+        f"preset {name!r} is not ported yet (ROADMAP queue 1 item 10)")
+
+
+def available_presets() -> list[str]:
+    """The presets this package has."""
+    return ["clip_bottleneck_pretrain", "clip_hub"]

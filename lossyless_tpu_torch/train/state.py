@@ -1,0 +1,200 @@
+"""Train state: one update over three optimizer groups.
+
+Counterpart of `lossyless_tpu/train/state.py`. The combined objective is
+differentiated once and the parameters are split into groups by path:
+
+* "coder"  — entropy-model quantiles (paths with a `quantiles` component),
+* "online" — the online probe (paths through `online_evaluator`),
+* "main"   — everything else,
+* "frozen" — paths through a component named in `frozen_paths`: these get
+  `requires_grad_(False)` and belong to no optimizer (JAX zeroes their
+  updates with `optax.set_to_zero`).
+
+Schedules are plain functions of the update count that return what the
+optax schedule returns at that count. The optimizers are torch's, set up to
+follow optax: adamw with decoupled decay, adam and sgd (momentum 0.9) with
+torch-style coupled L2. `train_step` updates the state in place (the model
+parameters and optimizer moments) and returns it with the step's logs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import math
+from typing import Callable
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimConfig:
+    mode: str = "adam"                   # adam|adamw|sgd
+    lr: float = 3e-4
+    weight_decay: float = 0.0
+    # scheduler: {none, expdecay, unifmultistep, cosine, cosine_restart,
+    # plateau}
+    scheduler: str = "none"
+    decay_factor: float = 1000.0
+    k_steps: int = 3
+    total_steps: int = 10000
+    steps_per_epoch: int = 0
+    restart_t0_epochs: int = 5           # cosine_restart T_0 (epochs)
+    restart_mult: int = 2                # cosine_restart T_mult
+    plateau_factor: float = 0.2
+    plateau_patience: int = 10
+    plateau_threshold: float = 1e-4
+    plateau_min_lr: float = 1e-7
+
+
+def _cosine(lr: float, decay_steps: int) -> Callable[[int], float]:
+    # optax.cosine_decay_schedule(lr, decay_steps, alpha=0)
+    def f(count):
+        t = min(count, decay_steps) / decay_steps
+        return lr * 0.5 * (1.0 + math.cos(math.pi * t))
+    return f
+
+
+def _make_schedule(cfg: OptimConfig) -> Callable[[int], float]:
+    """The learning rate as a function of the update count."""
+    if cfg.scheduler == "plateau":
+        raise NotImplementedError(
+            "the plateau scheduler is not ported yet (ROADMAP queue 1 "
+            "item 8)")
+    if cfg.scheduler == "none" or cfg.total_steps <= 0:
+        # an unbound schedule (total_steps <= 0): constant lr
+        return lambda count: cfg.lr
+    if cfg.scheduler == "expdecay":
+        # optax.exponential_decay(lr, total_steps, 1 / decay_factor)
+        rate = 1.0 / cfg.decay_factor
+        return lambda count: cfg.lr * rate ** (count / cfg.total_steps)
+    if cfg.scheduler == "unifmultistep":
+        k = cfg.k_steps
+        gamma = (1.0 / cfg.decay_factor) ** (1.0 / k)
+        # max(1,): with total_steps < k+1 the milestones would collapse
+        delta = max(1, cfg.total_steps // (k + 1))
+        bounds = sorted({delta * i for i in range(1, k + 1)})
+        return lambda count: cfg.lr * gamma ** sum(count >= b for b in bounds)
+    if cfg.scheduler == "cosine":
+        return _cosine(cfg.lr, cfg.total_steps)
+    if cfg.scheduler == "cosine_restart":
+        spe = cfg.steps_per_epoch
+        if spe <= 0:
+            raise ValueError(
+                "cosine_restart is epoch-denominated: bind steps_per_epoch "
+                "via bind_schedule_steps(cfg, total, steps_per_epoch)")
+        periods, t = [], max(1, cfg.restart_t0_epochs * spe)
+        while sum(periods) < cfg.total_steps:
+            periods.append(t)
+            t *= max(1, cfg.restart_mult)
+        starts = [0, *itertools.accumulate(periods)][:-1]
+        pieces = [_cosine(cfg.lr, p) for p in periods]
+
+        def restart(count):
+            # optax.join_schedules: the last period whose start <= count
+            i = max(j for j, s in enumerate(starts) if count >= s)
+            return pieces[i](count - starts[i])
+        return restart
+    raise ValueError(f"unknown scheduler {cfg.scheduler}")
+
+
+def bind_schedule_steps(cfg: OptimConfig, total_steps: int,
+                        steps_per_epoch: int = 0) -> OptimConfig:
+    """Fill an unbound schedule (total_steps <= 0) with the planned step
+    count, and `steps_per_epoch` for the epoch-denominated schedulers."""
+    if cfg.scheduler != "none":
+        fills = {}
+        if cfg.total_steps <= 0:
+            fills["total_steps"] = max(0, total_steps)
+        if cfg.steps_per_epoch <= 0 and steps_per_epoch > 0:
+            fills["steps_per_epoch"] = steps_per_epoch
+        if fills:
+            return dataclasses.replace(cfg, **fills)
+    return cfg
+
+
+def make_optimizer(cfg: OptimConfig, params) -> torch.optim.Optimizer:
+    """The torch optimizer of one group; its lr is set from the schedule
+    before every update (`train_step`)."""
+    params = list(params)
+    if cfg.mode == "adam":
+        # coupled L2 (weight_decay added to the gradient), as the JAX
+        # package chains add_decayed_weights before adam
+        return torch.optim.Adam(params, lr=cfg.lr, betas=(0.9, 0.999),
+                                eps=1e-8, weight_decay=cfg.weight_decay)
+    if cfg.mode == "adamw":
+        return torch.optim.AdamW(params, lr=cfg.lr, betas=(0.9, 0.999),
+                                 eps=1e-8, weight_decay=cfg.weight_decay)
+    if cfg.mode == "sgd":
+        return torch.optim.SGD(params, lr=cfg.lr, momentum=0.9,
+                               weight_decay=cfg.weight_decay)
+    raise ValueError(f"unknown optimizer {cfg.mode}")
+
+
+def param_label(name: str, frozen_paths: tuple = ()) -> str:
+    """The group of a parameter, from its dotted state-dict name."""
+    keys = name.split(".")
+    if any(k in frozen_paths for k in keys):
+        return "frozen"
+    if "quantiles" in keys:
+        return "coder"
+    if "online_evaluator" in keys:
+        return "online"
+    return "main"
+
+
+@dataclasses.dataclass
+class TrainState:
+    model: torch.nn.Module
+    # label -> (optimizer, schedule); frozen params are in none of them
+    optimizers: dict
+    step: int = 0
+
+    @classmethod
+    def create(cls, model, main: OptimConfig,
+               online: OptimConfig | None = None,
+               coder: OptimConfig | None = None, frozen_paths: tuple = ()):
+        cfgs = {"main": main, "online": online or main,
+                "coder": coder or main}
+        groups = {label: [] for label in cfgs}
+        for name, p in model.named_parameters():
+            label = param_label(name, tuple(frozen_paths))
+            if label == "frozen":
+                p.requires_grad_(False)
+            else:
+                groups[label].append(p)
+        optimizers = {label: (make_optimizer(cfgs[label], ps),
+                              _make_schedule(cfgs[label]))
+                      for label, ps in groups.items() if ps}
+        return cls(model=model, optimizers=optimizers)
+
+
+def train_step(state: TrainState, batch, generator=None, noise=None):
+    """One fused RD + coder update, in place. Returns (state, logs)."""
+    x, y, aux = batch
+    for opt, _ in state.optimizers.values():
+        opt.zero_grad(set_to_none=True)
+    loss, logs = state.model.step(x, y, aux, training=True, step=state.step,
+                                  generator=generator, noise=noise)
+    loss.backward()
+    for opt, schedule in state.optimizers.values():
+        lr = schedule(state.step)
+        for group in opt.param_groups:
+            group["lr"] = lr
+            for p in group["params"]:
+                # optax updates every param of a group each step (decay and
+                # moments included); torch skips a param without a grad
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+        opt.step()
+    state.step += 1
+    return state, {k: v.detach() if isinstance(v, torch.Tensor) else v
+                   for k, v in logs.items()}
+
+
+@torch.no_grad()
+def eval_step(state: TrainState, batch, generator=None,
+              is_rate_only: bool = False):
+    x, y, aux = batch
+    return state.model.step(x, y, aux, training=False, step=state.step,
+                            generator=generator, is_rate_only=is_rate_only)

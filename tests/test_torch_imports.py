@@ -7,6 +7,8 @@ what the port itself imports.
 """
 
 import ast
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -34,7 +36,36 @@ def test_the_scan_covers_the_port():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert "lossyless_tpu_torch/hub/compressor.py" in names
     assert "lossyless_tpu_torch/nn/flash_attn.py" in names
+    assert set(NEW_MODULES) <= {n[:-3].replace("/", ".") for n in names}
     assert len(names) >= 15
+
+
+# the modules of the training path (slice 2)
+NEW_MODULES = [
+    "lossyless_tpu_torch.core.annealer",
+    "lossyless_tpu_torch.compressors.distributions",
+    "lossyless_tpu_torch.coding.eb_kernel",
+    "lossyless_tpu_torch.compressors.rates",
+    "lossyless_tpu_torch.compressors.distortions",
+    "lossyless_tpu_torch.nn.registry",
+    "lossyless_tpu_torch.compressors.compressor",
+    "lossyless_tpu_torch.train.state",
+    "lossyless_tpu_torch.pipeline.config",
+    "lossyless_tpu_torch.pipeline.run",
+    "lossyless_tpu_torch.hub.save_hub",
+]
+
+
+def test_the_training_path_imports_with_jax_blocked():
+    """A fresh interpreter in which importing jax, flax, optax or the JAX
+    package fails imports every module of the training path."""
+    block = "; ".join(f"sys.modules[{m!r}] = None" for m in FORBIDDEN)
+    code = (f"import sys; {block}; import importlib; "
+            f"[importlib.import_module(m) for m in {NEW_MODULES!r}]; "
+            f"print('ok')")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
 @pytest.mark.parametrize("path", FILES,
