@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Phases, in order; any failure raises and the script exits non-zero without
-printing a result:
+Phases, in the order they run; any failure raises and the script exits
+non-zero without printing a result:
 
 1. the card's name and power limit (nvidia-smi) and the torch/CUDA versions;
 2. build of every native library of the main path from the sources in the
@@ -21,6 +21,12 @@ printing a result:
    shapes in bf16, to atol 2e-2 plus one bf16 ulp of the value; then
    CUDA-event timings of each, of its plain version and, for K4, of the op
    path it replaces (LayerNorm, two matmuls, elementwise: a yardstick);
+3c. K5a (packed, packs 2, 4, 8, 16) and K5b (head-batched) through the
+   `fused_attention` wrapper under their knobs, at B=512, N=50, h=12,
+   d=64, bf16, and at odd shapes (B=7, N=37, d=40 in fp32 and bf16; pack 3
+   at B=8, stepping down to 2), against their plain versions and K1's
+   output (fp32 rtol/atol 1e-5, bf16 atol 2e-2); then CUDA-event timings
+   of each, its plain version and `scaled_dot_product_attention`;
 4. the encode/decode path at full width: a seeded random CLIP ViT-B/32
    tower in bf16 with seeded entropy-bottleneck params, `compress_dataset`
    over 8 batches of 256 raw uint8 96x96 images, then `decompress_dataset`.
@@ -43,7 +49,20 @@ printing a result:
    `load_hub_npz` into `ClipCompressor` with the same tower weights,
    `compress_dataset` and `decompress_dataset` one batch; the decoded
    features must equal the dequantize path to 1e-5;
-7. the `kernels` JSON line and, last, `{"ok": true, "device": {...}}`.
+8. the CLIP bottleneck (`clip_bottleneck_pretrain`: the hyperprior rate,
+   K3 on its side bottleneck) at full width: 20 training steps at batch
+   128 (median step ms, img/s, finite loss, rate, H_q_S, H_q_ZlS and
+   distortion; launches per step K1 11, K2 1, K3 1); 3 steps from the same
+   weights and noise under the default, `IMAGE_PACK=4` (K5a 11 a step, K1
+   0) and `HEAD_BATCH=True` (K5b 11, K1 0), whose loss, rate and
+   distortion must equal the default's to rtol 1e-2; `run_communication`
+   over 4 batches of 256 under each knob (n_bits, sender and receiver
+   ms/img, the `communication` sentinel), the `HyperpriorCoder` decode
+   equal to the host dequantize to 1e-5, and the side symbols and the
+   main symbols given K1's side latent within 1% of K1's; a
+   torch.profiler trace of 3 steps;
+7. the `kernels` JSON line (K1-K4, K5a, K5b) and, last,
+   `{"ok": true, "device": {...}}`.
 
 It needs a CUDA card and the repository around it: with no card, or run
 from a directory that holds only this file, it fails.
@@ -51,6 +70,7 @@ from a directory that holds only this file, it fails.
 
 from __future__ import annotations
 
+import copy
 import json
 import subprocess
 import sys
@@ -68,6 +88,7 @@ N_BATCHES, BATCH, RAW_HW = 8, 256, (96, 96)
 SLICE = dict(N=50, heads=12, d=64)   # ViT-B/32 attention shapes
 TRAIN_BATCH, TRAIN_STEPS, PROFILE_STEPS, AB_STEPS = 128, 20, 3, 3
 DEVICE = "cuda"   # the training and serving phases' device
+NO_K5 = {"fused_attention_packed": 0, "fused_attention_headbatched": 0}
 TRAIN_OVERRIDES = ["rate.eb_use_pallas=True",
                    "encoder.arch_kwargs.mlp_impl=pallas",
                    "trainer.log_every=5"]
@@ -213,6 +234,136 @@ def check_kernels():
     return results
 
 
+class Knobs:
+    """Set the attention variant knobs of `nn.flash_attn` for a block."""
+
+    def __init__(self, **kw):
+        self.kw = kw
+
+    def __enter__(self):
+        from lossyless_tpu_torch.nn import flash_attn as fa
+
+        self.saved = {k: getattr(fa, k) for k in self.kw}
+        for k, v in self.kw.items():
+            setattr(fa, k, v)
+
+    def __exit__(self, *exc):
+        from lossyless_tpu_torch.nn import flash_attn as fa
+
+        for k, v in self.saved.items():
+            setattr(fa, k, v)
+
+
+K5_PACKS = (2, 4, 8, 16)
+K5_MAIN_PACK = 4          # the pack phase 8 runs K5a at
+
+
+def check_k5() -> dict:
+    """Phase 3c: K5a (packed) and K5b (head-batched) through the
+    `fused_attention` wrapper under their knobs, against their plain
+    versions and K1's output; then timings at batch 512."""
+    import torch
+    import torch.nn.functional as F
+
+    from lossyless_tpu_torch.nn import flash_attn as fa
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    slice_ = (512, SLICE["N"], SLICE["heads"], SLICE["d"], bf16)
+    # (B, N, heads, d, dtype, knobs); fp32 to rtol/atol 1e-5, bf16 atol 2e-2
+    cases = [(*slice_, dict(IMAGE_PACK=p)) for p in K5_PACKS] + [
+        (*slice_, dict(HEAD_BATCH=True)),
+        (7, 37, 3, 40, f32, dict(IMAGE_PACK=7)),
+        (7, 37, 3, 40, f32, dict(HEAD_BATCH=True)),
+        (8, 50, 12, 64, bf16, dict(IMAGE_PACK=3)),     # steps down to 2
+        (8, 50, 4, 24, f32, dict(IMAGE_PACK=3)),
+        (16, 50, 12, 64, f32, dict(IMAGE_PACK=4)),
+        (7, 37, 3, 40, bf16, dict(IMAGE_PACK=7)),      # d, M not x16
+        (6, 9, 2, 33, bf16, dict(IMAGE_PACK=3)),       # scalar staging
+        (7, 37, 3, 40, bf16, dict(HEAD_BATCH=True)),
+        (3, 7, 3, 20, bf16, dict(HEAD_BATCH=True)),
+        (2, 197, 12, 64, bf16, dict(HEAD_BATCH=True)),
+    ]
+    errs = {}
+    with torch.inference_mode():
+        for i, (B, N, h, d, dtype, kw) in enumerate(cases):
+            (qkv,) = k1_inputs(B, N, h, d, dtype, seed=200 + i)
+            k1 = fa.fused_attention(qkv, h)
+            with Knobs(**kw):
+                variant, pack = fa.attention_variant(qkv)
+                name = f"fused_attention_{variant}"
+                before = fa.LAUNCHES[name]
+                got = fa.fused_attention(qkv, h)
+                torch.cuda.synchronize()
+                if fa.LAUNCHES[name] != before + 1:
+                    raise AssertionError(f"{kw} did not launch {name}")
+                want = (fa.attention_packed_plain(qkv, h, pack)
+                        if variant == "packed"
+                        else fa.attention_headbatched_plain(qkv, h))
+            g, w, k = got.float(), want.float(), k1.float()
+            err = (g - w).abs().max().item()
+            err_k1 = (g - k).abs().max().item()
+            if dtype == f32:
+                ok = bool(((g - w).abs() <= 1e-5 + 1e-5 * w.abs()).all()
+                          and ((g - k).abs() <= 1e-5 + 1e-5 * k.abs()).all())
+                tol = "rtol/atol 1e-5"
+            else:
+                ok = err <= 2e-2 and err_k1 <= 2e-2
+                tol = "atol 2e-2"
+            ok = ok and bool(torch.isfinite(got).all())
+            label = f"pack={pack}" if variant == "packed" else "head-batched"
+            print(f"check {name} {label} B={B} N={N} h={h} d={d} "
+                  f"{str(dtype)[6:]}: max_abs_err={err!r} vs K1 "
+                  f"{err_k1!r} tol={tol} {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            if not ok:
+                raise AssertionError(f"{name} ({kw}) disagrees at B={B} "
+                                     f"N={N} d={d}")
+            if B == 512:   # the slice shape's error goes in the line
+                errs[variant, pack] = err
+
+    B, N, h, d = slice_[:4]
+    D = h * d
+    (qkv,) = k1_inputs(B, N, h, d, bf16, seed=100)
+    q, k, v = (t.view(B, N, h, d).transpose(1, 2)
+               for t in qkv.split(D, dim=-1))
+    nbytes = qkv.numel() * 2 + B * N * D * 2
+    results = {}
+    with torch.inference_mode():
+        library_ms = median_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v))
+        by_pack = {}
+        for kw in [dict(IMAGE_PACK=p) for p in K5_PACKS] + \
+                [dict(HEAD_BATCH=True)]:
+            with Knobs(**kw):
+                variant, pack = fa.attention_variant(qkv)
+                ms = median_ms(lambda: fa.fused_attention(qkv, h))
+            if variant == "packed":
+                plain_ms = median_ms(
+                    lambda: fa.attention_packed_plain(qkv, h, pack))
+            else:
+                plain_ms = median_ms(
+                    lambda: fa.attention_headbatched_plain(qkv, h))
+            flops = 4 * B * h * N * N * d * pack
+            bound_ms, bound_by = bound(nbytes, flops, "bfloat16")
+            row = dict(max_abs_err=errs[(variant, pack)], ms=ms,
+                       plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, library_ms=library_ms)
+            label = f"pack={pack}" if variant == "packed" else "head-batched"
+            print(f"time fused_attention_{variant} {label} B={B} N={N} h={h} "
+                  f"d={d} bf16: kernel {ms!r} ms, plain {plain_ms!r} ms, "
+                  f"sdpa {library_ms!r} ms, bound {bound_ms!r} ms "
+                  f"({bound_by}: {nbytes} bytes, {flops} flop)", flush=True)
+            if variant == "packed":
+                by_pack[pack] = row
+            else:
+                results["fused_attention_headbatched"] = row
+    results["fused_attention_packed"] = dict(
+        by_pack[K5_MAIN_PACK], pack=K5_MAIN_PACK,
+        ms_by_pack={p: r["ms"] for p, r in by_pack.items()},
+        bound_ms_by_pack={p: r["bound_ms"] for p, r in by_pack.items()})
+    return results
+
+
 def main_path(card: str) -> dict:
     """Phase 4: compress_dataset + decompress_dataset at full width."""
     import torch
@@ -256,7 +407,7 @@ def main_path(card: str) -> dict:
     # the encode path's MLPs are torch ops and it computes no likelihood
     want = {"fused_attention": (n_layers - 1) * N_BATCHES,
             "fused_attention_cls": N_BATCHES, "fused_mlp_block": 0,
-            "eb_likelihood": 0}
+            "eb_likelihood": 0, **NO_K5}
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
     if rans._get_lib()._name != str(_build.library_path("rans")):
@@ -446,8 +597,8 @@ def read_launches() -> dict:
     return {**fa.LAUNCHES, **eb_kernel.LAUNCHES}
 
 
-def train_images(n: int, seed: int):
-    """`n` batches of TRAIN_BATCH seeded random CLIP-normalized 224x224
+def train_images(n: int, seed: int, batch: int = TRAIN_BATCH):
+    """`n` batches of `batch` seeded random CLIP-normalized 224x224
     images (NHWC) made on the card, with labels and unused aux targets."""
     import torch
 
@@ -458,11 +609,9 @@ def train_images(n: int, seed: int):
     std = torch.as_tensor(CLIP_STD, device=DEVICE)
     out = []
     for i in range(n):
-        x = torch.rand(TRAIN_BATCH, 224, 224, 3, generator=g, device=DEVICE)
-        y = torch.arange(i * TRAIN_BATCH, (i + 1) * TRAIN_BATCH,
-                         device=DEVICE)
-        out.append(((x - mean) / std, y, torch.zeros(TRAIN_BATCH,
-                                                     device=DEVICE)))
+        x = torch.rand(batch, 224, 224, 3, generator=g, device=DEVICE)
+        y = torch.arange(i * batch, (i + 1) * batch, device=DEVICE)
+        out.append(((x - mean) / std, y, torch.zeros(batch, device=DEVICE)))
     return out
 
 
@@ -489,7 +638,8 @@ def train_path(card: str):
     from lossyless_tpu_torch.pipeline import config
     from lossyless_tpu_torch.pipeline.run import run_featurizer
 
-    cfg = config.apply_overrides(config.preset("clip_hub"), TRAIN_OVERRIDES)
+    cfg = config.apply_overrides(config.preset("clip_hub"), TRAIN_OVERRIDES
+                                 + [f"out_dir={OUT_DIR}"])
     cfg.in_shape = (224, 224, 3)
     batches = train_images(TRAIN_STEPS + PROFILE_STEPS, seed=7)
     step_s, last = [], {}
@@ -514,7 +664,7 @@ def train_path(card: str):
     want = {"fused_attention": (L - 1) * TRAIN_STEPS,
             "fused_attention_cls": TRAIN_STEPS,
             "fused_mlp_block": (L - 1) * TRAIN_STEPS,
-            "eb_likelihood": TRAIN_STEPS}
+            "eb_likelihood": TRAIN_STEPS, **NO_K5}
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
     logs = {k: float(v) for k, v in last.items()}
@@ -616,7 +766,164 @@ def train_to_serve(state, card: str):
         raise AssertionError(f"trained compressor round trip off by {err}")
 
 
-KERNEL_GROUPS = {"attention K1/K2": ("attention_kernel",),
+def slice_path(card: str) -> dict:
+    """Phase 8: the CLIP bottleneck with the hyperprior rate
+    (`clip_bottleneck_pretrain`, K3 on the side bottleneck), trained,
+    A/B'd under the attention knobs, and coded for real by the
+    communication stage under each knob. Returns the launch counts of the
+    whole phase and the K5a/K5b launches per step under their knobs."""
+    import torch
+
+    from lossyless_tpu_torch.compressors.rates import HyperpriorCoder
+    from lossyless_tpu_torch.pipeline import config
+    from lossyless_tpu_torch.pipeline.run import (build_state,
+                                                  run_communication,
+                                                  run_featurizer)
+    from lossyless_tpu_torch.train.checkpoints import is_stage_done
+
+    cfg = config.apply_overrides(config.preset("clip_bottleneck_pretrain"), [
+        "rate.eb_use_pallas=True", "trainer.log_every=5",
+        f"out_dir={OUT_DIR}"])
+    cfg.in_shape = (224, 224, 3)
+    batches = train_images(TRAIN_STEPS + PROFILE_STEPS, seed=17)
+    L = cfg.encoder.arch_kwargs.get("layers", 12)
+    reset_launches()     # the slice's main path: everything below
+
+    # 8a. training, 20 steps on the default kernels
+    step_s, last, t_prev = [], {}, [0.0]
+
+    def on_step(step, state, logs):
+        sync()
+        now = time.perf_counter()
+        step_s.append(now - t_prev[0])
+        t_prev[0] = now
+        last.update(logs)
+
+    t_prev[0] = time.perf_counter()
+    state = run_featurizer(cfg, batches[:TRAIN_STEPS],
+                           total_steps=TRAIN_STEPS, on_step=on_step,
+                           log=lambda _: None, device=DEVICE)
+    launches = read_launches()
+    per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
+    want = {"fused_attention": L - 1, "fused_attention_cls": 1,
+            "eb_likelihood": 1, "fused_mlp_block": 0, **NO_K5}
+    if per_step != want:
+        raise AssertionError(f"launches per step {per_step}, expected {want}")
+    keys = ("loss", "rate", "H_q_S", "H_q_ZlS", "distortion")
+    logs = {k: float(last[k]) for k in keys}
+    if not all(np.isfinite(v) for v in logs.values()):
+        raise AssertionError(f"non-finite training logs {logs}")
+    step_ms = float(np.median(step_s[2:])) * 1e3
+    print(json.dumps({"slice_training": dict(
+        card=card, preset="clip_bottleneck_pretrain",
+        side_z_dim=state.model.rate_estimator.side_z_dim,
+        batch=TRAIN_BATCH, steps=TRAIN_STEPS, step_ms_median=step_ms,
+        step_ms_all=[t * 1e3 for t in step_s],
+        img_per_s=TRAIN_BATCH / (step_ms / 1e3), final_logs=logs,
+        launches_per_step=per_step)}), flush=True)
+
+    # 8b. 3 steps from the same weights and noise under each knob
+    init = {k: v.clone() for k, v in state.model.state_dict().items()}
+    runs = {}
+    for name, kw in KNOB_RUNS:
+        ab = build_state(config.apply_precision(copy.deepcopy(cfg)),
+                         AB_STEPS, device=DEVICE)
+        ab.model.load_state_dict(init)
+        rows = []
+        before = read_launches()
+        with Knobs(**kw):
+            run_featurizer(cfg, batches[:AB_STEPS], state=ab,
+                           log=lambda _: None, device=DEVICE,
+                           on_step=lambda s, st, lg: rows.append(
+                               {k: float(lg[k]) for k in keys}))
+        after = read_launches()
+        got = {k: (after[k] - before[k]) / AB_STEPS for k in after}
+        attn = {"default": "fused_attention", "packed":
+                "fused_attention_packed", "headbatched":
+                "fused_attention_headbatched"}[name]
+        wanted = {k: 0 for k in got} | {
+            attn: L - 1, "fused_attention_cls": 1, "eb_likelihood": 1}
+        if got != wanted:
+            raise AssertionError(f"{name}: launches per step {got}, "
+                                 f"expected {wanted}")
+        runs[name] = dict(logs=rows, launches_per_step=got)
+    worst = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
+                for name in ("packed", "headbatched")
+                for a, b in zip(runs[name]["logs"], runs["default"]["logs"])
+                for k in a)
+    print(json.dumps({"slice_knob_ab": dict(
+        steps=AB_STEPS, runs=runs, max_rel_diff=worst, tolerance=1e-2)}),
+        flush=True)
+    if not worst <= 1e-2:
+        raise AssertionError(f"knob runs differ from the default by {worst}")
+
+    # 8c. the communication stage on the trained state under each knob
+    comm_batches = train_images(COMM_BATCHES, seed=23, batch=COMM_BATCH)
+    coder = HyperpriorCoder(state.model.rate_estimator)
+    x0 = comm_batches[0][0]
+    comm, symbols, z_by_knob = {}, {}, {}
+    for name, kw in KNOB_RUNS:
+        with Knobs(**kw):
+            m = run_communication(cfg, state, comm_batches, device=DEVICE)
+            z0 = state.model.encode(x0).float().cpu().numpy()
+        syms = coder.encode_symbols(z0)
+        symbols[name], z_by_knob[name] = syms, z0
+        decoded = coder.decompress(coder.compress(z0))
+        err = float(np.abs(decoded - coder.dequantize(*syms)).max())
+        comm[name] = dict(
+            n_bits=m["test/comm/n_bits"],
+            sender_ms_per_img=m["test/comm/sender_time"] * 1e3,
+            receiver_ms_per_img=m["test/comm/receiver_time"] * 1e3,
+            encoder_ms_per_img=m["test/comm/encoder_time"] * 1e3,
+            compress_ms_per_img=m["test/comm/compress_time"] * 1e3,
+            decode_vs_dequantize_max_abs_err=err)
+        if err > 1e-5 or not np.isfinite(decoded).all():
+            raise AssertionError(f"{name}: decode off the host dequantize "
+                                 f"by {err}")
+    # symbols against K1's: the side latent's, and the main latent's given
+    # K1's side information (bounded at 1%). A flipped side symbol
+    # re-derives the means of its whole row, so the main symbols each
+    # variant codes with its own side latent are reported, not bounded.
+    z_k1, side_k1 = symbols["default"]
+    for name in ("packed", "headbatched"):
+        z_own, side = symbols[name]
+        z_same_side, _ = coder.encode_symbols(z_by_knob[name], side_k1)
+        flips = dict(side=float((side != side_k1).mean()),
+                     main_given_k1_side=float((z_same_side != z_k1).mean()),
+                     main_own_side=float((z_own != z_k1).mean()))
+        comm[name]["symbol_flip_fraction_vs_k1"] = flips
+        if max(flips["side"], flips["main_given_k1_side"]) > 0.01:
+            raise AssertionError(f"{name}: symbols flip {flips}")
+    sentinel = is_stage_done(cfg.stage_dir, "communication")
+    print(json.dumps({"slice_communication": dict(
+        card=card, batches=COMM_BATCHES, batch=COMM_BATCH, by_knob=comm,
+        sentinel=sentinel)}), flush=True)
+    if not sentinel:
+        raise AssertionError("the communication sentinel was not written")
+    slice_launches = read_launches()
+
+    # 8d. where a training step's time goes (after the timed runs)
+    prof = device_profile(
+        lambda: run_featurizer(cfg, batches[TRAIN_STEPS:], state=state,
+                               log=lambda _: None, device=DEVICE),
+        card, steps=PROFILE_STEPS, batch=TRAIN_BATCH)
+    print(json.dumps({"slice_training_profile": prof}), flush=True)
+    under_knob = {"fused_attention_packed": runs["packed"][
+        "launches_per_step"]["fused_attention_packed"],
+        "fused_attention_headbatched": runs["headbatched"][
+        "launches_per_step"]["fused_attention_headbatched"]}
+    return slice_launches, under_knob
+
+
+KNOB_RUNS = (("default", {}), ("packed", dict(IMAGE_PACK=K5_MAIN_PACK)),
+             ("headbatched", dict(HEAD_BATCH=True)))
+COMM_BATCHES, COMM_BATCH = 4, 256
+OUT_DIR = None     # a temporary directory for the stages' files (main)
+
+
+KERNEL_GROUPS = {"attention K5a": ("packed_attention",),
+                 "attention K5b": ("headbatched_attention",),
+                 "attention K1/K2": ("attention_kernel",),
                  "mlp K4": ("mlp_block_kernel",),
                  "likelihood K3": ("eb_likelihood_kernel",),
                  "matmul": ("gemm", "xmma", "cutlass", "nvjet", "cublas"),
@@ -688,34 +995,57 @@ def main() -> int:
             if "registers" in line or "smem" in line or "spill" in line:
                 print(f"ptxas {name}:", line.strip(), flush=True)
 
+    global OUT_DIR
     timings = check_kernels()
     timings.update(check_k3_k4())
+    timings.update(check_k5())
     encode_launches = main_path(card)
-    state, train_launches = train_path(card)
-    train_to_serve(state, card)
+    with tempfile.TemporaryDirectory() as OUT_DIR:
+        state, train_launches = train_path(card)
+        train_to_serve(state, card)
+        del state
+        slice_launches, under_knob = slice_path(card)
+    missing = [k for k in ("fused_attention", "fused_attention_cls",
+                           "eb_likelihood", *NO_K5) if not slice_launches[k]]
+    if missing:
+        raise AssertionError(f"the slice path launched no {missing}")
 
-    sources = {"fused_attention": "lossyless_tpu_torch/nn/csrc/attention.cu",
-               "fused_attention_cls":
-                   "lossyless_tpu_torch/nn/csrc/attention.cu",
+    attention_cu = "lossyless_tpu_torch/nn/csrc/attention.cu"
+    sources = {"fused_attention": attention_cu,
+               "fused_attention_cls": attention_cu,
                "eb_likelihood":
                    "lossyless_tpu_torch/coding/csrc/eb_likelihood.cu",
-               "fused_mlp_block": "lossyless_tpu_torch/nn/csrc/mlp_block.cu"}
+               "fused_mlp_block": "lossyless_tpu_torch/nn/csrc/mlp_block.cu",
+               "fused_attention_packed": attention_cu,
+               "fused_attention_headbatched": attention_cu}
     replaces = {"fused_attention": "lossyless_tpu/nn/flash_attn.py:211",
                 "fused_attention_cls": "lossyless_tpu/nn/flash_attn.py:349",
                 "eb_likelihood": "lossyless_tpu/coding/pallas_eb.py:117",
-                "fused_mlp_block": "lossyless_tpu/nn/flash_attn.py:433"}
+                "fused_mlp_block": "lossyless_tpu/nn/flash_attn.py:433",
+                "fused_attention_packed": "lossyless_tpu/nn/flash_attn.py:146",
+                "fused_attention_headbatched":
+                    "lossyless_tpu/nn/flash_attn.py:178"}
     kernels = []
     for name in sources:
-        # launches: K1/K2 on the encode path, K3/K4 on the training path
-        # (K1/K2 run there too: launches_per_training_step)
-        on_encode = name.startswith("fused_attention")
-        launches = (encode_launches if on_encode else train_launches)[name]
-        kernels.append(dict(
-            name=name, route="cuda", source=sources[name],
-            replaces=replaces[name], launches=launches,
-            launches_per_encode_batch=encode_launches[name] / N_BATCHES,
-            launches_per_training_step=train_launches[name] / TRAIN_STEPS,
-            **timings[name]))
+        if name in NO_K5:
+            # K5a/K5b: the slice path's run (8b under their knob, 8c)
+            counts = dict(
+                launches=slice_launches[name],
+                launches_per_training_step_under_knob=under_knob[name])
+        else:
+            # K1/K2 on the encode path, K3/K4 on the training path (K1/K2
+            # run there too: launches_per_training_step)
+            on_encode = name.startswith("fused_attention")
+            counts = dict(
+                launches=(encode_launches if on_encode
+                          else train_launches)[name],
+                launches_per_encode_batch=encode_launches[name] / N_BATCHES,
+                launches_per_training_step=train_launches[name]
+                / TRAIN_STEPS,
+                launches_on_slice_path=slice_launches[name])
+        kernels.append(dict(name=name, route="cuda", source=sources[name],
+                            replaces=replaces[name], **counts,
+                            **timings[name]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     # every phase ran on the current device: one card

@@ -6,6 +6,8 @@ Counterpart of `lossyless_tpu/coding/rans.py`, over the port's own copy of
 * ``encode_with_indexes`` / ``decode_with_indexes`` — per-message API with
   the reference coder's semantics (16-bit precision, 4-bit bypass escapes).
 * ``encode_batch`` / ``decode_batch`` — batched multithreaded coding.
+* ``encode_batch_varidx`` / ``decode_batch_varidx`` — the same with an
+  index row per message (the hyperprior's Gaussian-conditional stream).
 
 The library is compiled with g++ at first use into the port's build
 directory (``nn/_build.py``), never next to the JAX package's source. A
@@ -64,6 +66,12 @@ def _get_lib():
             u8p, i64p, ctypes.c_int64, i32p, ctypes.c_int64, i32p, i32p, i32p,
             ctypes.c_int64, i32p, ctypes.c_int64,
         ]
+        lib.rans_encode_batch_varidx.restype = ctypes.c_int64
+        lib.rans_encode_batch_varidx.argtypes = \
+            lib.rans_encode_batch.argtypes
+        lib.rans_decode_batch_varidx.restype = ctypes.c_int64
+        lib.rans_decode_batch_varidx.argtypes = \
+            lib.rans_decode_batch.argtypes
         lib.pmf_to_quantized_cdf.restype = ctypes.c_int32
         lib.pmf_to_quantized_cdf.argtypes = [f32p, ctypes.c_int32,
                                              ctypes.c_int32, i32p]
@@ -306,23 +314,15 @@ class RansCodec:
 
     # -- batched ------------------------------------------------------------
 
-    def encode_batch(self, symbols, indexes) -> list[bytes]:
-        """Encode a (batch, m) symbol matrix; shared per-position `indexes` (m,)."""
-        symbols = _as_i32(symbols)
-        indexes = _as_i32(indexes).ravel()
-        self._check_indexes(indexes)
-        if symbols.ndim != 2:
-            raise ValueError(f"symbols must be (batch, m), got {symbols.shape}")
+    def _encode_rows(self, fn, symbols: np.ndarray,
+                     indexes: np.ndarray) -> list[bytes]:
         batch, m = symbols.shape
-        if len(indexes) != m:
-            raise ValueError(f"indexes ({len(indexes)}) must match the "
-                             f"symbol row length ({m})")
         if batch == 0:
             return []
         per_cap = 4 * (m * 12 + 32)
         out = self._encode_buffer(batch * per_cap)
         lengths = np.empty(batch, dtype=np.int64)
-        total = self._lib.rans_encode_batch(
+        total = fn(
             _ptr(symbols, ctypes.c_int32), batch, m,
             _ptr(indexes, ctypes.c_int32), *self._tables(),
             _ptr(out, ctypes.c_uint8), per_cap, _ptr(lengths, ctypes.c_int64),
@@ -334,11 +334,8 @@ class RansCodec:
             for i in range(batch)
         ]
 
-    def decode_batch(self, streams: list[bytes], indexes) -> np.ndarray:
-        """Decode a list of streams to a (batch, m) symbol matrix."""
-        indexes = _as_i32(indexes).ravel()
-        self._check_indexes(indexes)
-        m = len(indexes)
+    def _decode_rows(self, fn, streams: list[bytes], indexes: np.ndarray,
+                     m: int) -> np.ndarray:
         batch = len(streams)
         if batch == 0:
             return np.empty((0, m), dtype=np.int32)
@@ -346,7 +343,7 @@ class RansCodec:
         np.cumsum([len(s) for s in streams], out=byte_offsets[1:])
         blob = np.frombuffer(b"".join(streams), dtype=np.uint8)
         out = np.empty((batch, m), dtype=np.int32)
-        rv = self._lib.rans_decode_batch(
+        rv = fn(
             _ptr(blob, ctypes.c_uint8), _ptr(byte_offsets, ctypes.c_int64),
             batch, _ptr(indexes, ctypes.c_int32), m, *self._tables(),
             _ptr(out, ctypes.c_int32), self.n_threads)
@@ -354,6 +351,51 @@ class RansCodec:
             raise ValueError(
                 f"corrupt or truncated rANS stream (message {-rv - 1})")
         return out
+
+    def encode_batch(self, symbols, indexes) -> list[bytes]:
+        """Encode a (batch, m) symbol matrix; shared per-position `indexes` (m,)."""
+        symbols = _as_i32(symbols)
+        indexes = _as_i32(indexes).ravel()
+        self._check_indexes(indexes)
+        if symbols.ndim != 2:
+            raise ValueError(f"symbols must be (batch, m), got {symbols.shape}")
+        if len(indexes) != symbols.shape[1]:
+            raise ValueError(f"indexes ({len(indexes)}) must match the "
+                             f"symbol row length ({symbols.shape[1]})")
+        return self._encode_rows(self._lib.rans_encode_batch, symbols,
+                                 indexes)
+
+    def decode_batch(self, streams: list[bytes], indexes) -> np.ndarray:
+        """Decode a list of streams to a (batch, m) symbol matrix."""
+        indexes = _as_i32(indexes).ravel()
+        self._check_indexes(indexes)
+        return self._decode_rows(self._lib.rans_decode_batch, streams,
+                                 indexes, len(indexes))
+
+    def encode_batch_varidx(self, symbols, indexes) -> list[bytes]:
+        """Per-message index rows: symbols (B, m), indexes (B, m)."""
+        symbols, indexes = _as_i32(symbols), _as_i32(indexes)
+        self._check_indexes(indexes)
+        if symbols.shape != indexes.shape or symbols.ndim != 2:
+            raise ValueError(f"symbols {symbols.shape} and indexes "
+                             f"{indexes.shape} must be equal (batch, m)")
+        return self._encode_rows(self._lib.rans_encode_batch_varidx,
+                                 symbols, indexes)
+
+    def decode_batch_varidx(self, streams: list[bytes],
+                            indexes) -> np.ndarray:
+        """Decode message i against index row i of `indexes` (B, m)."""
+        indexes = _as_i32(indexes)
+        self._check_indexes(indexes)
+        if indexes.ndim != 2:
+            raise ValueError(f"indexes must be (batch, m), got "
+                             f"{indexes.shape}")
+        batch, m = indexes.shape
+        if len(streams) != batch:
+            raise ValueError(f"{len(streams)} streams but indexes has "
+                             f"{batch} rows")
+        return self._decode_rows(self._lib.rans_decode_batch_varidx,
+                                 streams, indexes, m)
 
 
 def pmf_to_quantized_cdf(pmf, precision: int = PRECISION) -> np.ndarray:

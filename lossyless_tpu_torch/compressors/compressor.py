@@ -8,9 +8,10 @@ computes the combined objective
 
 and the trainer (`train/state.py`) splits the parameters into optimizer
 groups by path. Ported so far: the deterministic/Gaussian encoder on the
-CLIP tower, the factorized rate and the lossy_Z distortion (the hub
-compressor's recipe). The online probe and the two-view contrastive
-branches wait for ROADMAP queue 1 item 6.
+CLIP tower, the factorized and hyperprior rates and the lossy_Z
+distortion (the hub compressor's and the CLIP bottleneck's recipes). The
+online probe and the two-view contrastive branches wait for ROADMAP
+queue 1 item 6.
 
 Two differences of form from JAX, with the same updates:
 
@@ -29,12 +30,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Sequence
 
-import numpy as np
 import torch
 from torch import nn
 
 from ..core.annealer import Annealer
 from ..nn.registry import get_architecture
+from ..nn.mlp import params_from_flax as mlp_params_from_flax
 from ..nn.vit import params_from_flax
 from .distortions import DistortionConfig, make_distortion_estimator
 from .distributions import from_suff_param, n_suff_params
@@ -159,7 +160,8 @@ class LearnableCompressor(nn.Module):
         """One RD step. Returns (loss, logs).
 
         In training the rate's U(-0.5, 0.5) noise is `noise` when given
-        (the parity tests pass JAX's draws), else drawn from `generator`.
+        (the parity tests pass JAX's draws; the hyperprior's is the pair of
+        its side and main draws), else drawn from `generator`.
         """
         c = self.cfg
         if c.distortion.mode == "contrastive":
@@ -237,13 +239,12 @@ def compressor_params_from_flax(tree) -> dict:
     """JAX `LearnableCompressor` param tree (numpy arrays) -> state dict.
 
     The tower goes through `nn.vit.params_from_flax`; the rate estimator's
-    `affine/*` and `entropy_bottleneck/*` map by name. Values come back as
-    fp32 tensors.
+    subtrees (`affine`, `entropy_bottleneck`, and the hyperprior's
+    `side_encoder` / `z_encoder` MLPs) map by their path joined with dots.
+    Values come back as fp32 tensors.
     """
     out = {f"p_ZlX.mapper.{k}": v
            for k, v in params_from_flax(tree["p_ZlX"]["mapper"]).items()}
-    for sub in ("affine", "entropy_bottleneck"):
-        for k, v in tree["rate_estimator"][sub].items():
-            out[f"rate_estimator.{sub}.{k}"] = torch.from_numpy(
-                np.array(v, dtype=np.float32, copy=True))
+    out.update(mlp_params_from_flax(tree["rate_estimator"],
+                                    "rate_estimator."))
     return out

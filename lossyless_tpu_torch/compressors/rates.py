@@ -1,27 +1,34 @@
-"""Rate estimators: the factorized prior of the hub compressor.
+"""Rate estimators: learn the bit-rate of Z, and code it for real.
 
-Counterpart of `lossyless_tpu/compressors/rates.py`, factorized part:
-`RateConfig` (all of it), `EntropyBottleneckModule`, `_AffineZ`,
-`HRateFactorizedPrior` and `make_rate_estimator`. Each estimator's
+Counterpart of `lossyless_tpu/compressors/rates.py`: `RateConfig` (all of
+it), `EntropyBottleneckModule`, `_AffineZ`, `HRateFactorizedPrior`,
+`HRateHyperprior`, `make_rate_estimator`, and the host coders
+`FactorizedCoder` and `HyperpriorCoder`. Each estimator's
 `forward(z, p_zlx, *, training, ...)` returns `(z_hat, rates_in_nats,
 logs)`; likelihoods are fp32.
 
 Training noise is U(-0.5, 0.5), drawn from the caller's `torch.Generator`
 or passed in as `noise` (the parity tests hand both frameworks the same
-draws). The other modes (`lossless`, `MI`, `H_hyper`, `H_spatial`) are not
-ported yet (ROADMAP queue 1 item 5).
+draws). The hyperprior takes two draws, the side bottleneck's and then the
+Gaussian conditional's (JAX splits the rate's key into these two), so its
+`noise` is the pair. The other modes (`lossless`, `MI`, `H_spatial`) are
+not ported yet (ROADMAP queue 1 item 5).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 from torch import nn
 
 from ..coding import eb_kernel
 from ..coding import entropy_bottleneck as eb
+from ..coding import gaussian_conditional as gc
+from ..coding.rans import RansCodec
 from ..core.math import lower_bound
+from ..nn.mlp import MLP
 
 LOG2 = 0.6931471805599453
 
@@ -149,12 +156,259 @@ class HRateFactorizedPrior(nn.Module):
         return self.entropy_bottleneck.aux_loss()
 
 
+class HRateHyperprior(nn.Module):
+    """Mean-scale hyperprior over Z: an MLP side encoder, the side latent
+    coded by an entropy bottleneck, and an MLP from the quantized side
+    latent to the per-element Gaussian's scale (and mean)."""
+
+    def __init__(self, z_dim: int, cfg: RateConfig = RateConfig(
+            mode="H_hyper"), generator: torch.Generator | None = None):
+        super().__init__()
+        self.z_dim, self.cfg = z_dim, cfg
+        side = cfg.side_z_dim or max(10, z_dim // cfg.factor_dim)
+        self.side_z_dim = side
+        self.affine = _AffineZ(z_dim)
+        self.entropy_bottleneck = EntropyBottleneckModule(
+            side, cfg.eb_filters, cfg.eb_init_scale,
+            use_pallas=cfg.eb_use_pallas, generator=generator)
+        hid = max(z_dim, 256)
+        self.side_encoder = MLP(z_dim, side, hid_dim=hid, n_hid_layers=2,
+                                generator=generator)
+        out = z_dim * 2 if cfg.is_pred_mean else z_dim
+        self.z_encoder = MLP(side, out, hid_dim=hid, n_hid_layers=2,
+                             generator=generator)
+
+    def _gaussian_params(self, side_z_hat, training: bool):
+        gp = self.z_encoder(side_z_hat, training=training)
+        if self.cfg.is_pred_mean:
+            scales, means = gp.chunk(2, dim=-1)
+            return scales, means
+        return gp, None
+
+    def forward(self, z, p_zlx=None, *, training: bool, noise=None,
+                generator=None, step: int = 0, detach_rate: bool = False):
+        """`noise` is the pair (side, z) of U(-0.5, 0.5) draws; without it
+        training draws them from `generator` in that order. With
+        `detach_rate` the rates see a detached z while z_hat stays live,
+        one evaluation of the hyperprior (see HRateFactorizedPrior)."""
+        z_in = self.affine.process_in(z)
+        if training and noise is None:
+            noise = (uniform_noise((z.shape[0], self.side_z_dim), generator,
+                                   z_in.device),
+                     uniform_noise(z_in.shape, generator, z_in.device))
+        n_side, n_z = noise if training else (None, None)
+        z_rate = self.affine.process_in(z.detach()) if detach_rate else z_in
+
+        side_z = self.side_encoder(z_rate, training=training)
+        side_z_hat, q_s = self.entropy_bottleneck(side_z, training=training,
+                                                  noise=n_side)
+        scales, means = self._gaussian_params(side_z_hat, training)
+        z_hat, q_zls = gc.forward(z_rate, scales, means, training=training,
+                                  noise=n_z)
+        if detach_rate:
+            z_hat = gc.quantize(z_in, "noise" if training else "dequantize",
+                                means, n_z)
+
+        neg_log_q_s = -torch.log(q_s).sum(-1)
+        neg_log_q_zls = -torch.log(q_zls).sum(-1)
+        neg_log_q_zs = neg_log_q_s + neg_log_q_zls
+        logs = {"H_q_ZlS": _nats_to_bits_mean(neg_log_q_zls),
+                "H_q_Z": _nats_to_bits_mean(neg_log_q_zs),
+                "H_q_S": _nats_to_bits_mean(neg_log_q_s),
+                "H_ZlX": 0.0}
+        return self.affine.process_out(z_hat), neg_log_q_zs, logs
+
+    def aux_loss(self):
+        return self.entropy_bottleneck.aux_loss()
+
+
 def make_rate_estimator(z_dim: int, cfg: RateConfig,
                         generator: torch.Generator | None = None):
     if cfg.mode == "H_factorized":
         return HRateFactorizedPrior(z_dim, cfg, generator)
-    if cfg.mode in ("lossless", "MI", "H_hyper", "H_spatial"):
+    if cfg.mode == "H_hyper":
+        return HRateHyperprior(z_dim, cfg, generator)
+    if cfg.mode in ("lossless", "MI", "H_spatial"):
         raise NotImplementedError(
             f"rate mode {cfg.mode!r} is not ported yet (ROADMAP queue 1 "
             f"item 5)")
     raise ValueError(f"unknown rate mode={cfg.mode}")
+
+
+# ---------------------------------------------------------------------------
+# Host-side real coding, on the learned parameters
+# ---------------------------------------------------------------------------
+
+
+def _host(v) -> np.ndarray:
+    return eb.to_numpy(v).astype(np.float32)
+
+
+class FactorizedCoder:
+    """compress/decompress for HRateFactorizedPrior parameters: a dict
+    {"affine": {scaling, biasing}, "entropy_bottleneck": {...}} of arrays
+    or tensors. Host only."""
+
+    def __init__(self, params: dict):
+        self.scaling = _host(params["affine"]["scaling"])
+        self.biasing = _host(params["affine"]["biasing"])
+        ebp = {k: _host(v) for k, v in params["entropy_bottleneck"].items()}
+        tables = eb.build_cdf_tables(ebp)
+        self.codec = RansCodec(tables.quantized_cdf, tables.cdf_length,
+                               tables.offset)
+        self.medians = eb.medians(ebp)
+        self.indexes = np.arange(len(self.medians), dtype=np.int32)
+
+    @classmethod
+    def from_module(cls, rate: HRateFactorizedPrior) -> "FactorizedCoder":
+        return cls({"affine": {"scaling": rate.affine.scaling,
+                               "biasing": rate.affine.biasing},
+                    "entropy_bottleneck": rate.entropy_bottleneck.eb_params})
+
+    def process_in(self, z):
+        return (np.asarray(z, np.float32) + self.biasing) \
+            * np.exp(self.scaling)
+
+    def process_out(self, z_hat):
+        return z_hat / np.exp(self.scaling) - self.biasing
+
+    def compress(self, z) -> list[bytes]:
+        z_in = self.process_in(z)
+        symbols = np.round(z_in - self.medians[None]).astype(np.int32)
+        return self.codec.encode_batch(symbols, self.indexes)
+
+    def decompress(self, streams: list[bytes]) -> np.ndarray:
+        symbols = self.codec.decode_batch(streams, self.indexes)
+        z_hat = symbols.astype(np.float32) + self.medians[None]
+        return self.process_out(z_hat)
+
+
+def _host_mlp_forward(params: dict, x: np.ndarray) -> np.ndarray:
+    """NumPy forward of the rate estimators' `MLP` (identity norm, relu, no
+    dropout): Dense_0..Dense_{n-1}, relu between all but the last. fp32.
+
+    Only a plain Dense stack can be run here: any other entry (a norm, a
+    missing Dense index) raises rather than decode with wrong Gaussians."""
+    other = sorted(k for k in params if not k.startswith("Dense_"))
+    if other:
+        raise ValueError(f"host MLP forward takes Dense_* layers only, got "
+                         f"{other}")
+    n_dense = len(params)
+    if sorted(params) != sorted(f"Dense_{i}" for i in range(n_dense)):
+        raise ValueError(f"Dense layers must be Dense_0..Dense_{n_dense - 1}"
+                         f", got {sorted(params)}")
+    x = np.asarray(x, np.float32).reshape(len(x), -1)
+    for i in range(n_dense):
+        p = params[f"Dense_{i}"]
+        x = x @ np.asarray(p["kernel"], np.float32) \
+            + np.asarray(p["bias"], np.float32)
+        if i < n_dense - 1:
+            x = np.maximum(x, 0.0, out=x)
+    return x
+
+
+def _host_build_indexes(scales: np.ndarray,
+                        scale_table: np.ndarray) -> np.ndarray:
+    """NumPy `gc.build_indexes`: index of the smallest table scale >= each
+    element's scale."""
+    st = np.asarray(scale_table[:-1], np.float32)
+    s = np.maximum(np.asarray(scales, np.float32), np.float32(scale_table[0]))
+    return np.searchsorted(st, s, side="left").astype(np.int32)
+
+
+def _nested(state: dict) -> dict:
+    """{"Dense_0.kernel": t, ...} -> {"Dense_0": {"kernel": array}, ...}."""
+    out: dict = {}
+    for k, v in state.items():
+        layer, name = k.rsplit(".", 1)
+        out.setdefault(layer, {})[name] = _host(v)
+    return out
+
+
+class HyperpriorCoder:
+    """compress/decompress for HRateHyperprior.
+
+    Two streams per sample: the side latent coded by its entropy
+    bottleneck, then the main latent coded against per-element
+    conditional Gaussians whose scale and mean come from the decoded side
+    latent. The sender runs the affine and the side encoder on the
+    module's device (they take the whole latent batch); everything the
+    receiver needs (the z-encoder MLP, the index build, the output affine)
+    runs on the host in numpy, and the sender uses the same host functions
+    for the indexes and means, so sender and receiver agree bit for bit.
+    """
+
+    def __init__(self, module: HRateHyperprior):
+        self.module = module
+        ebp = {k: _host(v)
+               for k, v in module.entropy_bottleneck.eb_params.items()}
+        side_tables = eb.build_cdf_tables(ebp)
+        self.side_codec = RansCodec(side_tables.quantized_cdf,
+                                    side_tables.cdf_length, side_tables.offset)
+        self.side_medians = eb.medians(ebp)
+        self.side_indexes = np.arange(len(self.side_medians), dtype=np.int32)
+
+        self.scale_table = gc.default_scale_table()
+        z_tables = gc.build_cdf_tables(self.scale_table)
+        self.z_codec = RansCodec(z_tables.quantized_cdf, z_tables.cdf_length,
+                                 z_tables.offset)
+        self._z_encoder_np = _nested(module.z_encoder.state_dict())
+        self._out_scale_np = np.exp(_host(module.affine.scaling))
+        self._biasing_np = _host(module.affine.biasing)
+        self._is_pred_mean = module.cfg.is_pred_mean
+
+    def _indexes_means(self, side_z_hat_np):
+        gp = _host_mlp_forward(self._z_encoder_np, side_z_hat_np)
+        if self._is_pred_mean:
+            scales, means = np.split(gp, 2, axis=-1)
+        else:
+            scales, means = gp, None
+        return _host_build_indexes(scales, self.scale_table), means
+
+    @torch.no_grad()
+    def _sender(self, z, side_symbols=None):
+        m = self.module
+        z = torch.as_tensor(np.asarray(z, np.float32),
+                            device=m.affine.scaling.device)
+        z_in = m.affine.process_in(z)
+        if side_symbols is None:
+            side_z = m.side_encoder(z_in, training=False).cpu().numpy()
+            side_symbols = np.round(side_z - self.side_medians[None]) \
+                .astype(np.int32)
+        z_in = z_in.cpu().numpy()
+        # the receiver sees the quantized side latent
+        side_z_hat = side_symbols.astype(np.float32) + self.side_medians[None]
+        indexes, means = self._indexes_means(side_z_hat)
+        z_symbols = np.round(z_in - (means if means is not None else 0.0)) \
+            .astype(np.int32)
+        return z_symbols, side_symbols, indexes
+
+    def encode_symbols(self, z, side_symbols=None):
+        """(main-latent symbols, side symbols) the sender codes. Given
+        `side_symbols`, the main latent is quantized against those (another
+        sender's side information) instead of its own."""
+        return self._sender(z, side_symbols)[:2]
+
+    def dequantize(self, z_symbols, side_symbols) -> np.ndarray:
+        """The receiver's z_hat from the two symbol arrays (host only)."""
+        side_z_hat = side_symbols.astype(np.float32) + self.side_medians[None]
+        _, means = self._indexes_means(side_z_hat)
+        z_hat = z_symbols.astype(np.float32) + \
+            (means if means is not None else 0.0)
+        return z_hat / self._out_scale_np - self._biasing_np
+
+    def compress(self, z) -> list[list[bytes]]:
+        z_symbols, side_symbols, indexes = self._sender(z)
+        side_streams = self.side_codec.encode_batch(side_symbols,
+                                                    self.side_indexes)
+        z_streams = self.z_codec.encode_batch_varidx(z_symbols, indexes)
+        return [z_streams, side_streams]
+
+    def decompress(self, all_strings) -> np.ndarray:
+        z_streams, side_streams = all_strings
+        side_symbols = self.side_codec.decode_batch(side_streams,
+                                                    self.side_indexes)
+        side_z_hat = side_symbols.astype(np.float32) + self.side_medians[None]
+        indexes, _ = self._indexes_means(side_z_hat)
+        z_symbols = self.z_codec.decode_batch_varidx(z_streams, indexes)
+        return self.dequantize(z_symbols, side_symbols)

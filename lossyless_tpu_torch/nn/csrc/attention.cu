@@ -7,19 +7,28 @@
 //     lossyless_tpu/nn/flash_attn.py::fused_attention_cls (_attn_cls_kernel):
 //     the same attention for the class-token query only,
 //     q0 (B, 1, D) and kv (B, N, 2D) -> (B, 1, D).
+// K5a lossyless_fused_attention_packed  replaces fused_attention with
+//     IMAGE_PACK > 1 (_attn_kernel_packed): K1's function computed as the
+//     TPU kernel computes it, P consecutive images' tokens stacked into one
+//     (M = P*N)-token operand per head, the full M x M logits with an
+//     additive block-diagonal mask (0 within an image, -1e9 across).
+// K5b lossyless_fused_attention_headbatched  replaces fused_attention with
+//     HEAD_BATCH (_attn_kernel_headbatched): K1's function with the head a
+//     batch index inside the block (one block covers all heads of an image).
 //
 // Arithmetic (the TPU kernels', not a block-by-block copy of them): q.k is
-// accumulated in fp32 and multiplied by d^-1/2 AFTER the dot; row max, exp
-// and sum in fp32; probabilities normalized as p / sum, cast to the io
-// dtype, then P.V accumulated in fp32 and stored in the io dtype. io dtype
-// is bf16 or fp32, head dim d <= 128, N limited only by shared memory.
+// accumulated in fp32 and multiplied by d^-1/2 AFTER the dot (K5a then adds
+// the mask); row max, exp and sum in fp32; probabilities normalized as
+// p / sum, cast to the io dtype, then P.V accumulated in fp32 and stored in
+// the io dtype. io dtype is bf16 or fp32, head dim d <= 128, N limited only
+// by shared memory.
 //
-// Design (simple: FMA on CUDA cores, no tensor cores yet). One block per
-// (image, head). The block stages that head's Q, K and V slices from the
+// K1/K2 design (simple: FMA on CUDA cores, no tensor cores yet). One block
+// per (image, head). The block stages that head's Q, K and V slices from the
 // natural layout into shared memory as fp32 (exact for bf16 inputs), with
 // 16-byte global loads where the layout allows, zero-padding rows to a
 // multiple of 4 and columns to a multiple of 4 (exact: the pads add zeros).
-// Each warp then takes 4 query rows at a time:
+// Each warp then takes 4 query rows at a time (attend_rows):
 //   q.k   lane j owns key j; one float4 of K row j feeds 16 FMAs (4 rows x
 //         4 columns) against float4 broadcasts of the 4 query rows. The row
 //         pitch is a multiple of 4 whose quarter is odd, so the 8 lanes of a
@@ -29,18 +38,47 @@
 //         float4 broadcasts of 4 probabilities per row.
 // The sum over the head dim and over the keys runs in index order.
 //
+// K5a/K5b design. bf16 runs both dots on the tensor cores (mma.sync
+// m16n8k16, bf16 in, fp32 accumulate; mma_attend_tile); fp32 runs on the
+// CUDA cores through K1's attend_rows (a bf16 product would not hold fp32's
+// 1e-5). A warp owns 16 query rows and streams them over all keys in
+// chunks of 16, the logits never leaving its registers: pass 1 keeps each
+// row's running max and sum of exp (rescaled when the max grows), pass 2
+// recomputes the chunk's logits, forms p = exp(l - max) / sum, rounds it to
+// bf16 in the A-fragment layout straight from the accumulator layout, and
+// accumulates P.V. Q fragments come from device memory into registers;
+// K and V are staged in shared memory as bf16, zero-padded to a multiple of
+// 16 in both dims, row pitch padded by 16 bytes so ldmatrix is
+// conflict-free.
+//   K5a: one block per (group of P images, head). It stages the group's
+//        M x d K and V (2*M*d bf16: 51 KB at P=4, 230 KB with padding at
+//        P=16, N=50, d=64, the largest that fits) and runs the full masked
+//        M x M product; masked entries contribute exp(-1e9 - max) = 0, so
+//        the result is K1's.
+//   K5b: one block per image, all heads (the grid is over images, not
+//        images x heads). One image's qkv row tile (50 x 2304 bf16, 230 KB)
+//        does not fit an SM with its padding, so the block stages the K/V
+//        of a subset of heads at a time (as many as fit half the SM:
+//        6 heads of 18 KB at the slice shape, two passes over 12 heads) and
+//        its warps take (head, 16-row tile) work items of that pass: the
+//        head is a batch index inside the block. fp32 stages Q, K and V of
+//        the pass's heads and its warps take (head, 4-row) items.
+//
 // Bounds on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense) at the CLIP
 // ViT-B/32 slice shapes B=512, N=50, h=12, d=64, bf16:
 //   K1 reads 118.0 MB of qkv and writes 39.3 MB: 47 us from memory; its
 //      3.9 GFLOP would take 4 us at the bf16 tensor-core rate. Memory-bound.
 //   K2 reads 78.6 MB of kv (+0.8 MB q0) and writes 0.8 MB: 24 us.
 //      Memory-bound.
-// What the design does about it: every input byte is read from device
+//   K5a moves K1's bytes (47 us) and does P times K1's operations (the
+//      masked blocks): 4 us x P, 64 us at P=16, so operations bound it
+//      from P=12 on. K5b moves K1's bytes and does K1's operations.
+// What the designs do about it: every input byte is read from device
 // memory once (the block's staging) and every output byte written once;
-// logits and probabilities never leave the SM. On CUDA cores the dots cost
-// shared-memory bandwidth, which the register tiling above keeps below the
-// staging time at N=50; measured times are in PERF.md (from chip_smoke.py).
-// Later: mma/wgmma for the dots, several heads per block, TMA staging.
+// logits and probabilities never leave the SM. Measured times are in
+// PERF.md (from chip_smoke.py). Later: wgmma and TMA staging, several
+// heads per block for K1, and for K5a skipping the masked blocks (which
+// turns it back into K1).
 //
 // Interface: plain C, loaded with ctypes. Each launcher runs on the given
 // stream, does not synchronise and returns cudaGetLastError().
@@ -52,21 +90,25 @@
 
 namespace {
 
+typedef __nv_bfloat16 bf16;
+
 constexpr int kWarp = 32;
 constexpr int kMaxD = 128;
-constexpr int kRows = 4;  // query rows per warp step
+constexpr int kRows = 4;                 // query rows per warp step (FMA)
+constexpr int kMaxK16 = kMaxD / 16;      // k-steps of the q.k mma
+constexpr int kMaxN8 = kMaxD / 8;        // n-tiles of the P.V mma
+constexpr int kPad16 = 8;                // bf16 row-pitch pad (16 bytes)
+constexpr size_t kPassBudget = 116224;   // bytes: half an SM's shared memory
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+__device__ __forceinline__ bf16 from_f32<bf16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
@@ -138,8 +180,146 @@ __device__ void stage(float* dst, int ld, const T* __restrict__ src,
   }
 }
 
-// blockIdx.x = image b, blockIdx.y = head h. q/k/v/out point at head 0 of
-// image 0; the *_batch strides step images, the *_row strides tokens.
+// One warp, query rows i0..i0+3 (qr: row i0 of the staged Q) against the N
+// keys staged at ks/vs (fp32, pitch ld, zero-padded to n4 rows and a
+// multiple of 4 columns); ps is this warp's kRows x n4 buffer. kMasked
+// (K5a): queries and keys are `seg`-token images stacked, and a logit whose
+// key lies in another image than its query gets -1e9 after the scale.
+template <typename T, bool kMasked>
+__device__ __forceinline__ void attend_rows(const float* qr, const float* ks,
+                                            const float* vs, int ld,
+                                            float* ps, int n4, int N, int d,
+                                            float scale, int i0, int n_q,
+                                            int seg, T* __restrict__ ob,
+                                            int64_t out_row) {
+  const int lane = threadIdx.x % kWarp;
+  const int d4 = round_up(d, 4);
+
+  // logits: fp32 dot over the head dim, scaled after the dot
+  float m[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) m[r] = -INFINITY;
+  for (int j = lane; j < N; j += kWarp) {
+    const float* kr = ks + j * ld;
+    float acc[kRows] = {};
+    for (int c = 0; c < d4; c += 4) {
+      const float4 kv4 = *reinterpret_cast<const float4*>(kr + c);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const float4 q4 = *reinterpret_cast<const float4*>(qr + r * ld + c);
+        acc[r] = fmaf(q4.x, kv4.x, acc[r]);
+        acc[r] = fmaf(q4.y, kv4.y, acc[r]);
+        acc[r] = fmaf(q4.z, kv4.z, acc[r]);
+        acc[r] = fmaf(q4.w, kv4.w, acc[r]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      float l = acc[r] * scale;
+      if (kMasked && (i0 + r) / seg != j / seg) l += -1e9f;
+      ps[r * n4 + j] = l;
+      m[r] = fmaxf(m[r], l);
+    }
+  }
+  float s[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    m[r] = warp_max(m[r]);
+    s[r] = 0.f;
+  }
+  for (int j = lane; j < N; j += kWarp) {
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const float e = expf(ps[r * n4 + j] - m[r]);
+      ps[r * n4 + j] = e;
+      s[r] += e;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) s[r] = warp_sum(s[r]);
+  // normalize, round to the io dtype; the padding keys get probability 0
+  for (int j = lane; j < n4; j += kWarp) {
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+      ps[r * n4 + j] =
+          j < N ? to_f32(from_f32<T>(ps[r * n4 + j] / s[r])) : 0.f;
+  }
+  __syncwarp();
+
+  // P.V: this lane's output columns are (c, c+1) for c = 2*lane, 2*lane+64
+  float2 o[kRows][2] = {};
+  for (int j = 0; j < n4; j += 4) {
+    float4 p4[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+      p4[r] = *reinterpret_cast<const float4*>(ps + r * n4 + j);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const float* vr = vs + (j + jj) * ld;
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const int c = 2 * lane + 64 * t;
+        if (c < d) {
+          const float2 v2 = *reinterpret_cast<const float2*>(vr + c);
+#pragma unroll
+          for (int r = 0; r < kRows; ++r) {
+            const float p = lane_of(p4[r], jj);
+            o[r][t].x = fmaf(p, v2.x, o[r][t].x);
+            o[r][t].y = fmaf(p, v2.y, o[r][t].y);
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    if (i0 + r >= n_q) break;
+    T* orow = ob + (i0 + r) * out_row;
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      const int c = 2 * lane + 64 * t;
+      if (c < d) orow[c] = from_f32<T>(o[r][t].x);
+      if (c + 1 < d) orow[c + 1] = from_f32<T>(o[r][t].y);
+    }
+  }
+  __syncwarp();  // ps is rewritten by this warp's next step
+}
+
+// One (image or group, head) block: stage Q, K, V of the head, then each
+// warp takes 4 query rows at a time. blockIdx.x = image (group), blockIdx.y
+// = head h. q/k/v/out point at head 0 of image 0; the *_batch strides step
+// images, the *_row strides tokens.
+template <typename T, bool kMasked>
+__device__ __forceinline__ void attention_block(
+    const T* __restrict__ q, int64_t q_batch, int64_t q_row, int n_q,
+    const T* __restrict__ k, const T* __restrict__ v, int64_t kv_batch,
+    int64_t kv_row, T* __restrict__ out, int64_t out_batch, int64_t out_row,
+    int N, int d, float scale, bool vec, int seg) {
+  extern __shared__ __align__(16) float smem[];
+  const int warp = threadIdx.x / kWarp;
+  const int n_warps = blockDim.x / kWarp;
+  const Layout L = layout(n_q, N, d, n_warps);
+  float* qs = smem;
+  float* ks = smem + L.k;
+  float* vs = smem + L.v;
+  float* ps = smem + L.p + static_cast<size_t>(warp) * kRows * L.n4;
+
+  // the padding rows and columns of Q, K and V must read as zero
+  for (size_t i = threadIdx.x; i < L.p; i += blockDim.x) smem[i] = 0.f;
+  __syncthreads();
+  const int64_t b = blockIdx.x;
+  const int64_t hd = static_cast<int64_t>(blockIdx.y) * d;
+  stage(qs, L.ld, q + b * q_batch + hd, q_row, n_q, d, vec);
+  stage(ks, L.ld, k + b * kv_batch + hd, kv_row, N, d, vec);
+  stage(vs, L.ld, v + b * kv_batch + hd, kv_row, N, d, vec);
+  __syncthreads();
+  T* ob = out + b * out_batch + hd;
+  for (int i0 = warp * kRows; i0 < n_q; i0 += n_warps * kRows)
+    attend_rows<T, kMasked>(qs + i0 * L.ld, ks, vs, L.ld, ps, L.n4, N, d,
+                            scale, i0, n_q, seg, ob, out_row);
+}
+
+// K1 and K2.
 template <typename T>
 __global__ void attention_kernel(const T* __restrict__ q, int64_t q_batch,
                                  int64_t q_row, int n_q,
@@ -147,151 +327,417 @@ __global__ void attention_kernel(const T* __restrict__ q, int64_t q_batch,
                                  const T* __restrict__ v, int64_t kv_batch,
                                  int64_t kv_row, T* __restrict__ out,
                                  int64_t out_batch, int64_t out_row, int N,
-                                 int d, float scale, bool vec) {
+                                 int d, float scale, bool vec, int seg) {
+  attention_block<T, false>(q, q_batch, q_row, n_q, k, v, kv_batch, kv_row,
+                            out, out_batch, out_row, N, d, scale, vec, 0);
+}
+
+// K5a on the CUDA cores (fp32): blockIdx.x is a group of images whose
+// M = P*N tokens form one operand; `seg` = N tokens per image.
+template <typename T>
+__global__ void packed_attention_fma_kernel(
+    const T* __restrict__ q, int64_t q_batch, int64_t q_row, int n_q,
+    const T* __restrict__ k, const T* __restrict__ v, int64_t kv_batch,
+    int64_t kv_row, T* __restrict__ out, int64_t out_batch, int64_t out_row,
+    int N, int d, float scale, bool vec, int seg) {
+  attention_block<T, true>(q, q_batch, q_row, n_q, k, v, kv_batch, kv_row,
+                           out, out_batch, out_row, N, d, scale, vec, seg);
+}
+
+// K5b on the CUDA cores (fp32): blockIdx.x = image b. Passes of `hp`
+// heads: stage their Q, K, V (per head: a Layout's Q, K, V regions), then
+// the warps take (head, 4-row) items of the pass.
+template <typename T>
+__global__ void headbatched_attention_fma_kernel(const T* __restrict__ qkv,
+                                                 T* __restrict__ out, int N,
+                                                 int heads, int d,
+                                                 float scale, int hp,
+                                                 bool vec) {
   extern __shared__ __align__(16) float smem[];
   const int warp = threadIdx.x / kWarp;
-  const int lane = threadIdx.x % kWarp;
   const int n_warps = blockDim.x / kWarp;
-  const Layout L = layout(n_q, N, d, n_warps);
-  const int ld = L.ld, n4 = L.n4, d4 = round_up(d, 4);
-  float* qs = smem;
-  float* ks = smem + L.k;
-  float* vs = smem + L.v;
-  float* ps = smem + L.p + static_cast<size_t>(warp) * kRows * n4;
+  const Layout L = layout(N, N, d, n_warps);
+  float* ps = smem + hp * L.p + static_cast<size_t>(warp) * kRows * L.n4;
+  const int64_t D = static_cast<int64_t>(heads) * d;
+  const T* base = qkv + static_cast<int64_t>(blockIdx.x) * N * 3 * D;
+  T* ob = out + static_cast<int64_t>(blockIdx.x) * N * D;
+  const int groups = (N + kRows - 1) / kRows;
 
-  // the padding rows and columns of Q, K and V must read as zero
-  for (size_t i = threadIdx.x; i < L.p; i += blockDim.x) smem[i] = 0.f;
-  __syncthreads();
-  const int64_t b = blockIdx.x;
-  const int64_t hd = static_cast<int64_t>(blockIdx.y) * d;
-  stage(qs, ld, q + b * q_batch + hd, q_row, n_q, d, vec);
-  stage(ks, ld, k + b * kv_batch + hd, kv_row, N, d, vec);
-  stage(vs, ld, v + b * kv_batch + hd, kv_row, N, d, vec);
-  __syncthreads();
-  T* ob = out + b * out_batch + hd;
-
-  for (int i0 = warp * kRows; i0 < n_q; i0 += n_warps * kRows) {
-    const float* qr = qs + i0 * ld;
-
-    // logits: fp32 dot over the head dim, scaled after the dot
-    float m[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) m[r] = -INFINITY;
-    for (int j = lane; j < N; j += kWarp) {
-      const float* kr = ks + j * ld;
-      float acc[kRows] = {};
-      for (int c = 0; c < d4; c += 4) {
-        const float4 kv4 = *reinterpret_cast<const float4*>(kr + c);
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const float4 q4 = *reinterpret_cast<const float4*>(qr + r * ld + c);
-          acc[r] = fmaf(q4.x, kv4.x, acc[r]);
-          acc[r] = fmaf(q4.y, kv4.y, acc[r]);
-          acc[r] = fmaf(q4.z, kv4.z, acc[r]);
-          acc[r] = fmaf(q4.w, kv4.w, acc[r]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float l = acc[r] * scale;
-        ps[r * n4 + j] = l;
-        m[r] = fmaxf(m[r], l);
-      }
+  for (size_t i = threadIdx.x; i < hp * L.p; i += blockDim.x) smem[i] = 0.f;
+  for (int h0 = 0; h0 < heads; h0 += hp) {
+    const int nh = min(hp, heads - h0);
+    __syncthreads();  // the zero fill, or the previous pass, is done
+    for (int hh = 0; hh < nh; ++hh) {
+      float* r = smem + hh * L.p;
+      const T* src = base + static_cast<int64_t>(h0 + hh) * d;
+      stage(r, L.ld, src, 3 * D, N, d, vec);
+      stage(r + L.k, L.ld, src + D, 3 * D, N, d, vec);
+      stage(r + L.v, L.ld, src + 2 * D, 3 * D, N, d, vec);
     }
-    float s[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      m[r] = warp_max(m[r]);
-      s[r] = 0.f;
+    __syncthreads();
+    for (int it = warp; it < nh * groups; it += n_warps) {
+      const int hh = it / groups;
+      const int i0 = (it - hh * groups) * kRows;
+      const float* r = smem + hh * L.p;
+      attend_rows<T, false>(r + i0 * L.ld, r + L.k, r + L.v, L.ld, ps, L.n4,
+                            N, d, scale, i0, N, 0,
+                            ob + static_cast<int64_t>(h0 + hh) * d, D);
     }
-    for (int j = lane; j < N; j += kWarp) {
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float e = expf(ps[r * n4 + j] - m[r]);
-        ps[r * n4 + j] = e;
-        s[r] += e;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) s[r] = warp_sum(s[r]);
-    // normalize, round to the io dtype; the padding keys get probability 0
-    for (int j = lane; j < n4; j += kWarp) {
-#pragma unroll
-      for (int r = 0; r < kRows; ++r)
-        ps[r * n4 + j] =
-            j < N ? to_f32(from_f32<T>(ps[r * n4 + j] / s[r])) : 0.f;
-    }
-    __syncwarp();
-
-    // P.V: this lane's output columns are (c, c+1) for c = 2*lane, 2*lane+64
-    float2 o[kRows][2] = {};
-    for (int j = 0; j < n4; j += 4) {
-      float4 p4[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r)
-        p4[r] = *reinterpret_cast<const float4*>(ps + r * n4 + j);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const float* vr = vs + (j + jj) * ld;
-#pragma unroll
-        for (int t = 0; t < 2; ++t) {
-          const int c = 2 * lane + 64 * t;
-          if (c < d) {
-            const float2 v2 = *reinterpret_cast<const float2*>(vr + c);
-#pragma unroll
-            for (int r = 0; r < kRows; ++r) {
-              const float p = lane_of(p4[r], jj);
-              o[r][t].x = fmaf(p, v2.x, o[r][t].x);
-              o[r][t].y = fmaf(p, v2.y, o[r][t].y);
-            }
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      if (i0 + r >= n_q) break;
-      T* orow = ob + (i0 + r) * out_row;
-#pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        const int c = 2 * lane + 64 * t;
-        if (c < d) orow[c] = from_f32<T>(o[r][t].x);
-        if (c + 1 < d) orow[c + 1] = from_f32<T>(o[r][t].y);
-      }
-    }
-    __syncwarp();  // ps is rewritten by this warp's next step
   }
 }
 
+// ---------------------------------------------------------------------------
+// Tensor-core path (bf16): mma.sync m16n8k16, bf16 in, fp32 accumulate.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// B fragment (k 16 x n 8) from a [n][k] row-major tile at p (K rows).
+__device__ __forceinline__ void load_b_nk(uint32_t b[2], const bf16* p,
+                                          int pitch) {
+  const int lane = threadIdx.x & 15;
+  const bf16* row = p + (lane & 7) * pitch + (lane >> 3) * 8;
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(b[0]), "=r"(b[1])
+      : "r"(smem_addr(row)));
+}
+
+// B fragment (k 16 x n 8) from a [k][n] row-major tile at p (V rows),
+// transposed on load.
+__device__ __forceinline__ void load_b_kn(uint32_t b[2], const bf16* p,
+                                          int pitch) {
+  const int lane = threadIdx.x & 15;
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(b[0]), "=r"(b[1])
+      : "r"(smem_addr(p + lane * pitch)));
+}
+
+__device__ __forceinline__ void mma(float c[4], const uint32_t a[4],
+                                    const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
+  __nv_bfloat162 v = __halves2bfloat162(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo: low half
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// acc = q-tile (16 x d16) . K[kc .. kc+15]^T: two 16 x 8 n-tiles of keys.
+__device__ __forceinline__ void logits16(float acc[2][4],
+                                         uint32_t qa[kMaxK16][4],
+                                         const bf16* kc, int ld, int nk) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < kMaxK16; ++kk) {
+    if (kk < nk) {
+      uint32_t b0[2], b1[2];
+      load_b_nk(b0, kc + kk * 16, ld);
+      load_b_nk(b1, kc + 8 * ld + kk * 16, ld);
+      mma(acc[0], qa[kk], b0);
+      mma(acc[1], qa[kk], b1);
+    }
+  }
+}
+
+// One warp: query rows r0..r0+15 of one head against the M keys staged in
+// ks/vs (bf16, pitch ld, zero-padded to mp rows and a multiple of 16
+// columns). q/out point at the head's columns of token row 0; rows step
+// q_row / out_row elements. Accumulator element e of n-tile j sits at row
+// g + 8*(e >> 1), key 8*j + 2*t + (e & 1) of the chunk (g = lane / 4,
+// t = lane % 4). kMasked (K5a): `seg`-token images stacked; a logit across
+// images gets -1e9 after the scale.
+template <bool kMasked>
+__device__ __forceinline__ void mma_attend_tile(
+    const bf16* __restrict__ q, int64_t q_row, const bf16* ks,
+    const bf16* vs, int ld, int r0, int M, int mp, int d, float scale,
+    int seg, bf16* __restrict__ out, int64_t out_row) {
+  const int lane = threadIdx.x % kWarp;
+  const int g = lane >> 2, t = lane & 3;
+  const int nk = (d + 15) / 16;
+  const int nn = (d + 7) / 8;
+  const bf16 zero = __float2bfloat16_rn(0.f);
+
+  // the tile's A fragments from device memory: register e holds row
+  // g + 8*(e & 1), columns 2t + 8*(e >> 1) and the next one
+  uint32_t qa[kMaxK16][4];
+#pragma unroll
+  for (int kk = 0; kk < kMaxK16; ++kk) {
+    if (kk < nk) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = r0 + g + 8 * (e & 1);
+        const int col = kk * 16 + 2 * t + 8 * (e >> 1);
+        bf16 lo = zero, hi = zero;
+        if (row < M) {
+          const bf16* src = q + row * q_row + col;
+          if (col < d) lo = src[0];
+          if (col + 1 < d) hi = src[1];
+        }
+        qa[kk][e] = pack_bf16(lo, hi);
+      }
+    }
+  }
+
+  auto logit = [&](float acc, int row, int col) -> float {
+    if (col >= M) return -INFINITY;  // padding key
+    float l = acc * scale;
+    if (kMasked && row / seg != col / seg) l += -1e9f;
+    return l;
+  };
+
+  // pass 1: each row's max and sum of exp over all keys, online
+  float m[2] = {-INFINITY, -INFINITY}, s[2] = {0.f, 0.f};
+  for (int kc = 0; kc < mp; kc += 16) {
+    float acc[2][4];
+    logits16(acc, qa, ks + kc * ld, ld, nk);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + g + 8 * h;
+      float l[4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          l[2 * j + c] = logit(acc[j][2 * h + c], row, kc + 8 * j + 2 * t + c);
+      float cm = fmaxf(fmaxf(l[0], l[1]), fmaxf(l[2], l[3]));
+      cm = fmaxf(cm, __shfl_xor_sync(0xffffffffu, cm, 1));
+      cm = fmaxf(cm, __shfl_xor_sync(0xffffffffu, cm, 2));
+      const float mn = fmaxf(m[h], cm);  // finite from the first chunk on
+      s[h] = s[h] * expf(m[h] - mn) + ((expf(l[0] - mn) + expf(l[1] - mn)) +
+                                       (expf(l[2] - mn) + expf(l[3] - mn)));
+      m[h] = mn;
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    s[h] += __shfl_xor_sync(0xffffffffu, s[h], 1);
+    s[h] += __shfl_xor_sync(0xffffffffu, s[h], 2);
+  }
+
+  // pass 2: p = exp(l - max) / sum rounded to bf16, then P.V
+  float o[kMaxN8][4];
+#pragma unroll
+  for (int nt = 0; nt < kMaxN8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
+  for (int kc = 0; kc < mp; kc += 16) {
+    float acc[2][4];
+    logits16(acc, qa, ks + kc * ld, ld, nk);
+    float p[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        const float l = logit(acc[j][e], r0 + g + 8 * h,
+                              kc + 8 * j + 2 * t + (e & 1));
+        p[j][e] = expf(l - m[h]) / s[h];
+      }
+    // the accumulator layout of the two key n-tiles is the A-fragment
+    // layout of one 16-key k-step
+    const uint32_t pa[4] = {pack_f32(p[0][0], p[0][1]),
+                            pack_f32(p[0][2], p[0][3]),
+                            pack_f32(p[1][0], p[1][1]),
+                            pack_f32(p[1][2], p[1][3])};
+#pragma unroll
+    for (int nt = 0; nt < kMaxN8; ++nt) {
+      if (nt < nn) {
+        uint32_t b[2];
+        load_b_kn(b, vs + kc * ld + nt * 8, ld);
+        mma(o[nt], pa, b);
+      }
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < kMaxN8; ++nt) {
+    if (nt >= nn) break;
+    const int col = nt * 8 + 2 * t;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + g + 8 * h;
+      if (row >= M) continue;
+      bf16* orow = out + row * out_row;
+      if (col < d) orow[col] = __float2bfloat16_rn(o[nt][2 * h]);
+      if (col + 1 < d) orow[col + 1] = __float2bfloat16_rn(o[nt][2 * h + 1]);
+    }
+  }
+}
+
+// rows x d bf16 at src (row stride `stride`) -> bf16 tile at pitch ld.
+// `vec`: d % 8 == 0 and src 16-byte aligned.
+__device__ void stage_bf16(bf16* dst, int ld, const bf16* __restrict__ src,
+                           int64_t stride, int rows, int d, bool vec) {
+  if (vec) {
+    const int per_row = d / 8;
+    for (int ch = threadIdx.x; ch < rows * per_row; ch += blockDim.x) {
+      const int r = ch / per_row;
+      const int c = (ch - r * per_row) * 8;
+      *reinterpret_cast<uint4*>(dst + r * ld + c) =
+          *reinterpret_cast<const uint4*>(src + r * stride + c);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < rows * d; idx += blockDim.x) {
+      const int r = idx / d;
+      const int c = idx - r * d;
+      dst[r * ld + c] = src[r * stride + c];
+    }
+  }
+}
+
+__device__ void zero_smem(void* p, size_t bytes) {  // bytes % 16 == 0
+  uint4* q = static_cast<uint4*>(p);
+  for (size_t i = threadIdx.x; i < bytes / 16; i += blockDim.x)
+    q[i] = make_uint4(0u, 0u, 0u, 0u);
+}
+
+struct MmaLayout {
+  int d16, ld, mp;
+  size_t tile;  // bf16 elements of one K (or V) tile
+};
+
+__host__ __device__ __forceinline__ MmaLayout mma_layout(int M, int d) {
+  MmaLayout L;
+  L.d16 = round_up(d, 16);
+  L.ld = L.d16 + kPad16;
+  L.mp = round_up(M, 16);
+  L.tile = static_cast<size_t>(L.mp) * L.ld;
+  return L;
+}
+
+// K5a on the tensor cores (bf16): blockIdx.x = group of `pack` images,
+// blockIdx.y = head.
+__global__ void packed_attention_mma_kernel(const bf16* __restrict__ qkv,
+                                            bf16* __restrict__ out, int N,
+                                            int pack, int heads, int d,
+                                            float scale, bool vec) {
+  extern __shared__ __align__(16) bf16 smem_bf16[];
+  const int M = pack * N;
+  const MmaLayout L = mma_layout(M, d);
+  bf16* ks = smem_bf16;
+  bf16* vs = smem_bf16 + L.tile;
+  const int64_t D = static_cast<int64_t>(heads) * d;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * M;
+  const int64_t hd = static_cast<int64_t>(blockIdx.y) * d;
+  const bf16* q = qkv + row0 * 3 * D + hd;
+
+  zero_smem(smem_bf16, 2 * L.tile * sizeof(bf16));
+  __syncthreads();
+  stage_bf16(ks, L.ld, q + D, 3 * D, M, d, vec);
+  stage_bf16(vs, L.ld, q + 2 * D, 3 * D, M, d, vec);
+  __syncthreads();
+  const int warp = threadIdx.x / kWarp;
+  const int n_warps = blockDim.x / kWarp;
+  for (int r0 = warp * 16; r0 < M; r0 += n_warps * 16)
+    mma_attend_tile<true>(q, 3 * D, ks, vs, L.ld, r0, M, L.mp, d, scale, N,
+                          out + row0 * D + hd, D);
+}
+
+// K5b on the tensor cores (bf16): blockIdx.x = image b. Passes of `hp`
+// heads: stage their K and V, then the warps take (head, 16-row tile) items.
+__global__ void headbatched_attention_mma_kernel(const bf16* __restrict__ qkv,
+                                                 bf16* __restrict__ out,
+                                                 int N, int heads, int d,
+                                                 float scale, int hp,
+                                                 bool vec) {
+  extern __shared__ __align__(16) bf16 smem_bf16[];
+  const MmaLayout L = mma_layout(N, d);
+  const int64_t D = static_cast<int64_t>(heads) * d;
+  const bf16* base = qkv + static_cast<int64_t>(blockIdx.x) * N * 3 * D;
+  bf16* ob = out + static_cast<int64_t>(blockIdx.x) * N * D;
+  const int warp = threadIdx.x / kWarp;
+  const int n_warps = blockDim.x / kWarp;
+  const int tiles = (N + 15) / 16;
+
+  zero_smem(smem_bf16, 2 * hp * L.tile * sizeof(bf16));
+  for (int h0 = 0; h0 < heads; h0 += hp) {
+    const int nh = min(hp, heads - h0);
+    __syncthreads();  // the zero fill, or the previous pass, is done
+    for (int hh = 0; hh < nh; ++hh) {
+      const bf16* src = base + static_cast<int64_t>(h0 + hh) * d;
+      bf16* ks = smem_bf16 + 2 * hh * L.tile;
+      stage_bf16(ks, L.ld, src + D, 3 * D, N, d, vec);
+      stage_bf16(ks + L.tile, L.ld, src + 2 * D, 3 * D, N, d, vec);
+    }
+    __syncthreads();
+    for (int it = warp; it < nh * tiles; it += n_warps) {
+      const int hh = it / tiles;
+      const int r0 = (it - hh * tiles) * 16;
+      const bf16* ks = smem_bf16 + 2 * hh * L.tile;
+      const int64_t hd = static_cast<int64_t>(h0 + hh) * d;
+      mma_attend_tile<false>(base + hd, 3 * D, ks, ks + L.tile, L.ld, r0, N,
+                             L.mp, d, scale, 0, ob + hd, D);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Host side
+// ---------------------------------------------------------------------------
+
 size_t smem_bytes(int n_q, int N, int d, int n_warps) {
   return sizeof(float) * layout(n_q, N, d, n_warps).total;
+}
+
+size_t packed_smem_bytes(int dtype, int M, int d, int n_warps) {
+  if (dtype == 1) return sizeof(bf16) * 2 * mma_layout(M, d).tile;
+  return smem_bytes(M, M, d, n_warps);
+}
+
+size_t headbatched_smem_bytes(int dtype, int N, int d, int hp, int n_warps) {
+  if (dtype == 1) return sizeof(bf16) * 2 * hp * mma_layout(N, d).tile;
+  const Layout L = layout(N, N, d, n_warps);
+  return sizeof(float) *
+         (hp * L.p + static_cast<size_t>(n_warps) * kRows * L.n4);
 }
 
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;  // above 48 KB only by opting in
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+// K1/K2 (seg == 0) and K5a on the CUDA cores (seg = tokens per image).
 template <typename T>
 int launch(const void* q, int64_t q_batch, int64_t q_row, int n_q,
            const void* k, const void* v, int64_t kv_batch, int64_t kv_row,
            void* out, int64_t out_batch, int64_t out_row, int B, int N,
-           int heads, int d, float scale, int n_warps, cudaStream_t stream) {
+           int heads, int d, float scale, int n_warps, int seg,
+           cudaStream_t stream) {
+  auto kernel = seg ? packed_attention_fma_kernel<T> : attention_kernel<T>;
   const size_t smem = smem_bytes(n_q, N, d, n_warps);
-  if (smem > 48 * 1024) {  // above 48 KB only by opting in
-    cudaError_t err = cudaFuncSetAttribute(
-        attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   // 16-byte staging loads: every row start is then 16-byte aligned too,
   // since d (hence every head offset and row stride) is a multiple of kVec
   constexpr int kVec = 16 / sizeof(T);
   const bool vec = d % kVec == 0 && aligned16(q) && aligned16(k) &&
                    aligned16(v);
-  attention_kernel<T><<<dim3(B, heads), n_warps * kWarp, smem, stream>>>(
+  kernel<<<dim3(B, heads), n_warps * kWarp, smem, stream>>>(
       static_cast<const T*>(q), q_batch, q_row, n_q,
       static_cast<const T*>(k), static_cast<const T*>(v), kv_batch, kv_row,
-      static_cast<T*>(out), out_batch, out_row, N, d, scale, vec);
+      static_cast<T*>(out), out_batch, out_row, N, d, scale, vec, seg);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -299,7 +745,7 @@ int dispatch(int dtype, const void* q, int64_t q_batch, int64_t q_row,
              int n_q, const void* k, const void* v, int64_t kv_batch,
              int64_t kv_row, void* out, int64_t out_batch, int64_t out_row,
              int B, int N, int heads, int d, float scale, int n_warps,
-             int device, void* stream) {
+             int seg, int device, void* stream) {
   if (d < 1 || d > kMaxD || N < 1 || B < 1 || heads < 1 || n_warps < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
@@ -308,12 +754,22 @@ int dispatch(int dtype, const void* q, int64_t q_batch, int64_t q_row,
   if (dtype == 0)
     return launch<float>(q, q_batch, q_row, n_q, k, v, kv_batch, kv_row, out,
                          out_batch, out_row, B, N, heads, d, scale, n_warps,
-                         s);
+                         seg, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, q_batch, q_row, n_q, k, v, kv_batch,
-                                 kv_row, out, out_batch, out_row, B, N, heads,
-                                 d, scale, n_warps, s);
+    return launch<bf16>(q, q_batch, q_row, n_q, k, v, kv_batch, kv_row, out,
+                        out_batch, out_row, B, N, heads, d, scale, n_warps,
+                        seg, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Heads a K5b pass stages: as many as fit half an SM's shared memory (two
+// blocks an SM), at least one.
+int heads_per_pass(int dtype, int N, int d, int heads, int n_warps) {
+  int hp = heads;
+  while (hp > 1 && headbatched_smem_bytes(dtype, N, d, hp, n_warps) >
+                       kPassBudget)
+    --hp;
+  return hp;
 }
 
 }  // namespace
@@ -335,7 +791,7 @@ int lossyless_fused_attention(const void* qkv, void* out, int B, int N,
   const char* base = static_cast<const char*>(qkv);
   return dispatch(dtype, base, N * 3 * D, 3 * D, N, base + D * es,
                   base + 2 * D * es, N * 3 * D, 3 * D, out, N * D, D, B, N,
-                  heads, d, scale, n_warps, device, stream);
+                  heads, d, scale, n_warps, 0, device, stream);
 }
 
 // K2. q0 (B, 1, heads*d), kv (B, N, 2*heads*d) contiguous -> out (B, 1, heads*d).
@@ -347,7 +803,84 @@ int lossyless_fused_attention_cls(const void* q0, const void* kv, void* out,
   const size_t es = dtype == 0 ? 4 : 2;
   const char* base = static_cast<const char*>(kv);
   return dispatch(dtype, q0, D, D, 1, base, base + D * es, N * 2 * D, 2 * D,
-                  out, D, D, B, N, heads, d, scale, n_warps, device, stream);
+                  out, D, D, B, N, heads, d, scale, n_warps, 0, device,
+                  stream);
+}
+
+// Shared memory of one K5a block: the group's M = pack*N tokens.
+size_t lossyless_attention_packed_smem_bytes(int dtype, int M, int d,
+                                             int n_warps) {
+  return packed_smem_bytes(dtype, M, d, n_warps);
+}
+
+// K5a. qkv (B, N, 3*heads*d) contiguous -> out (B, N, heads*d); B % pack
+// == 0, pack >= 2. bf16 on the tensor cores, fp32 on the CUDA cores.
+int lossyless_fused_attention_packed(const void* qkv, void* out, int B,
+                                     int N, int heads, int d, int pack,
+                                     int dtype, float scale, int n_warps,
+                                     int device, void* stream) {
+  if (pack < 2 || B < 1 || B % pack || N < 1 || d < 1 || d > kMaxD ||
+      heads < 1 || n_warps < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t D = static_cast<int64_t>(heads) * d;
+  const int M = pack * N;
+  if (dtype == 0) {
+    const char* base = static_cast<const char*>(qkv);
+    return dispatch(0, base, M * 3 * D, 3 * D, M, base + D * 4,
+                    base + 2 * D * 4, M * 3 * D, 3 * D, out, M * D, D,
+                    B / pack, M, heads, d, scale, n_warps, N, device, stream);
+  }
+  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = packed_smem_bytes(1, M, d, n_warps);
+  err = allow_smem(packed_attention_mma_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const bool vec = d % 8 == 0 && aligned16(qkv);
+  packed_attention_mma_kernel<<<dim3(B / pack, heads), n_warps * kWarp,
+                                smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(qkv), static_cast<bf16*>(out), N, pack, heads,
+      d, scale, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Shared memory of one K5b block staging `heads_per_pass` heads.
+size_t lossyless_attention_headbatched_smem_bytes(int dtype, int N, int d,
+                                                  int heads_per_pass,
+                                                  int n_warps) {
+  return headbatched_smem_bytes(dtype, N, d, heads_per_pass, n_warps);
+}
+
+// K5b. qkv (B, N, 3*heads*d) contiguous -> out (B, N, heads*d), one block
+// per image. bf16 on the tensor cores, fp32 on the CUDA cores.
+int lossyless_fused_attention_headbatched(const void* qkv, void* out, int B,
+                                          int N, int heads, int d, int dtype,
+                                          float scale, int n_warps,
+                                          int device, void* stream) {
+  if (B < 1 || N < 1 || d < 1 || d > kMaxD || heads < 1 || n_warps < 1 ||
+      (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int hp = heads_per_pass(dtype, N, d, heads, n_warps);
+  const size_t smem = headbatched_smem_bytes(dtype, N, d, hp, n_warps);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    err = allow_smem(headbatched_attention_mma_kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const bool vec = d % 8 == 0 && aligned16(qkv);
+    headbatched_attention_mma_kernel<<<B, n_warps * kWarp, smem, s>>>(
+        static_cast<const bf16*>(qkv), static_cast<bf16*>(out), N, heads, d,
+        scale, hp, vec);
+  } else {
+    err = allow_smem(headbatched_attention_fma_kernel<float>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const bool vec = d % 4 == 0 && aligned16(qkv);
+    headbatched_attention_fma_kernel<float><<<B, n_warps * kWarp, smem, s>>>(
+        static_cast<const float*>(qkv), static_cast<float*>(out), N, heads, d,
+        scale, hp, vec);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -9,23 +9,31 @@ Counterpart of the Pallas kernels in `lossyless_tpu/nn/flash_attn.py`:
 * K2 `fused_attention_cls(q0, kv, heads)` — the class-token query only:
   q0 (B, 1, D), kv (B, N, 2D), out (B, 1, D). Replaces
   `fused_attention_cls` / `_attn_cls_kernel`. Runs the last ViT block.
+* K5a (packed) and K5b (head-batched) — K1's function on the TPU's two
+  other layouts, chosen inside `fused_attention` by the module knobs
+  `IMAGE_PACK` and `HEAD_BATCH`, as JAX's `fused_attention` chooses
+  `_attn_kernel_packed` / `_attn_kernel_headbatched`. K5a stacks `pack`
+  images' tokens into one (pack*N)-token operand per head under a
+  block-diagonal -1e9 mask; K5b runs all heads of an image in one block.
 * K4 `fused_mlp_block(x, ln_scale, ln_bias, fc_w, fc_b, pr_w, pr_b)` —
   the MLP half-block `x + proj(QuickGELU(fc(LN(x))))` in one kernel, bf16.
   Replaces `fused_mlp_block` / `_mlp_kernel`. Runs the MLP of ViT blocks
   0..L-2 with `mlp_impl="kernel"`.
 
-K1 and K2 are CUDA C++ in `csrc/attention.cu`, K4 in `csrc/mlp_block.cu`
-(design and bounds noted there), built with nvcc at first use
-(`_build.py`) and called through ctypes on PyTorch's current stream. Each
-wrapper checks device, dtype, shape and contiguity, allocates the output,
-launches, raises if the launch returned a CUDA error, and adds one to its
-entry of `LAUNCHES`.
+K1, K2, K5a and K5b are CUDA C++ in `csrc/attention.cu`, K4 in
+`csrc/mlp_block.cu` (design and bounds noted there), built with nvcc at
+first use (`_build.py`) and called through ctypes on PyTorch's current
+stream. Each wrapper checks device, dtype, shape and contiguity,
+allocates the output, launches, raises if the launch returned a CUDA
+error, and adds one to its entry of `LAUNCHES`.
 
 A CPU tensor goes to the plain version (`attention_plain`,
+`attention_packed_plain`, `attention_headbatched_plain`,
 `attention_cls_plain`, `mlp_block_plain`: plain torch with the kernel's
 arithmetic). A CUDA tensor goes to the kernel or the call raises; nothing
 falls back. The backward of each recomputes through the plain version, as
-the JAX `custom_vjp`s do.
+the JAX `custom_vjp`s do; all three variants of `fused_attention` go back
+through `attention_plain`, as JAX routes them through one `custom_vjp`.
 """
 
 from __future__ import annotations
@@ -38,12 +46,23 @@ import torch
 # launches of each kernel, counted where the kernel is launched and nowhere
 # else (a run reads them to show its main path went through the kernels)
 LAUNCHES = {"fused_attention": 0, "fused_attention_cls": 0,
+            "fused_attention_packed": 0, "fused_attention_headbatched": 0,
             "fused_mlp_block": 0}
+
+# The JAX package's variant knobs (`lossyless_tpu/nn/flash_attn.py:77-97`),
+# same names and defaults. IMAGE_PACK > 1 runs K5a with that many images
+# per packed operand (after the pack rule, `effective_pack`); else
+# HEAD_BATCH runs K5b; else K1. BLOCK_LIMIT is JAX's images-per-grid-step
+# cap, which the pack rule reads.
+IMAGE_PACK = 1
+HEAD_BATCH = False
+BLOCK_LIMIT = 16
 
 MAX_D = 128
 MAX_SMEM = 232448          # bytes of shared memory a Hopper block can use
 K1_WARPS = 8               # warps per (image, head) block; each takes rows
 K2_WARPS = 4               # one query row: warp 0 computes, all stage K/V
+K5_WARPS = 8               # K5a/K5b: warps take 16-row (bf16) or 4-row items
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _lib = None
@@ -67,6 +86,20 @@ def _get_lib():
                 lib.lossyless_fused_attention_cls.restype = i
                 lib.lossyless_fused_attention_cls.argtypes = [
                     p, p, p, i, i, i, i, i, f, i, i, p]
+                lib.lossyless_attention_packed_smem_bytes.restype = \
+                    ctypes.c_size_t
+                lib.lossyless_attention_packed_smem_bytes.argtypes = [
+                    i, i, i, i]
+                lib.lossyless_fused_attention_packed.restype = i
+                lib.lossyless_fused_attention_packed.argtypes = [
+                    p, p, i, i, i, i, i, i, f, i, i, p]
+                lib.lossyless_attention_headbatched_smem_bytes.restype = \
+                    ctypes.c_size_t
+                lib.lossyless_attention_headbatched_smem_bytes.argtypes = [
+                    i, i, i, i, i]
+                lib.lossyless_fused_attention_headbatched.restype = i
+                lib.lossyless_fused_attention_headbatched.argtypes = [
+                    p, p, i, i, i, i, i, f, i, i, p]
                 _lib = lib
     return _lib
 
@@ -100,6 +133,84 @@ def attention_plain(qkv: torch.Tensor, heads: int) -> torch.Tensor:
     attn = _softmax_to(logits, qkv.dtype).float()
     out = torch.einsum("bhqk,bkhd->bqhd", attn, v)
     return out.reshape(B, N, D).to(qkv.dtype)
+
+
+def _heads_first(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """(B, N, heads*d) -> (heads*B, N, d), head-major as JAX's
+    `heads_first` concatenation."""
+    B, N, D = t.shape
+    return t.reshape(B, N, heads, D // heads).permute(2, 0, 1, 3) \
+        .reshape(heads * B, N, D // heads)
+
+
+def attention_packed_plain(qkv: torch.Tensor, heads: int,
+                           pack: int) -> torch.Tensor:
+    """Plain K5a (`_attn_kernel_packed`): per head, `pack` consecutive
+    images' tokens stacked into one (M = pack*N, d) operand; the fp32
+    (M, M) logits, scaled after the dot, get the additive block-diagonal
+    mask (0 within an image, -1e9 across) before the softmax."""
+    B, N, threeD = qkv.shape
+    D = threeD // 3
+    d = D // heads
+    if pack < 1 or B % pack:
+        raise ValueError(f"pack={pack} does not divide the batch {B}")
+    M = pack * N
+    img = torch.arange(M, device=qkv.device) // N
+    amask = torch.where(img[:, None] == img[None, :], 0.0, -1e9)
+    q, k, v = (_heads_first(t.reshape(B // pack, M, D), heads)
+               for t in qkv.float().split(D, dim=-1))
+    logits = torch.bmm(q, k.transpose(1, 2)) * d**-0.5 + amask
+    attn = _softmax_to(logits, qkv.dtype).float()
+    out = torch.bmm(attn, v)                       # (heads * B/pack, M, d)
+    out = out.reshape(heads, B // pack, M, d).permute(1, 2, 0, 3)
+    return out.reshape(B, N, D).to(qkv.dtype)
+
+
+def attention_headbatched_plain(qkv: torch.Tensor,
+                                heads: int) -> torch.Tensor:
+    """Plain K5b (`_attn_kernel_headbatched`): all heads folded into the
+    batch of one pair of dots, (heads*B, N, d) operands."""
+    B, N, threeD = qkv.shape
+    D = threeD // 3
+    d = D // heads
+    q, k, v = (_heads_first(t, heads) for t in qkv.float().split(D, dim=-1))
+    logits = torch.bmm(q, k.transpose(1, 2)) * d**-0.5
+    attn = _softmax_to(logits, qkv.dtype).float()
+    out = torch.bmm(attn, v).reshape(heads, B, N, d).permute(1, 2, 0, 3)
+    return out.reshape(B, N, D).to(qkv.dtype)
+
+
+# ---------------------------------------------------------------------------
+# The pack rule: which images K5a packs together, as JAX decides it
+# (`fused_attention`, `flash_attn.py:221-227, 240-244`)
+# ---------------------------------------------------------------------------
+
+
+def _block_size(B: int, limit: int | None = None) -> int:
+    if limit is None:
+        limit = BLOCK_LIMIT
+    for g in range(min(limit, B), 0, -1):
+        if B % g == 0:
+            return g
+    return 1
+
+
+def _vmem_block_limit(per_image_bytes: int, budget: int = 4 << 20) -> int:
+    """JAX's cap on images per grid step for a 4 MiB block budget."""
+    return max(1, min(BLOCK_LIMIT, budget // max(1, per_image_bytes)))
+
+
+def effective_pack(B: int, N: int, threeD: int, itemsize: int) -> int:
+    """Images per packed operand for `IMAGE_PACK` at this shape: JAX's
+    image block G for the qkv block, `min(IMAGE_PACK, G)`, stepped down to
+    a divisor of G. The packed images are consecutive, so this packs the
+    same images together as JAX does (its rebudgeted block size is a
+    multiple of the pack and changes no grouping)."""
+    G = _block_size(B, _vmem_block_limit(N * threeD * itemsize))
+    pack = max(1, min(IMAGE_PACK, G))
+    while G % pack:
+        pack -= 1
+    return pack
 
 
 def attention_cls_plain(q0: torch.Tensor, kv: torch.Tensor,
@@ -136,8 +247,7 @@ def _check(name: str, t: torch.Tensor, dtype, shape):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _head_dim(D: int, heads: int, n_q: int, N: int, B: int,
-              warps: int) -> int:
+def _head_dim(D: int, heads: int, N: int, B: int) -> int:
     if heads < 1 or D % heads:
         raise ValueError(f"width {D} is not divisible by heads={heads}")
     d = D // heads
@@ -145,11 +255,22 @@ def _head_dim(D: int, heads: int, n_q: int, N: int, B: int,
         raise ValueError(f"head dim {d} > {MAX_D} is not supported")
     if N < 1 or B < 1:
         raise ValueError(f"empty input (B={B}, N={N})")
-    smem = _get_lib().lossyless_attention_smem_bytes(n_q, N, d, warps)
-    if smem > MAX_SMEM:
-        raise ValueError(f"N={N}, d={d} needs {smem} bytes of shared memory "
-                         f"per block, more than {MAX_SMEM}")
     return d
+
+
+def _check_smem(smem: int, what: str):
+    if smem > MAX_SMEM:
+        raise ValueError(f"{what} needs {smem} bytes of shared memory per "
+                         f"block, more than {MAX_SMEM}")
+
+
+def _check_qkv(qkv: torch.Tensor, heads: int) -> tuple[int, int, int, int]:
+    """(B, N, D, d) of a contiguous CUDA (B, N, 3D) qkv the kernels take."""
+    if qkv.dim() != 3 or qkv.shape[-1] % 3:
+        raise ValueError(f"qkv must be (B, N, 3D), got {tuple(qkv.shape)}")
+    B, N, threeD = qkv.shape
+    _check("qkv", qkv, qkv.dtype, (B, N, threeD))
+    return B, N, threeD // 3, _head_dim(threeD // 3, heads, N, B)
 
 
 def _raise_on(rc: int, name: str):
@@ -158,12 +279,9 @@ def _raise_on(rc: int, name: str):
 
 
 def _launch_attention(qkv: torch.Tensor, heads: int) -> torch.Tensor:
-    if qkv.dim() != 3 or qkv.shape[-1] % 3:
-        raise ValueError(f"qkv must be (B, N, 3D), got {tuple(qkv.shape)}")
-    B, N, threeD = qkv.shape
-    D = threeD // 3
-    _check("qkv", qkv, qkv.dtype, (B, N, threeD))
-    d = _head_dim(D, heads, N, N, B, K1_WARPS)
+    B, N, D, d = _check_qkv(qkv, heads)
+    _check_smem(_get_lib().lossyless_attention_smem_bytes(
+        N, N, d, K1_WARPS), f"N={N}, d={d}")
     out = torch.empty((B, N, D), dtype=qkv.dtype, device=qkv.device)
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     rc = _get_lib().lossyless_fused_attention(
@@ -171,6 +289,44 @@ def _launch_attention(qkv: torch.Tensor, heads: int) -> torch.Tensor:
         _DTYPE_CODE[qkv.dtype], d**-0.5, K1_WARPS, qkv.device.index, stream)
     _raise_on(rc, "fused_attention")
     LAUNCHES["fused_attention"] += 1
+    return out
+
+
+def _launch_attention_packed(qkv: torch.Tensor, heads: int,
+                             pack: int) -> torch.Tensor:
+    B, N, D, d = _check_qkv(qkv, heads)
+    if pack < 2 or B % pack:
+        raise ValueError(f"pack={pack} must be >= 2 and divide B={B}")
+    lib = _get_lib()
+    dt = _DTYPE_CODE[qkv.dtype]
+    _check_smem(lib.lossyless_attention_packed_smem_bytes(
+        dt, pack * N, d, K5_WARPS), f"pack={pack}, N={N}, d={d} "
+        f"({qkv.dtype}, K and V of {pack * N} tokens)")
+    out = torch.empty((B, N, D), dtype=qkv.dtype, device=qkv.device)
+    stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    rc = lib.lossyless_fused_attention_packed(
+        qkv.data_ptr(), out.data_ptr(), B, N, heads, d, pack, dt, d**-0.5,
+        K5_WARPS, qkv.device.index, stream)
+    _raise_on(rc, "fused_attention_packed")
+    LAUNCHES["fused_attention_packed"] += 1
+    return out
+
+
+def _launch_attention_headbatched(qkv: torch.Tensor,
+                                  heads: int) -> torch.Tensor:
+    B, N, D, d = _check_qkv(qkv, heads)
+    lib = _get_lib()
+    dt = _DTYPE_CODE[qkv.dtype]
+    # the kernel stages as many heads a pass as fit; one must
+    _check_smem(lib.lossyless_attention_headbatched_smem_bytes(
+        dt, N, d, 1, K5_WARPS), f"N={N}, d={d} ({qkv.dtype}, one head)")
+    out = torch.empty((B, N, D), dtype=qkv.dtype, device=qkv.device)
+    stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    rc = lib.lossyless_fused_attention_headbatched(
+        qkv.data_ptr(), out.data_ptr(), B, N, heads, d, dt, d**-0.5,
+        K5_WARPS, qkv.device.index, stream)
+    _raise_on(rc, "fused_attention_headbatched")
+    LAUNCHES["fused_attention_headbatched"] += 1
     return out
 
 
@@ -184,7 +340,9 @@ def _launch_attention_cls(q0: torch.Tensor, kv: torch.Tensor,
     _check("q0", q0, kv.dtype, (B, 1, D))
     if q0.device != kv.device:
         raise ValueError(f"q0 on {q0.device} but kv on {kv.device}")
-    d = _head_dim(D, heads, 1, N, B, K2_WARPS)
+    d = _head_dim(D, heads, N, B)
+    _check_smem(_get_lib().lossyless_attention_smem_bytes(
+        1, N, d, K2_WARPS), f"N={N}, d={d}")
     out = torch.empty((B, 1, D), dtype=kv.dtype, device=kv.device)
     stream = torch.cuda.current_stream(kv.device).cuda_stream
     rc = _get_lib().lossyless_fused_attention_cls(
@@ -205,12 +363,30 @@ def _on_cpu(*tensors) -> bool:
                      f"CUDA device, got {sorted(devices)}")
 
 
+def attention_variant(qkv: torch.Tensor) -> tuple[str, int]:
+    """("packed", pack), ("headbatched", 1) or ("k1", 1): the variant the
+    knobs select for this input, in JAX's order (pack > 1 wins)."""
+    B, N, threeD = qkv.shape
+    pack = effective_pack(B, N, threeD, qkv.element_size())
+    if pack > 1:
+        return "packed", pack
+    return ("headbatched", 1) if HEAD_BATCH else ("k1", 1)
+
+
 class _FusedAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qkv, heads):
         ctx.heads = heads
         ctx.save_for_backward(qkv)
-        if _on_cpu(qkv):
+        variant, pack = attention_variant(qkv)
+        cpu = _on_cpu(qkv)
+        if variant == "packed":
+            return attention_packed_plain(qkv, heads, pack) if cpu \
+                else _launch_attention_packed(qkv, heads, pack)
+        if variant == "headbatched":
+            return attention_headbatched_plain(qkv, heads) if cpu \
+                else _launch_attention_headbatched(qkv, heads)
+        if cpu:
             return attention_plain(qkv, heads)
         return _launch_attention(qkv, heads)
 
@@ -244,7 +420,8 @@ class _FusedAttentionCls(torch.autograd.Function):
 
 
 def fused_attention(qkv: torch.Tensor, heads: int) -> torch.Tensor:
-    """K1: fused MHSA from a (B, N, 3D) qkv tensor -> (B, N, D)."""
+    """Fused MHSA from a (B, N, 3D) qkv tensor -> (B, N, D): K1, or K5a /
+    K5b when `IMAGE_PACK` / `HEAD_BATCH` select them."""
     return _FusedAttention.apply(qkv, heads)
 
 

@@ -3,9 +3,9 @@
 Counterpart of `lossyless_tpu/pipeline/config.py`: `DataConfig`,
 `TrainerConfig`, `ExperimentConfig` (with `PredictorConfig`, as a dataclass
 only), `apply_overrides` (the `a.b.c=value` override syntax, literal-eval
-coercion), `apply_precision` and the presets of the hub compressor's
-recipe, `clip_bottleneck_pretrain` and `clip_hub`. The other presets wait
-for ROADMAP queue 1 item 10.
+coercion), `apply_precision` and the presets that train on the port,
+`clip_bottleneck_pretrain` (the hyperprior rate) and `clip_hub` (the
+factorized rate). The other presets wait for ROADMAP queue 1 item 10.
 """
 
 from __future__ import annotations
@@ -60,7 +60,7 @@ class TrainerConfig:
     use_fused_epochs: bool = True
     # devices for training: only 1 is ported (multi-GPU: ROADMAP queue 1)
     n_devices: int = 1
-    # training metrics sink; the port's loop prints (loggers: queue 1 item 8)
+    # training metrics sink: csv | wandb | none (train/loggers.py)
     logger: str = "csv"
     # compute precision for encoder/decoder bodies: fp32 | bf16 (fp32
     # params and norm statistics either way; the entropy-model likelihoods
@@ -335,5 +335,6 @@ def _preset_impl(name: str) -> ExperimentConfig:
 
 
 def available_presets() -> list[str]:
-    """The presets this package has."""
+    """The presets this package has; each trains through
+    `pipeline.run.run_featurizer` and codes through `run_communication`."""
     return ["clip_bottleneck_pretrain", "clip_hub"]

@@ -40,8 +40,17 @@ def test_the_scan_covers_the_port():
     assert len(names) >= 15
 
 
-# the modules of the training path (slice 2)
+# the modules of the training path (slice 2) and of the hyperprior path
+# with its communication stage (slice 3)
 NEW_MODULES = [
+    "lossyless_tpu_torch.nn.flash_attn",
+    "lossyless_tpu_torch.coding.rans",
+    "lossyless_tpu_torch.coding.gaussian_conditional",
+    "lossyless_tpu_torch.nn.layers",
+    "lossyless_tpu_torch.nn.mlp",
+    "lossyless_tpu_torch.train.metrics",
+    "lossyless_tpu_torch.train.loggers",
+    "lossyless_tpu_torch.train.checkpoints",
     "lossyless_tpu_torch.core.annealer",
     "lossyless_tpu_torch.compressors.distributions",
     "lossyless_tpu_torch.coding.eb_kernel",
@@ -58,7 +67,8 @@ NEW_MODULES = [
 
 def test_the_training_path_imports_with_jax_blocked():
     """A fresh interpreter in which importing jax, flax, optax or the JAX
-    package fails imports every module of the training path."""
+    package fails imports every module of the training and hyperprior
+    paths."""
     block = "; ".join(f"sys.modules[{m!r}] = None" for m in FORBIDDEN)
     code = (f"import sys; {block}; import importlib; "
             f"[importlib.import_module(m) for m in {NEW_MODULES!r}]; "

@@ -225,7 +225,7 @@ def test_detached_rate_is_one_likelihood_with_live_z_hat():
 
 def test_unported_modes_raise_and_name_the_queue():
     with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        trates.make_rate_estimator(4, trates.RateConfig(mode="H_hyper"))
+        trates.make_rate_estimator(4, trates.RateConfig(mode="H_spatial"))
     with pytest.raises(NotImplementedError, match="queue 1 item 6"):
         tdist.make_distortion_estimator(tdist.DistortionConfig(), 4, 2)
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
@@ -433,10 +433,11 @@ def test_slice_params_match_jax(slice_runs):
     assert {v for v in labels.values()} == {"frozen", "main", "coder"}
 
 
-def test_run_featurizer_runs_the_loop_on_the_cpu():
+def test_run_featurizer_runs_the_loop_on_the_cpu(tmp_path):
     """The entry point: the same 3 steps through run_featurizer (noise from
     a generator seeded with the step), and eval_step on the result."""
     _, tcfg = _configs("float32")
+    tcfg.out_dir = str(tmp_path)
     tcfg.in_shape = None   # taken from the first batch
     tcfg.trainer.log_every = 1
     batches = [tuple(map(torch.from_numpy, b)) for b in _batches()]
