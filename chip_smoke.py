@@ -10,23 +10,33 @@ non-zero without printing a result:
 2. build of every native library of the main path from the sources in the
    checkout (the attention kernels with nvcc, the rANS codec with g++, in
    parallel), with nvcc's register/shared-memory report;
-3. each attention kernel against its plain PyTorch version on the card, at
-   the slice shapes (ViT-B/32: N=50, 12 heads of 64, bf16, batch 512 and the
-   main path's 256), at odd shapes in fp32 and, for K2, the RN50
-   attention-pool shape; then CUDA-event timings of the kernel, its plain
-   version and `scaled_dot_product_attention` (timed as a yardstick only);
+3. K1 and K2 against their plain PyTorch versions on the card
+   (`K1_CHECKS`, `K2_CHECKS`): the slice shapes (ViT-B/32: N=50, 12 heads
+   of 64, bf16, batch 512 and the main path's 256), N = 1, 16, 17, 64
+   and 65, h = 1, d = 56, 96 and 128, B = 7, odd shapes in fp32 and bf16
+   (d = 20, 33, 40; N = 5, 7, 9, 37, 130, 197), an input whose data pointer
+   is not 16-byte aligned (a view at a storage offset of one element: the
+   element path), K2 at B = 1 and 7 in both dtypes (84 items, 8 a block: a
+   ragged last block) and the RN50 attention-pool shape; K2's launch
+   plan's shared memory equal to the library's own count; then, at batch
+   512 and 256, the kernel's CUDA-event time, its device-only time from a
+   torch.profiler trace of the same loop, its plain version's time and
+   `scaled_dot_product_attention`'s (timed as a yardstick only), the bound
+   and the share of the bound reached;
 3b. K3 (entropy-bottleneck likelihood) at the training shape (128, 512) and
    at odd shapes in fp32, to rtol 1e-5 / atol 1e-7, and K4 (fused MLP
    half-block) at the training shape (128 x 50 tokens, width 768) and odd
    shapes in bf16, to atol 2e-2 plus one bf16 ulp of the value; then
-   CUDA-event timings of each, of its plain version and, for K4, of the op
-   path it replaces (LayerNorm, two matmuls, elementwise: a yardstick);
+   CUDA-event and device-only (torch.profiler) timings of each, of its
+   plain version and, for K4, of the op path it replaces (LayerNorm, two
+   matmuls, elementwise: a yardstick);
 3c. K5a (packed, packs 2, 4, 8, 16) and K5b (head-batched) through the
    `fused_attention` wrapper under their knobs, at B=512, N=50, h=12,
    d=64, bf16, and at odd shapes (B=7, N=37, d=40 in fp32 and bf16; pack 3
    at B=8, stepping down to 2), against their plain versions and K1's
-   output (fp32 rtol/atol 1e-5, bf16 atol 2e-2); then CUDA-event timings
-   of each, its plain version and `scaled_dot_product_attention`;
+   output (fp32 rtol/atol 1e-5, bf16 atol 2e-2); then CUDA-event and
+   device-only timings of each, its plain version and
+   `scaled_dot_product_attention`;
 4. the encode/decode path at full width: a seeded random CLIP ViT-B/32
    tower in bf16 with seeded entropy-bottleneck params, `compress_dataset`
    over 8 batches of 256 raw uint8 96x96 images, then `decompress_dataset`.
@@ -61,7 +71,8 @@ non-zero without printing a result:
    equal to the host dequantize to 1e-5, and the side symbols and the
    main symbols given K1's side latent within 1% of K1's; a
    torch.profiler trace of 3 steps;
-7. the `kernels` JSON line (K1-K4, K5a, K5b) and, last,
+7. the `kernels` JSON line (K1-K4, K5a, K5b; with `device_ms` and
+   `bound_share`, and K1/K2 also at batch 256) and, last,
    `{"ok": true, "device": {...}}`.
 
 It needs a CUDA card and the repository around it: with no card, or run
@@ -136,102 +147,213 @@ def bound(bytes_moved: float, flops: float, dtype: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def k1_inputs(B, N, heads, d, dtype, seed):
+def device_ms(fn, match=None, reps: int = 20):
+    """Device-only time of one `fn()` from a torch.profiler trace of `reps`
+    calls after a warm-up: the summed time of the CUDA kernels whose names
+    contain one of `match` (all of the call's kernels where None), over
+    `reps`; the median of three traces (a trace now and then loses
+    events), None if none holds such kernel time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and (match is None or any(m in e.key for m in match)))
+        if us:
+            times.append(us / reps / 1e3)
+    return float(np.median(times)) if times else None
+
+
+def bound_share(bound_ms: float, ms) -> float | None:
+    return bound_ms / ms if ms else None
+
+
+# Phase 3's cases: (B, N, heads, d, dtype, tolerance, options); option
+# "unaligned": the inputs are views at a storage offset of one element.
+K1_CHECKS = [
+    (512, 50, 12, 64, "bfloat16", 2e-2, {}),
+    (BATCH, 50, 12, 64, "bfloat16", 2e-2, {}),
+    (1, 5, 12, 64, "float32", 1e-5, {}),
+    (3, 7, 12, 64, "float32", 1e-5, {}),
+    (3, 5, 4, 24, "float32", 1e-5, {}),
+    (1, 7, 2, 128, "float32", 1e-5, {}),
+    (2, 9, 2, 33, "float32", 1e-5, {}),          # element staging
+    (2, 7, 2, 64, "float32", 1e-5, {"unaligned": True}),
+    (3, 7, 3, 20, "bfloat16", 2e-2, {}),          # element staging
+    (2, 9, 2, 33, "bfloat16", 2e-2, {}),          # element staging
+    (7, 37, 3, 40, "bfloat16", 2e-2, {}),         # d, N not x16
+    (4, 197, 12, 64, "bfloat16", 2e-2, {}),       # >48 KB smem
+    (3, 1, 12, 64, "bfloat16", 2e-2, {}),         # 16-row, 64-key tile edges
+    (3, 16, 12, 64, "bfloat16", 2e-2, {}),
+    (3, 17, 12, 64, "bfloat16", 2e-2, {}),
+    (3, 64, 12, 64, "bfloat16", 2e-2, {}),
+    (3, 65, 12, 64, "bfloat16", 2e-2, {}),
+    (5, 50, 1, 64, "bfloat16", 2e-2, {}),
+    (3, 50, 2, 128, "bfloat16", 2e-2, {}),
+    (3, 50, 2, 56, "bfloat16", 2e-2, {}),
+    (3, 50, 2, 96, "bfloat16", 2e-2, {}),
+    (2, 130, 2, 128, "bfloat16", 2e-2, {}),       # 226 KB smem
+    (7, 50, 12, 64, "bfloat16", 2e-2, {}),
+    (3, 50, 12, 64, "bfloat16", 2e-2, {"unaligned": True}),
+]
+K2_CHECKS = [
+    (512, 50, 12, 64, "bfloat16", 2e-2, {}),
+    (BATCH, 50, 12, 64, "bfloat16", 2e-2, {}),
+    (1, 5, 12, 64, "float32", 1e-5, {}),
+    (3, 7, 12, 64, "float32", 1e-5, {}),
+    (64, 50, 32, 64, "float32", 1e-5, {}),        # RN50 attention pool
+    (1, 50, 12, 64, "bfloat16", 2e-2, {}),
+    (7, 50, 12, 64, "bfloat16", 2e-2, {}),
+    (1, 50, 12, 64, "float32", 1e-5, {}),
+    (7, 50, 12, 64, "float32", 1e-5, {}),
+    (2, 1, 4, 64, "bfloat16", 2e-2, {}),
+    (3, 197, 12, 64, "bfloat16", 2e-2, {}),
+    (3, 50, 2, 128, "float32", 1e-5, {}),
+    (2, 7, 3, 20, "float32", 1e-5, {}),           # 5 chunks a row
+    (3, 9, 2, 33, "bfloat16", 2e-2, {}),          # element loads
+    (3, 50, 12, 64, "bfloat16", 2e-2, {"unaligned": True}),
+]
+
+
+def _randn(g, shape, dtype, unaligned=False):
+    """Seeded normal values on the card; `unaligned`: a contiguous view
+    whose data pointer sits one element past a 16-byte boundary."""
+    import torch
+
+    n = int(np.prod(shape))
+    flat = torch.randn(n + 1, generator=g, device="cuda").to(dtype)
+    return (flat[1:] if unaligned else flat[:n]).view(*shape)
+
+
+def k1_inputs(B, N, heads, d, dtype, seed, unaligned=False):
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    return (torch.randn(B, N, 3 * heads * d, generator=g, device="cuda")
-            .to(dtype),)
+    return (_randn(g, (B, N, 3 * heads * d), dtype, unaligned),)
 
 
-def k2_inputs(B, N, heads, d, dtype, seed):
+def k2_inputs(B, N, heads, d, dtype, seed, unaligned=False):
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     D = heads * d
-    q0 = torch.randn(B, 1, D, generator=g, device="cuda").to(dtype)
-    kv = torch.randn(B, N, 2 * D, generator=g, device="cuda").to(dtype)
-    return q0, kv
+    return (_randn(g, (B, 1, D), dtype, unaligned),
+            _randn(g, (B, N, 2 * D), dtype, unaligned))
 
 
 def check_kernels():
-    """Phase 3: kernels vs plain versions, then timings at batch 512."""
+    """Phase 3: K1 and K2 vs their plain versions, K2's launch plan's
+    shared memory against the library's, then timings at batch 512 and
+    256."""
     import torch
-    import torch.nn.functional as F
 
     from lossyless_tpu_torch.nn import flash_attn as fa
 
-    bf16, f32 = torch.bfloat16, torch.float32
+    lib = fa._get_lib()
     cases = {
         "fused_attention": (k1_inputs, fa.fused_attention,
-                            fa.attention_plain, [
-                                (512, 50, 12, 64, bf16, 2e-2),
-                                (BATCH, 50, 12, 64, bf16, 2e-2),
-                                (1, 5, 12, 64, f32, 1e-5),
-                                (3, 7, 12, 64, f32, 1e-5),
-                                (3, 5, 4, 24, f32, 1e-5),
-                                (1, 7, 2, 128, f32, 1e-5),
-                                (2, 9, 2, 33, f32, 1e-5),     # scalar staging
-                                (3, 7, 3, 20, bf16, 2e-2),    # scalar staging
-                                (4, 197, 12, 64, bf16, 2e-2),  # >48 KB smem
-                            ]),
+                            fa.attention_plain, K1_CHECKS),
         "fused_attention_cls": (k2_inputs, fa.fused_attention_cls,
-                                fa.attention_cls_plain, [
-                                    (512, 50, 12, 64, bf16, 2e-2),
-                                    (BATCH, 50, 12, 64, bf16, 2e-2),
-                                    (1, 5, 12, 64, f32, 1e-5),
-                                    (3, 7, 12, 64, f32, 1e-5),
-                                    (64, 50, 32, 64, f32, 1e-5),  # RN50 pool
-                                ]),
+                                fa.attention_cls_plain, K2_CHECKS),
     }
     results = {}
     with torch.inference_mode():
         for name, (make, kernel, plain, shapes) in cases.items():
             errs = []
-            for i, (B, N, h, d, dtype, tol) in enumerate(shapes):
-                args = make(B, N, h, d, dtype, seed=i)
+            for i, (B, N, h, d, dt, tol, opt) in enumerate(shapes):
+                dtype = getattr(torch, dt)
+                args = make(B, N, h, d, dtype, seed=i,
+                            unaligned=opt.get("unaligned", False))
+                vec = fa.sixteen_byte_path(
+                    d, dtype.itemsize, all(a.data_ptr() % 16 == 0
+                                           for a in args))
                 got = kernel(*args, h)
                 torch.cuda.synchronize()
+                how = f"{'16-byte' if vec else 'element'} path"
+                if name == "fused_attention_cls":
+                    plan = fa.k2_plan(B, N, h, d, dtype, vec)
+                    lib_smem = lib.lossyless_attention_k2_smem_bytes(
+                        N, d, plan.warps)
+                    if lib_smem != plan.smem:
+                        raise AssertionError(
+                            f"{name} plan {plan} disagrees with the "
+                            f"library's {lib_smem} bytes")
+                    how += (f", {plan.blocks} blocks of {plan.warps} warps, "
+                            f"{plan.smem} B smem")
                 want = plain(*args, h)
                 err = (got.float() - want.float()).abs().max().item()
                 ok = bool(torch.isfinite(got).all()) and err <= tol
-                print(f"check {name} B={B} N={N} h={h} d={d} "
-                      f"{str(dtype)[6:]}: max_abs_err={err!r} tol={tol} "
+                print(f"check {name} B={B} N={N} h={h} d={d} {dt} {how}"
+                      f"{' (unaligned input)' if opt.get('unaligned') else ''}"
+                      f": max_abs_err={err!r} tol={tol} "
                       f"{'ok' if ok else 'FAIL'}", flush=True)
                 if not ok:
                     raise AssertionError(f"{name} disagrees with its plain "
-                                         f"version at B={B} N={N}")
+                                         f"version at B={B} N={N} h={h} "
+                                         f"d={d} {dt} {opt}")
                 errs.append(err)
 
-            B, N, h, d = 512, SLICE["N"], SLICE["heads"], SLICE["d"]
-            args = make(B, N, h, d, bf16, seed=100)
-            D = h * d
-            if name == "fused_attention":
-                (qkv,) = args
-                q, k, v = (t.view(B, N, h, d).transpose(1, 2)
-                           for t in qkv.split(D, dim=-1))
-                nbytes = qkv.numel() * 2 + B * N * D * 2
-                flops = 4 * B * h * N * N * d
-            else:
-                q0, kv = args
-                q = q0.view(B, 1, h, d).transpose(1, 2)
-                k, v = (t.view(B, N, h, d).transpose(1, 2)
-                        for t in kv.split(D, dim=-1))
-                nbytes = q0.numel() * 2 + kv.numel() * 2 + B * D * 2
-                flops = 4 * B * h * N * d
-            ms = median_ms(lambda: kernel(*args, h))
-            plain_ms = median_ms(lambda: plain(*args, h))
-            library_ms = median_ms(
-                lambda: F.scaled_dot_product_attention(q, k, v))
-            bound_ms, bound_by = bound(nbytes, flops, "bfloat16")
-            results[name] = dict(max_abs_err=errs[0], ms=ms,
-                                 plain_ms=plain_ms, bound_ms=bound_ms,
-                                 bound_by=bound_by, library_ms=library_ms)
-            print(f"time {name} B={B} N={N} h={h} d={d} bf16: kernel "
-                  f"{ms!r} ms, plain {plain_ms!r} ms, sdpa {library_ms!r} "
-                  f"ms, bound {bound_ms!r} ms ({bound_by}: {nbytes} bytes, "
-                  f"{flops} flop)", flush=True)
+            for B in (512, BATCH):
+                N, h, d = SLICE["N"], SLICE["heads"], SLICE["d"]
+                row = time_attention(name, make, kernel, plain, B, N, h, d)
+                if B == 512:
+                    results[name] = dict(max_abs_err=errs[0], **row)
+                else:
+                    results[name][f"at_b{B}"] = row
     return results
+
+
+def time_attention(name, make, kernel, plain, B, N, h, d) -> dict:
+    """K1's or K2's times at (B, N, h, d) bf16: the kernel's CUDA-event and
+    device-only time, its plain version's, SDPA's (both clocks), the bound
+    and the share of it reached."""
+    import torch
+    import torch.nn.functional as F
+
+    args = make(B, N, h, d, torch.bfloat16, seed=100)
+    D = h * d
+    if name == "fused_attention":
+        (qkv,) = args
+        q, k, v = (t.view(B, N, h, d).transpose(1, 2)
+                   for t in qkv.split(D, dim=-1))
+        nbytes = qkv.numel() * 2 + B * N * D * 2
+        flops = 4 * B * h * N * N * d
+        match = ("attention_kernel",)   # K1's, the only kernel it runs
+    else:
+        q0, kv = args
+        q = q0.view(B, 1, h, d).transpose(1, 2)
+        k, v = (t.view(B, N, h, d).transpose(1, 2)
+                for t in kv.split(D, dim=-1))
+        nbytes = q0.numel() * 2 + kv.numel() * 2 + B * D * 2
+        flops = 4 * B * h * N * d
+        match = ("k2_attention_kernel",)
+    ms = median_ms(lambda: kernel(*args, h))
+    dev_ms = device_ms(lambda: kernel(*args, h), match)
+    plain_ms = median_ms(lambda: plain(*args, h))
+    sdpa = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
+    library_ms = median_ms(sdpa)
+    library_dev_ms = device_ms(sdpa)
+    bound_ms, bound_by = bound(nbytes, flops, "bfloat16")
+    row = dict(B=B, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by=bound_by,
+               bound_share=bound_share(bound_ms, dev_ms or ms),
+               library_ms=library_ms, library_device_ms=library_dev_ms)
+    print(f"time {name} B={B} N={N} h={h} d={d} bf16: kernel {ms!r} ms "
+          f"(device {dev_ms!r} ms), plain {plain_ms!r} ms, sdpa "
+          f"{library_ms!r} ms (device {library_dev_ms!r} ms), bound "
+          f"{bound_ms!r} ms ({bound_by}: {nbytes} bytes, {flops} flop), "
+          f"share of bound {row['bound_share']!r}", flush=True)
+    return row
 
 
 class Knobs:
@@ -337,6 +459,8 @@ def check_k5() -> dict:
             with Knobs(**kw):
                 variant, pack = fa.attention_variant(qkv)
                 ms = median_ms(lambda: fa.fused_attention(qkv, h))
+                dev_ms = device_ms(lambda: fa.fused_attention(qkv, h),
+                                   (f"{variant}_attention",))
             if variant == "packed":
                 plain_ms = median_ms(
                     lambda: fa.attention_packed_plain(qkv, h, pack))
@@ -346,13 +470,16 @@ def check_k5() -> dict:
             flops = 4 * B * h * N * N * d * pack
             bound_ms, bound_by = bound(nbytes, flops, "bfloat16")
             row = dict(max_abs_err=errs[(variant, pack)], ms=ms,
-                       plain_ms=plain_ms, bound_ms=bound_ms,
-                       bound_by=bound_by, library_ms=library_ms)
+                       device_ms=dev_ms, plain_ms=plain_ms,
+                       bound_ms=bound_ms, bound_by=bound_by,
+                       bound_share=bound_share(bound_ms, dev_ms or ms),
+                       library_ms=library_ms)
             label = f"pack={pack}" if variant == "packed" else "head-batched"
             print(f"time fused_attention_{variant} {label} B={B} N={N} h={h} "
-                  f"d={d} bf16: kernel {ms!r} ms, plain {plain_ms!r} ms, "
-                  f"sdpa {library_ms!r} ms, bound {bound_ms!r} ms "
-                  f"({bound_by}: {nbytes} bytes, {flops} flop)", flush=True)
+                  f"d={d} bf16: kernel {ms!r} ms (device {dev_ms!r} ms), "
+                  f"plain {plain_ms!r} ms, sdpa {library_ms!r} ms, bound "
+                  f"{bound_ms!r} ms ({bound_by}: {nbytes} bytes, {flops} "
+                  f"flop)", flush=True)
             if variant == "packed":
                 by_pack[pack] = row
             else:
@@ -360,6 +487,7 @@ def check_k5() -> dict:
     results["fused_attention_packed"] = dict(
         by_pack[K5_MAIN_PACK], pack=K5_MAIN_PACK,
         ms_by_pack={p: r["ms"] for p, r in by_pack.items()},
+        device_ms_by_pack={p: r["device_ms"] for p, r in by_pack.items()},
         bound_ms_by_pack={p: r["bound_ms"] for p, r in by_pack.items()})
     return results
 
@@ -531,14 +659,18 @@ def check_k3_k4() -> dict:
         nbytes = 2 * B * C * 4 + C * K * 4
         flops = B * C * (2 * chain + 10)   # two chains, sign trick, floor
         ms = median_ms(lambda: eb_kernel.likelihood(p, z))
+        dev_ms = device_ms(lambda: eb_kernel.likelihood(p, z),
+                           ("eb_likelihood_kernel",))
         plain_ms = median_ms(lambda: eb_kernel.likelihood_plain(p, z))
         bound_ms, bound_by = bound(nbytes, flops, "float32")
         results["eb_likelihood"] = dict(
-            max_abs_err=errs[0], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            bound_by=bound_by, library_ms=None)
-        print(f"time eb_likelihood B={B} C={C} fp32: kernel {ms!r} ms, "
-              f"plain {plain_ms!r} ms, bound {bound_ms!r} ms ({bound_by}: "
-              f"{nbytes} bytes, {flops} flop)", flush=True)
+            max_abs_err=errs[0], ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by,
+            bound_share=bound_share(bound_ms, dev_ms or ms), library_ms=None)
+        print(f"time eb_likelihood B={B} C={C} fp32: kernel {ms!r} ms "
+              f"(device {dev_ms!r} ms), plain {plain_ms!r} ms, bound "
+              f"{bound_ms!r} ms ({bound_by}: {nbytes} bytes, {flops} flop)",
+              flush=True)
 
         # K4: bf16, atol 2e-2 plus one bf16 ulp of the value (two roundings
         # of sums taken in another order can each flip an ulp)
@@ -568,16 +700,20 @@ def check_k3_k4() -> dict:
         nbytes = 2 * M * D * 2 + 2 * D * H * 2 + (H + D) * 2 + 2 * D * 4
         flops = 4 * M * D * H
         ms = median_ms(lambda: fa.fused_mlp_block(*args))
+        dev_ms = device_ms(lambda: fa.fused_mlp_block(*args),
+                           ("mlp_block_kernel",))
         plain_ms = median_ms(lambda: fa.mlp_block_plain(*args))
         op_ms = median_ms(lambda: op_path_mlp(*ops_args))
         bound_ms, bound_by = bound(nbytes, flops, "bfloat16")
         results["fused_mlp_block"] = dict(
-            max_abs_err=errs[0], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            bound_by=bound_by, library_ms=None, op_path_ms=op_ms)
+            max_abs_err=errs[0], ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by,
+            bound_share=bound_share(bound_ms, dev_ms or ms), library_ms=None,
+            op_path_ms=op_ms)
         print(f"time fused_mlp_block B={B} N={N} D={D} bf16: kernel {ms!r} "
-              f"ms, plain {plain_ms!r} ms, op path {op_ms!r} ms, bound "
-              f"{bound_ms!r} ms ({bound_by}: {nbytes} bytes, {flops} flop)",
-              flush=True)
+              f"ms (device {dev_ms!r} ms), plain {plain_ms!r} ms, op path "
+              f"{op_ms!r} ms, bound {bound_ms!r} ms ({bound_by}: {nbytes} "
+              f"bytes, {flops} flop)", flush=True)
     return results
 
 
@@ -973,6 +1109,61 @@ def profile_encode(comp, batches, card: str):
     print(json.dumps({"profile": result}), flush=True)
 
 
+def k1_k2_kernel(fn: str) -> str | None:
+    """The wrapper (K1 or K2) whose kernel a compiled function's name,
+    mangled or demangled, belongs to; None for the other kernels."""
+    if "k2_attention_kernel" in fn:
+        return "fused_attention_cls"
+    if "attention_kernel" in fn and not any(
+            k in fn for k in ("packed", "headbatched")):
+        return "fused_attention"
+    return None
+
+
+def ptxas_report(log: str) -> dict:
+    """Per kernel of an `nvcc -Xptxas -v` log: registers, stack frame and
+    spill bytes and static shared memory, keyed on the demangled name where
+    c++filt is present."""
+    import re
+    import shutil
+
+    report, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)'?", line)
+        if m:
+            fn = m.group(1)
+            report.setdefault(fn, {})
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            report[fn]["stack_frame"] = int(m.group(1))
+            report[fn]["spill_stores"] = int(m.group(2))
+            report[fn]["spill_loads"] = int(m.group(3))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            report[fn]["spill_stores"] = int(m.group(1))
+            report[fn]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            report[fn]["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            report[fn]["static_smem"] = int(m.group(1))
+    if report and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(report),
+                               capture_output=True, text=True,
+                               timeout=60).stdout.splitlines()
+        if len(names) == len(report):
+            report = dict(zip(names, report.values()))
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -990,10 +1181,11 @@ def main() -> int:
     seconds = _build.build()
     print(f"build: {seconds} (wall {time.perf_counter() - t0:.1f} s)",
           flush=True)
-    for name in _build.SOURCES:
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
-                print(f"ptxas {name}:", line.strip(), flush=True)
+    ptxas = {name: ptxas_report(_build.build_log(name))
+             for name in _build.SOURCES}
+    for name, kernels in ptxas.items():
+        for fn, info in kernels.items():
+            print(f"ptxas {name} {fn}: {info}", flush=True)
 
     global OUT_DIR
     timings = check_kernels()
@@ -1043,9 +1235,13 @@ def main() -> int:
                 launches_per_training_step=train_launches[name]
                 / TRAIN_STEPS,
                 launches_on_slice_path=slice_launches[name])
-        kernels.append(dict(name=name, route="cuda", source=sources[name],
-                            replaces=replaces[name], **counts,
-                            **timings[name]))
+        row = dict(name=name, route="cuda", source=sources[name],
+                   replaces=replaces[name], **counts, **timings[name])
+        if name in ("fused_attention", "fused_attention_cls"):
+            # registers and spills of the kernel's instantiations
+            row["ptxas"] = {fn: info for fn, info in ptxas["attention"].items()
+                            if k1_k2_kernel(fn) == name}
+        kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     # every phase ran on the current device: one card

@@ -1,12 +1,14 @@
 // Multi-head attention for short token sequences, hand-written for Hopper.
 //
 // K1  lossyless_fused_attention      replaces the Pallas kernel
-//     lossyless_tpu/nn/flash_attn.py::fused_attention (_attn_kernel):
-//     MHSA straight off the fused qkv projection, (B, N, 3D) -> (B, N, D).
+//     lossyless_tpu/nn/flash_attn.py::fused_attention (:211, _attn_kernel
+//     :50-70): MHSA straight off the fused qkv projection,
+//     (B, N, 3D) -> (B, N, D). Runs in CLIP ViT blocks 0..L-2.
 // K2  lossyless_fused_attention_cls  replaces
-//     lossyless_tpu/nn/flash_attn.py::fused_attention_cls (_attn_cls_kernel):
-//     the same attention for the class-token query only,
-//     q0 (B, 1, D) and kv (B, N, 2D) -> (B, 1, D).
+//     lossyless_tpu/nn/flash_attn.py::fused_attention_cls (:349,
+//     _attn_cls_kernel :327-345): the same attention for the class-token
+//     query only, q0 (B, 1, D) and kv (B, N, 2D) -> (B, 1, D). Runs in the
+//     last ViT block and the RN50 attention pool (fp32, h=32, d=64).
 // K5a lossyless_fused_attention_packed  replaces fused_attention with
 //     IMAGE_PACK > 1 (_attn_kernel_packed): K1's function computed as the
 //     TPU kernel computes it, P consecutive images' tokens stacked into one
@@ -16,19 +18,31 @@
 //     HEAD_BATCH (_attn_kernel_headbatched): K1's function with the head a
 //     batch index inside the block (one block covers all heads of an image).
 //
-// Arithmetic (the TPU kernels', not a block-by-block copy of them): q.k is
+// Arithmetic (the TPU kernels', at every rounding point): q.k is
 // accumulated in fp32 and multiplied by d^-1/2 AFTER the dot (K5a then adds
 // the mask); row max, exp and sum in fp32; probabilities normalized as
-// p / sum, cast to the io dtype, then P.V accumulated in fp32 and stored in
-// the io dtype. io dtype is bf16 or fp32, head dim d <= 128, N limited only
-// by shared memory.
+// p / sum, rounded to the io dtype, then P.V accumulated in fp32 and stored
+// in the io dtype. No flash-style rescaling of an unnormalized accumulator:
+// that would move the rounding point. io dtype is bf16 or fp32, head dim
+// d <= 128, N limited only by shared memory.
 //
-// K1/K2 design (simple: FMA on CUDA cores, no tensor cores yet). One block
-// per (image, head). The block stages that head's Q, K and V slices from the
-// natural layout into shared memory as fp32 (exact for bf16 inputs), with
-// 16-byte global loads where the layout allows, zero-padding rows to a
-// multiple of 4 and columns to a multiple of 4 (exact: the pads add zeros).
-// Each warp then takes 4 query rows at a time (attend_rows):
+// Bounds on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense) at the CLIP
+// ViT-B/32 shapes B=512, N=50, h=12, d=64, bf16:
+//   K1 reads 118.0 MB of qkv and writes 39.3 MB: 47 us from memory; its
+//      3.9 GFLOP would take 4 us at the bf16 tensor-core rate. Bytes bound
+//      it.
+//   K2 reads 78.6 MB of kv (+0.8 MB q0) and writes 0.8 MB: 24 us; 4*B*h*N*d
+//      = 0.08 GFLOP. A GEMV: bytes bound it.
+//   K5a moves K1's bytes (47 us) and does P times K1's operations (the
+//      masked blocks): 4 us x P, 64 us at P=16, so operations bound it
+//      from P=12 on. K5b moves K1's bytes and does K1's operations.
+//
+// K1 design (attention_kernel<T>, both dtypes; the first design, kept). One
+// block of 8 warps per (image, head). The block zero-fills its buffers and
+// stages that head's Q, K and V slices as fp32 (exact for bf16 inputs),
+// zero-padding rows and columns to a multiple of 4 (the pads add zeros;
+// padded keys get probability 0). Each warp then takes 4 query rows at a
+// time (attend_rows):
 //   q.k   lane j owns key j; one float4 of K row j feeds 16 FMAs (4 rows x
 //         4 columns) against float4 broadcasts of the 4 query rows. The row
 //         pitch is a multiple of 4 whose quarter is odd, so the 8 lanes of a
@@ -36,7 +50,43 @@
 //   softmax  warp shuffles give each row's max and sum.
 //   P.V   lane owns column pairs (2*lane, +1) and (+64); float2 of V against
 //         float4 broadcasts of 4 probabilities per row.
-// The sum over the head dim and over the keys runs in index order.
+// The sums over the head dim and over the keys run in index order, the
+// plain path's order on the card, so K1's outputs are bit for bit the
+// plain attention's. Its staging path: 16-byte loads where d is a whole
+// number of 16-byte chunks and q, k and v are 16-byte aligned (every row
+// start is then aligned too: the condition a TMA descriptor would need);
+// element loads otherwise (d = 20, 33, a view at an odd storage offset).
+// A tensor-core K1 (mma.sync m16n8k16, one register pass at N <= 64, a
+// cp.async ring over runs of items) ran in 0.072 ms at B=512 against this
+// design's 0.34, but sums in the tensor core's order: 1.9e-4 of its
+// outputs differ from the plain path's by a bf16 ulp, and through 11
+// layers of the random-weight tower that flips 1.8% of the encode path's
+// symbols, past the 1% bound chip_smoke.py holds K1 to against the plain
+// attention. That bound depends on the summation order of the plain path's
+// library, not only on its rounding points; until it is repaired the
+// redesign waits (ROADMAP.md, queue 3).
+//
+// K2 design, both dtypes (k2_attention_kernel). One warp per (image, head)
+// item, 8 warps a block, every warp computing (the first design ran one
+// block per item with only warp 0 computing, its single query row padded
+// to 4, K and V widened to fp32 in shared memory first). About the bound:
+// every K and V byte is read once, straight from device memory into
+// registers (no staging, no padded query rows), with 16-byte K-row loads
+// and the V loads of 8 keys issued together, so enough bytes are in
+// flight. The arithmetic keeps the first design's order: lane j computes
+// the logits of keys j, j + 32, ..., each an FMA chain over the head dim in
+// index order against q0 in shared memory (a broadcast); the softmax is
+// the row code's (the row sum e[l] + e[l+32] + ... then an xor butterfly,
+// p = e / s); then lane l accumulates output columns 2l, 2l+1 (and +64) as
+// FMA chains over the keys in index order (one 4- or 8-byte load a lane a
+// key: a V row's 128 bytes a warp instruction). A K2 that split each dot
+// over 8 lanes and reduced it by shuffles (0.044 ms) changed 3e-5 of its
+// outputs by a bf16 ulp, which moved the hyperprior path's 3-step
+// training logs under the attention knobs past their 1e-2 bound: the same
+// dependence on summation order as K1's (queue 3). Staging path: 16-byte
+// loads where d is a whole number of 16-byte chunks and q0, kv and out are
+// 16-byte aligned (the host's plan, flash_attn.py::k2_plan), else element
+// loads.
 //
 // K5a/K5b design. bf16 runs both dots on the tensor cores (mma.sync
 // m16n8k16, bf16 in, fp32 accumulate; mma_attend_tile); fp32 runs on the
@@ -64,24 +114,13 @@
 //        head is a batch index inside the block. fp32 stages Q, K and V of
 //        the pass's heads and its warps take (head, 4-row) items.
 //
-// Bounds on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense) at the CLIP
-// ViT-B/32 slice shapes B=512, N=50, h=12, d=64, bf16:
-//   K1 reads 118.0 MB of qkv and writes 39.3 MB: 47 us from memory; its
-//      3.9 GFLOP would take 4 us at the bf16 tensor-core rate. Memory-bound.
-//   K2 reads 78.6 MB of kv (+0.8 MB q0) and writes 0.8 MB: 24 us.
-//      Memory-bound.
-//   K5a moves K1's bytes (47 us) and does P times K1's operations (the
-//      masked blocks): 4 us x P, 64 us at P=16, so operations bound it
-//      from P=12 on. K5b moves K1's bytes and does K1's operations.
-// What the designs do about it: every input byte is read from device
-// memory once (the block's staging) and every output byte written once;
-// logits and probabilities never leave the SM. Measured times are in
-// PERF.md (from chip_smoke.py). Later: wgmma and TMA staging, several
-// heads per block for K1, and for K5a skipping the masked blocks (which
-// turns it back into K1).
+// Every input byte is read from device memory once and every output byte
+// written once; logits and probabilities never leave the SM. Measured
+// times are in PERF.md (from chip_smoke.py).
 //
 // Interface: plain C, loaded with ctypes. Each launcher runs on the given
-// stream, does not synchronise and returns cudaGetLastError().
+// stream, does not synchronise and returns cudaGetLastError() (or
+// cudaErrorInvalidValue for arguments it does not take, before launching).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -319,7 +358,7 @@ __device__ __forceinline__ void attention_block(
                             scale, i0, n_q, seg, ob, out_row);
 }
 
-// K1 and K2.
+// K1.
 template <typename T>
 __global__ void attention_kernel(const T* __restrict__ q, int64_t q_batch,
                                  int64_t q_row, int n_q,
@@ -687,6 +726,156 @@ __global__ void headbatched_attention_mma_kernel(const bf16* __restrict__ qkv,
 }
 
 // ---------------------------------------------------------------------------
+// K2, both dtypes: one warp per (image, head), every warp computing
+// ---------------------------------------------------------------------------
+
+constexpr int kK2Warps = 8;  // most warps a K2 block takes
+constexpr int kK2Ahead = 8;  // keys whose V loads are issued together
+
+__device__ __forceinline__ void unpack(const uint4& r, float (&f)[8],
+                                       const bf16*) {  // 8 bf16 -> fp32
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = __bfloat1622float2(h[i]);
+    f[2 * i] = x.x;
+    f[2 * i + 1] = x.y;
+  }
+}
+
+__device__ __forceinline__ void unpack(const uint4& r, float (&f)[4],
+                                       const float*) {  // 4 fp32
+  f[0] = __uint_as_float(r.x);
+  f[1] = __uint_as_float(r.y);
+  f[2] = __uint_as_float(r.z);
+  f[3] = __uint_as_float(r.w);
+}
+
+// Load this lane's columns 2*lane + 64*t, + 1 (t = 0, 1) of a V row as
+// fp32 (zero past d). kVec: the pair is one 4-byte (bf16) or 8-byte (fp32)
+// load.
+template <typename T, bool kVec>
+__device__ __forceinline__ void k2_load_pair(float (&v)[2][2],
+                                             const T* __restrict__ row,
+                                             int lane, int d) {
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+    const int c = 2 * lane + 64 * t;
+    if constexpr (kVec) {
+      if (c < d) {
+        if constexpr (sizeof(T) == 2) {
+          const float2 x = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(row + c));
+          v[t][0] = x.x;
+          v[t][1] = x.y;
+        } else {
+          const float2 x = *reinterpret_cast<const float2*>(row + c);
+          v[t][0] = x.x;
+          v[t][1] = x.y;
+        }
+      } else {
+        v[t][0] = v[t][1] = 0.f;
+      }
+    } else {
+      v[t][0] = c < d ? to_f32(row[c]) : 0.f;
+      v[t][1] = c + 1 < d ? to_f32(row[c + 1]) : 0.f;
+    }
+  }
+}
+
+// K2. Warp w of block x takes item x * warps + w (item = b*heads + h), in
+// the row code's order (the note at the top): lane j the logits of keys j,
+// j + 32, ..., each an FMA chain over the head dim against q0 in shared
+// memory; the row code's sum tree; p = e / s rounded to the io dtype; lane
+// l output columns 2l, 2l+1 (and +64), FMA chains over the keys, the V
+// loads of kK2Ahead keys issued together.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kK2Warps* kWarp)
+    k2_attention_kernel(const T* __restrict__ q0, const T* __restrict__ kv,
+                        T* __restrict__ out, int N, int heads, int d,
+                        float scale, int items) {
+  constexpr int kW = kVec ? 16 / static_cast<int>(sizeof(T)) : 1;
+  extern __shared__ __align__(16) float smem[];
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int item = blockIdx.x * (blockDim.x / kWarp) + warp;
+  if (item >= items) return;  // nothing below synchronizes the block
+  const int d4 = round_up(d, 4);
+  float* qs = smem + static_cast<size_t>(warp) * (d4 + round_up(N, 4));
+  float* ps = qs + d4;  // logits, then probabilities
+  const int64_t b = item / heads;
+  const int h = item - static_cast<int>(b) * heads;
+  const int64_t D = static_cast<int64_t>(heads) * d;
+  const int64_t rs = 2 * D;  // kv row stride
+  const T* kp = kv + b * N * rs + static_cast<int64_t>(h) * d;
+  const T* vp = kp + D;
+  const T* qp = q0 + b * D + static_cast<int64_t>(h) * d;
+
+  for (int c = lane; c < d4; c += kWarp)
+    qs[c] = c < d ? to_f32(qp[c]) : 0.f;
+  __syncwarp();
+
+  float m = -INFINITY;
+  for (int j = lane; j < N; j += kWarp) {
+    const T* kr = kp + j * rs;
+    float acc = 0.f;
+    if constexpr (kVec) {
+#pragma unroll 4
+      for (int c = 0; c < d; c += kW) {
+        float k[kW];
+        unpack(__ldg(reinterpret_cast<const uint4*>(kr + c)), k, kr);
+#pragma unroll
+        for (int e = 0; e < kW; ++e) acc = fmaf(qs[c + e], k[e], acc);
+      }
+    } else {
+      for (int c = 0; c < d; ++c) acc = fmaf(qs[c], to_f32(kr[c]), acc);
+    }
+    const float l = acc * scale;
+    ps[j] = l;
+    m = fmaxf(m, l);
+  }
+  m = warp_max(m);
+  __syncwarp();
+  float s = 0.f;
+  for (int j = lane; j < N; j += kWarp) {
+    const float e = expf(ps[j] - m);
+    ps[j] = e;
+    s += e;
+  }
+  s = warp_sum(s);
+  for (int j = lane; j < N; j += kWarp)
+    ps[j] = to_f32(from_f32<T>(ps[j] / s));
+  __syncwarp();
+
+  float o[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+  for (int j0 = 0; j0 < N; j0 += kK2Ahead) {
+    float v[kK2Ahead][2][2];
+#pragma unroll
+    for (int u = 0; u < kK2Ahead; ++u)
+      k2_load_pair<T, kVec>(
+          v[u], vp + static_cast<int64_t>(min(j0 + u, N - 1)) * rs, lane, d);
+#pragma unroll
+    for (int u = 0; u < kK2Ahead; ++u) {
+      if (j0 + u < N) {
+        const float p = ps[j0 + u];
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          o[t][0] = fmaf(p, v[u][t][0], o[t][0]);
+          o[t][1] = fmaf(p, v[u][t][1], o[t][1]);
+        }
+      }
+    }
+  }
+  T* ob = out + b * D + static_cast<int64_t>(h) * d;
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+    const int c = 2 * lane + 64 * t;
+    if (c < d) ob[c] = from_f32<T>(o[t][0]);
+    if (c + 1 < d) ob[c + 1] = from_f32<T>(o[t][1]);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
 
@@ -718,7 +907,7 @@ cudaError_t allow_smem(K kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-// K1/K2 (seg == 0) and K5a on the CUDA cores (seg = tokens per image).
+// K1 (seg == 0) and K5a on the CUDA cores (seg = tokens per image).
 template <typename T>
 int launch(const void* q, int64_t q_batch, int64_t q_row, int n_q,
            const void* k, const void* v, int64_t kv_batch, int64_t kv_row,
@@ -762,6 +951,26 @@ int dispatch(int dtype, const void* q, int64_t q_batch, int64_t q_row,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+size_t k2_smem_bytes(int N, int d, int warps) {  // q0 and p, each warp
+  return sizeof(float) * warps *
+         static_cast<size_t>(round_up(d, 4) + round_up(N, 4));
+}
+
+template <typename T, bool kVec>
+cudaError_t launch_k2(const void* q0, const void* kv, void* out, int B,
+                      int N, int heads, int d, float scale, int warps,
+                      cudaStream_t stream) {
+  auto kernel = k2_attention_kernel<T, kVec>;
+  const size_t smem = k2_smem_bytes(N, d, warps);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int items = B * heads;
+  kernel<<<(items + warps - 1) / warps, warps * kWarp, smem, stream>>>(
+      static_cast<const T*>(q0), static_cast<const T*>(kv),
+      static_cast<T*>(out), N, heads, d, scale, items);
+  return cudaGetLastError();
+}
+
 // Heads a K5b pass stages: as many as fit half an SM's shared memory (two
 // blocks an SM), at least one.
 int heads_per_pass(int dtype, int N, int d, int heads, int n_warps) {
@@ -776,7 +985,7 @@ int heads_per_pass(int dtype, int N, int d, int heads, int n_warps) {
 
 extern "C" {
 
-// Shared memory one block needs, for the wrapper's shape check.
+// Shared memory one K1 block needs, for the wrapper's shape check.
 size_t lossyless_attention_smem_bytes(int n_q, int N, int d, int n_warps) {
   return smem_bytes(n_q, N, d, n_warps);
 }
@@ -794,17 +1003,39 @@ int lossyless_fused_attention(const void* qkv, void* out, int B, int N,
                   heads, d, scale, n_warps, 0, device, stream);
 }
 
-// K2. q0 (B, 1, heads*d), kv (B, N, 2*heads*d) contiguous -> out (B, 1, heads*d).
+// Shared memory one K2 block of `warps` warps uses.
+size_t lossyless_attention_k2_smem_bytes(int N, int d, int warps) {
+  return k2_smem_bytes(N, d, warps);
+}
+
+// K2. q0 (B, 1, heads*d), kv (B, N, 2*heads*d) contiguous -> out
+// (B, 1, heads*d), one warp per (image, head), `warps` warps a block. vec
+// selects 16-byte loads (refused unless q0, kv and out are 16-byte aligned
+// and d is a whole number of 16-byte chunks).
 int lossyless_fused_attention_cls(const void* q0, const void* kv, void* out,
                                   int B, int N, int heads, int d, int dtype,
-                                  float scale, int n_warps, int device,
-                                  void* stream) {
-  const int64_t D = static_cast<int64_t>(heads) * d;
-  const size_t es = dtype == 0 ? 4 : 2;
-  const char* base = static_cast<const char*>(kv);
-  return dispatch(dtype, q0, D, D, 1, base, base + D * es, N * 2 * D, 2 * D,
-                  out, D, D, B, N, heads, d, scale, n_warps, 0, device,
-                  stream);
+                                  float scale, int warps, int vec,
+                                  int device, void* stream) {
+  const int es = dtype == 0 ? 4 : 2;
+  if (B < 1 || N < 1 || heads < 1 || d < 1 || d > kMaxD ||
+      (dtype != 0 && dtype != 1) || warps < 1 || warps > kK2Warps ||
+      (vec && (!aligned16(q0) || !aligned16(kv) || !aligned16(out) ||
+               (d * es) % 16)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    err = vec ? launch_k2<float, true>(q0, kv, out, B, N, heads, d, scale,
+                                       warps, s)
+              : launch_k2<float, false>(q0, kv, out, B, N, heads, d, scale,
+                                        warps, s);
+  else
+    err = vec ? launch_k2<bf16, true>(q0, kv, out, B, N, heads, d, scale,
+                                      warps, s)
+              : launch_k2<bf16, false>(q0, kv, out, B, N, heads, d, scale,
+                                       warps, s);
+  return static_cast<int>(err);
 }
 
 // Shared memory of one K5a block: the group's M = pack*N tokens.

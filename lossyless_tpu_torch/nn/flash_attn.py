@@ -25,7 +25,10 @@ K1, K2, K5a and K5b are CUDA C++ in `csrc/attention.cu`, K4 in
 first use (`_build.py`) and called through ctypes on PyTorch's current
 stream. Each wrapper checks device, dtype, shape and contiguity,
 allocates the output, launches, raises if the launch returned a CUDA
-error, and adds one to its entry of `LAUNCHES`.
+error, and adds one to its entry of `LAUNCHES`. K2's launch geometry
+(blocks, warps a block, shared memory, and the 16-byte or element load
+path) is chosen here, by the pure function `k2_plan`, which the CPU tests
+check at every shape the card's checks run.
 
 A CPU tensor goes to the plain version (`attention_plain`,
 `attention_packed_plain`, `attention_headbatched_plain`,
@@ -39,7 +42,9 @@ through `attention_plain`, as JAX routes them through one `custom_vjp`.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
+from dataclasses import dataclass
 
 import torch
 
@@ -61,7 +66,7 @@ BLOCK_LIMIT = 16
 MAX_D = 128
 MAX_SMEM = 232448          # bytes of shared memory a Hopper block can use
 K1_WARPS = 8               # warps per (image, head) block; each takes rows
-K2_WARPS = 4               # one query row: warp 0 computes, all stage K/V
+K2_WARPS = 8               # K2: one (image, head) item a warp
 K5_WARPS = 8               # K5a/K5b: warps take 16-row (bf16) or 4-row items
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -83,9 +88,12 @@ def _get_lib():
                 lib.lossyless_fused_attention.restype = i
                 lib.lossyless_fused_attention.argtypes = [
                     p, p, i, i, i, i, i, f, i, i, p]
+                lib.lossyless_attention_k2_smem_bytes.restype = \
+                    ctypes.c_size_t
+                lib.lossyless_attention_k2_smem_bytes.argtypes = [i, i, i]
                 lib.lossyless_fused_attention_cls.restype = i
                 lib.lossyless_fused_attention_cls.argtypes = [
-                    p, p, p, i, i, i, i, i, f, i, i, p]
+                    p, p, p, i, i, i, i, i, f, i, i, i, p]
                 lib.lossyless_attention_packed_smem_bytes.restype = \
                     ctypes.c_size_t
                 lib.lossyless_attention_packed_smem_bytes.argtypes = [
@@ -230,6 +238,53 @@ def attention_cls_plain(q0: torch.Tensor, kv: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# K2's launch plan (a pure function of shape, dtype and alignment)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class K2Plan:
+    """The launch geometry of one K2 call: `blocks` blocks of `warps`
+    warps, a warp per (image, head) item (item = b * heads + h; warp w of
+    block i takes item i * warps + w), `smem` bytes of shared memory a
+    block. vec: the 16-byte load path; else element loads."""
+
+    items: int
+    warps: int
+    blocks: int
+    smem: int
+    vec: bool
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def sixteen_byte_path(d: int, itemsize: int, aligned: bool) -> bool:
+    """Whether 16-byte loads describe the tensors: every base 16-byte
+    aligned and the head dim a whole number of 16-byte chunks (so every
+    row and head offset is aligned too). The condition a TMA descriptor
+    needs as well; where it fails the kernel takes its element path."""
+    return aligned and (d * itemsize) % 16 == 0
+
+
+@functools.lru_cache(maxsize=256)
+def k2_plan(B: int, N: int, heads: int, d: int, dtype,
+            aligned: bool = True) -> K2Plan:
+    """K2's geometry: one warp per (image, head) item, `K2_WARPS` warps a
+    block (fewer when there are fewer items), each with shared memory for
+    q0 and its probabilities (d and N rounded up to 4 floats).
+    `aligned`: q0's, kv's and the output's data pointers are 16-byte
+    aligned."""
+    items = B * heads
+    warps = min(K2_WARPS, items)
+    smem = 4 * warps * (_round_up(d, 4) + _round_up(N, 4))
+    _check_smem(smem, f"N={N} ({warps} warps)")
+    return K2Plan(items, warps, -(-items // warps), smem,
+                  sixteen_byte_path(d, dtype.itemsize, aligned))
+
+
+# ---------------------------------------------------------------------------
 # Kernel launches
 # ---------------------------------------------------------------------------
 
@@ -341,13 +396,14 @@ def _launch_attention_cls(q0: torch.Tensor, kv: torch.Tensor,
     if q0.device != kv.device:
         raise ValueError(f"q0 on {q0.device} but kv on {kv.device}")
     d = _head_dim(D, heads, N, B)
-    _check_smem(_get_lib().lossyless_attention_smem_bytes(
-        1, N, d, K2_WARPS), f"N={N}, d={d}")
     out = torch.empty((B, 1, D), dtype=kv.dtype, device=kv.device)
+    plan = k2_plan(B, N, heads, d, kv.dtype,
+                   all(t.data_ptr() % 16 == 0 for t in (q0, kv, out)))
     stream = torch.cuda.current_stream(kv.device).cuda_stream
     rc = _get_lib().lossyless_fused_attention_cls(
         q0.data_ptr(), kv.data_ptr(), out.data_ptr(), B, N, heads, d,
-        _DTYPE_CODE[kv.dtype], d**-0.5, K2_WARPS, kv.device.index, stream)
+        _DTYPE_CODE[kv.dtype], d**-0.5, plan.warps, int(plan.vec),
+        kv.device.index, stream)
     _raise_on(rc, "fused_attention_cls")
     LAUNCHES["fused_attention_cls"] += 1
     return out
