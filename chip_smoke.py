@@ -31,12 +31,20 @@ non-zero without printing a result:
    plain version and, for K4, of the op path it replaces (LayerNorm, two
    matmuls, elementwise: a yardstick);
 3c. K5a (packed, packs 2, 4, 8, 16) and K5b (head-batched) through the
-   `fused_attention` wrapper under their knobs, at B=512, N=50, h=12,
-   d=64, bf16, and at odd shapes (B=7, N=37, d=40 in fp32 and bf16; pack 3
-   at B=8, stepping down to 2), against their plain versions and K1's
-   output (fp32 rtol/atol 1e-5, bf16 atol 2e-2); then CUDA-event and
+   `fused_attention` wrapper under their knobs at every `K5_CHECKS` case:
+   B=512, N=50, h=12, d=64, bf16; odd shapes (B=7, N=37, d=40 in fp32 and
+   bf16; pack 3 at B=8, stepping down to 2; d=20 and 33 on the element
+   path; an unaligned input); the one-pass tile's edges N = 16, 17, 64 and
+   the two-pass tile at N = 65 and 197; a batch whose runs of items leave
+   a ragged last run; d=128. Each case asserts the design `k5_plan` picks
+   (one-pass for bf16 at N <= 64, two-pass above, the CUDA-core row code
+   for fp32), the plan's shared memory against the library's count and
+   the launch counter, and holds the result to its plain version and to
+   K1's output (fp32 rtol/atol 1e-5, bf16 atol 2e-2); then CUDA-event and
    device-only timings of each, its plain version and
-   `scaled_dot_product_attention`;
+   `scaled_dot_product_attention` (both clocks), and the device time of
+   the two-pass tile on the same inputs, with the bound counted from K1's
+   work at every pack (the masked blocks add nothing);
 4. the encode/decode path at full width: a seeded random CLIP ViT-B/32
    tower in bf16 with seeded entropy-bottleneck params, `compress_dataset`
    over 8 batches of 256 raw uint8 96x96 images, then `decompress_dataset`.
@@ -44,7 +52,10 @@ non-zero without printing a result:
    counters must read 11 x K1 and 1 x K2 per batch, and a re-encode with the
    attention on the plain versions must flip at most 1% of the symbols; then
    a torch.profiler trace of 4 encode batches gives the device time by
-   kernel group and the device idle share;
+   kernel group and the device idle share; then, as a record with no
+   bound, the same encode under `HEAD_BATCH=True` (K5b in blocks 0-10):
+   its symbol flips against the plain attention and K1, its img/s over the
+   8 batches and K5b's device ms a batch;
 5. the training path at full width: the `clip_hub` recipe with K3 and K4
    switched on (`rate.eb_use_pallas=True`,
    `encoder.arch_kwargs.mlp_impl=pallas`) through `pipeline.run.
@@ -65,14 +76,19 @@ non-zero without printing a result:
    distortion; launches per step K1 11, K2 1, K3 1); 3 steps from the same
    weights and noise under the default, `IMAGE_PACK=4` (K5a 11 a step, K1
    0) and `HEAD_BATCH=True` (K5b 11, K1 0), whose loss, rate and
-   distortion must equal the default's to rtol 1e-2; `run_communication`
+   distortion must equal the default's to rtol 1e-2 (each step's ms is
+   recorded); then, as a record with no bound, the step ms under each
+   knob in 3 rounds of turns of 8 steps on one state (each round starts
+   one knob later) and a torch.profiler trace of 3 steps under each knob
+   (device busy ms, idle share); `run_communication`
    over 4 batches of 256 under each knob (n_bits, sender and receiver
    ms/img, the `communication` sentinel), the `HyperpriorCoder` decode
    equal to the host dequantize to 1e-5, and the side symbols and the
    main symbols given K1's side latent within 1% of K1's; a
    torch.profiler trace of 3 steps;
 7. the `kernels` JSON line (K1-K4, K5a, K5b; with `device_ms` and
-   `bound_share`, and K1/K2 also at batch 256) and, last,
+   `bound_share`, K1/K2 also at batch 256, and the registers and spills
+   of K1's, K2's, K5a's and K5b's instantiations) and, last,
    `{"ok": true, "device": {...}}`.
 
 It needs a CUDA card and the repository around it: with no card, or run
@@ -98,6 +114,7 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 N_BATCHES, BATCH, RAW_HW = 8, 256, (96, 96)
 SLICE = dict(N=50, heads=12, d=64)   # ViT-B/32 attention shapes
 TRAIN_BATCH, TRAIN_STEPS, PROFILE_STEPS, AB_STEPS = 128, 20, 3, 3
+TIME_ROUNDS, TIME_STEPS = 3, 8   # phase 8b's step times in turns
 DEVICE = "cuda"   # the training and serving phases' device
 NO_K5 = {"fused_attention_packed": 0, "fused_attention_headbatched": 0}
 TRAIN_OVERRIDES = ["rate.eb_use_pallas=True",
@@ -378,41 +395,123 @@ class Knobs:
 
 K5_PACKS = (2, 4, 8, 16)
 K5_MAIN_PACK = 4          # the pack phase 8 runs K5a at
+# Phase 3c's cases: (B, N, heads, d, dtype, knobs, options); option
+# "unaligned": the input is a view at a storage offset of one element.
+K5_CHECKS = [
+    *((512, 50, 12, 64, "bfloat16", dict(IMAGE_PACK=p), {})
+      for p in K5_PACKS),
+    (512, 50, 12, 64, "bfloat16", dict(HEAD_BATCH=True), {}),
+    (7, 37, 3, 40, "float32", dict(IMAGE_PACK=7), {}),
+    (7, 37, 3, 40, "float32", dict(HEAD_BATCH=True), {}),
+    (8, 50, 12, 64, "bfloat16", dict(IMAGE_PACK=3), {}),   # steps down to 2
+    (8, 50, 4, 24, "float32", dict(IMAGE_PACK=3), {}),
+    (16, 50, 12, 64, "float32", dict(IMAGE_PACK=4), {}),
+    (7, 37, 3, 40, "bfloat16", dict(IMAGE_PACK=7), {}),    # d, N not x16
+    (6, 9, 2, 33, "bfloat16", dict(IMAGE_PACK=3), {}),     # element path
+    (7, 37, 3, 40, "bfloat16", dict(HEAD_BATCH=True), {}),
+    (3, 7, 3, 20, "bfloat16", dict(HEAD_BATCH=True), {}),  # element path
+    (2, 197, 12, 64, "bfloat16", dict(HEAD_BATCH=True), {}),   # two-pass
+    # the one-pass tile's edges (N = 16, 17, 64) and the two-pass tile's
+    # first N (65), under both knobs
+    *((4, n, 12, 64, "bfloat16", kw, {}) for n in (16, 17, 64, 65)
+      for kw in (dict(IMAGE_PACK=2), dict(HEAD_BATCH=True))),
+    # 3600 items in runs of 7: a ragged last run (pack 4 steps down to 3)
+    (300, 50, 12, 64, "bfloat16", dict(HEAD_BATCH=True), {}),
+    (300, 50, 12, 64, "bfloat16", dict(IMAGE_PACK=4), {}),
+    (3, 50, 12, 64, "bfloat16", dict(HEAD_BATCH=True), {"unaligned": True}),
+    (4, 50, 12, 64, "bfloat16", dict(IMAGE_PACK=2), {"unaligned": True}),
+    (3, 50, 2, 128, "bfloat16", dict(HEAD_BATCH=True), {}),
+    (4, 64, 2, 128, "bfloat16", dict(IMAGE_PACK=2), {}),
+]
+
+
+def k5_design(N: int, dtype: str) -> str:
+    """The design phase 3c expects `k5_plan` to pick."""
+    if dtype == "float32":
+        return "fma"
+    return "onepass" if N <= 64 else "twopass"
+
+
+def k5_library_smem(lib, plan, N: int, d: int, dtype) -> int:
+    """The library's own count of the shared memory `plan` launches with."""
+    from lossyless_tpu_torch.nn import flash_attn as fa
+
+    if plan.design == "onepass":
+        return lib.lossyless_attention_k5_onepass_smem_bytes(N, d)
+    dt = fa._DTYPE_CODE[dtype]
+    if plan.pack > 1:
+        return lib.lossyless_attention_packed_smem_bytes(
+            dt, plan.pack * N, d, fa.K5_WARPS)
+    return lib.lossyless_attention_headbatched_smem_bytes(
+        dt, N, d, plan.heads_per_pass, fa.K5_WARPS)
+
+
+def two_pass_k5(lib, qkv, heads: int, pack: int):
+    """A function that runs K5a (pack >= 2) or K5b (pack 1) on the
+    two-pass tile, the design before the one-pass tile (kept for N > 64),
+    through the library itself: for timing beside the one-pass tile on
+    the same inputs, outside the wrappers and their launch counts."""
+    import torch
+
+    from lossyless_tpu_torch.nn import flash_attn as fa
+
+    B, N, threeD = qkv.shape
+    d = threeD // (3 * heads)
+    out = torch.empty((B, N, heads * d), dtype=qkv.dtype, device=qkv.device)
+    dt = fa._DTYPE_CODE[qkv.dtype]
+    stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    if pack > 1:
+        def run():
+            return lib.lossyless_fused_attention_packed(
+                qkv.data_ptr(), out.data_ptr(), B, N, heads, d, pack, dt,
+                d**-0.5, fa.K5_WARPS, qkv.device.index, stream)
+    else:
+        hp = fa.k5b_pass(N, heads, d, qkv.dtype)[0]
+
+        def run():
+            return lib.lossyless_fused_attention_headbatched(
+                qkv.data_ptr(), out.data_ptr(), B, N, heads, d, dt,
+                d**-0.5, fa.K5_WARPS, hp, qkv.device.index, stream)
+
+    def launch():
+        fa._raise_on(run(), "two-pass K5")
+        return out
+    return launch
 
 
 def check_k5() -> dict:
     """Phase 3c: K5a (packed) and K5b (head-batched) through the
-    `fused_attention` wrapper under their knobs, against their plain
-    versions and K1's output; then timings at batch 512."""
+    `fused_attention` wrapper under their knobs at every `K5_CHECKS` case,
+    against their plain versions and K1's output, each on the design
+    `k5_plan` picks (asserted, with its shared memory against the
+    library's count); then timings at batch 512."""
     import torch
     import torch.nn.functional as F
 
     from lossyless_tpu_torch.nn import flash_attn as fa
 
     bf16, f32 = torch.bfloat16, torch.float32
-    slice_ = (512, SLICE["N"], SLICE["heads"], SLICE["d"], bf16)
-    # (B, N, heads, d, dtype, knobs); fp32 to rtol/atol 1e-5, bf16 atol 2e-2
-    cases = [(*slice_, dict(IMAGE_PACK=p)) for p in K5_PACKS] + [
-        (*slice_, dict(HEAD_BATCH=True)),
-        (7, 37, 3, 40, f32, dict(IMAGE_PACK=7)),
-        (7, 37, 3, 40, f32, dict(HEAD_BATCH=True)),
-        (8, 50, 12, 64, bf16, dict(IMAGE_PACK=3)),     # steps down to 2
-        (8, 50, 4, 24, f32, dict(IMAGE_PACK=3)),
-        (16, 50, 12, 64, f32, dict(IMAGE_PACK=4)),
-        (7, 37, 3, 40, bf16, dict(IMAGE_PACK=7)),      # d, M not x16
-        (6, 9, 2, 33, bf16, dict(IMAGE_PACK=3)),       # scalar staging
-        (7, 37, 3, 40, bf16, dict(HEAD_BATCH=True)),
-        (3, 7, 3, 20, bf16, dict(HEAD_BATCH=True)),
-        (2, 197, 12, 64, bf16, dict(HEAD_BATCH=True)),
-    ]
+    lib = fa._get_lib()
     errs = {}
     with torch.inference_mode():
-        for i, (B, N, h, d, dtype, kw) in enumerate(cases):
-            (qkv,) = k1_inputs(B, N, h, d, dtype, seed=200 + i)
+        for i, (B, N, h, d, dt, kw, opt) in enumerate(K5_CHECKS):
+            dtype = getattr(torch, dt)
+            (qkv,) = k1_inputs(B, N, h, d, dtype, seed=200 + i,
+                               unaligned=opt.get("unaligned", False))
             k1 = fa.fused_attention(qkv, h)
             with Knobs(**kw):
                 variant, pack = fa.attention_variant(qkv)
                 name = f"fused_attention_{variant}"
+                plan = fa.k5_plan(B, N, h, d, dtype, pack,
+                                  qkv.data_ptr() % 16 == 0)
+                if plan.design != k5_design(N, dt):
+                    raise AssertionError(f"{kw} at N={N} {dt}: plan "
+                                         f"{plan.design}, expected "
+                                         f"{k5_design(N, dt)}")
+                lib_smem = k5_library_smem(lib, plan, N, d, dtype)
+                if lib_smem != plan.smem:
+                    raise AssertionError(f"{name} plan {plan} disagrees with "
+                                         f"the library's {lib_smem} bytes")
                 before = fa.LAUNCHES[name]
                 got = fa.fused_attention(qkv, h)
                 torch.cuda.synchronize()
@@ -433,16 +532,23 @@ def check_k5() -> dict:
                 tol = "atol 2e-2"
             ok = ok and bool(torch.isfinite(got).all())
             label = f"pack={pack}" if variant == "packed" else "head-batched"
-            print(f"check {name} {label} B={B} N={N} h={h} d={d} "
-                  f"{str(dtype)[6:]}: max_abs_err={err!r} vs K1 "
-                  f"{err_k1!r} tol={tol} {'ok' if ok else 'FAIL'}",
-                  flush=True)
+            ragged = plan.items % plan.per_block
+            print(f"check {name} {label} B={B} N={N} h={h} d={d} {dt} "
+                  f"{plan.design} ({plan.blocks} blocks of {plan.warps} "
+                  f"warps, {plan.per_block} items a block"
+                  f"{f', last run {ragged}' if ragged else ''}, "
+                  f"{plan.stages} stage(s), {plan.smem} B smem, "
+                  f"{'16-byte' if plan.vec else 'element'} path"
+                  f"{', unaligned input' if opt.get('unaligned') else ''}): "
+                  f"max_abs_err={err!r} vs K1 {err_k1!r} tol={tol} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
             if not ok:
                 raise AssertionError(f"{name} ({kw}) disagrees at B={B} "
                                      f"N={N} d={d}")
             if B == 512:   # the slice shape's error goes in the line
                 errs[variant, pack] = err
 
+    slice_ = (512, SLICE["N"], SLICE["heads"], SLICE["d"], bf16)
     B, N, h, d = slice_[:4]
     D = h * d
     (qkv,) = k1_inputs(B, N, h, d, bf16, seed=100)
@@ -451,8 +557,9 @@ def check_k5() -> dict:
     nbytes = qkv.numel() * 2 + B * N * D * 2
     results = {}
     with torch.inference_mode():
-        library_ms = median_ms(
-            lambda: F.scaled_dot_product_attention(q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
+        library_ms = median_ms(sdpa)
+        library_dev_ms = device_ms(sdpa)
         by_pack = {}
         for kw in [dict(IMAGE_PACK=p) for p in K5_PACKS] + \
                 [dict(HEAD_BATCH=True)]:
@@ -460,26 +567,42 @@ def check_k5() -> dict:
                 variant, pack = fa.attention_variant(qkv)
                 ms = median_ms(lambda: fa.fused_attention(qkv, h))
                 dev_ms = device_ms(lambda: fa.fused_attention(qkv, h),
-                                   (f"{variant}_attention",))
+                                   ("k5_onepass", f"{variant}_attention"))
+                design = fa.k5_plan(B, N, h, d, bf16, pack).design
+            # the two-pass tile (the design before the one-pass tile, kept
+            # for N > 64) on the same inputs, for comparison in one run
+            two_pass = two_pass_k5(lib, qkv, h, pack)
+            two_pass_err = (two_pass().float() - fa.fused_attention(
+                qkv, h).float()).abs().max().item()   # no knob: K1
+            if not two_pass_err <= 2e-2:
+                raise AssertionError(f"two-pass {variant} off K1 by "
+                                     f"{two_pass_err}")
+            two_pass_ms = device_ms(two_pass, (f"{variant}_attention_mma",))
             if variant == "packed":
                 plain_ms = median_ms(
                     lambda: fa.attention_packed_plain(qkv, h, pack))
             else:
                 plain_ms = median_ms(
                     lambda: fa.attention_headbatched_plain(qkv, h))
-            flops = 4 * B * h * N * N * d * pack
+            # K1's operations at every pack: the masked cross-image blocks
+            # add nothing to the output, and the kernel skips them
+            flops = 4 * B * h * N * N * d
             bound_ms, bound_by = bound(nbytes, flops, "bfloat16")
-            row = dict(max_abs_err=errs[(variant, pack)], ms=ms,
-                       device_ms=dev_ms, plain_ms=plain_ms,
+            row = dict(max_abs_err=errs[(variant, pack)], design=design,
+                       ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                        bound_ms=bound_ms, bound_by=bound_by,
                        bound_share=bound_share(bound_ms, dev_ms or ms),
-                       library_ms=library_ms)
+                       library_ms=library_ms,
+                       library_device_ms=library_dev_ms,
+                       two_pass_device_ms=two_pass_ms)
             label = f"pack={pack}" if variant == "packed" else "head-batched"
             print(f"time fused_attention_{variant} {label} B={B} N={N} h={h} "
-                  f"d={d} bf16: kernel {ms!r} ms (device {dev_ms!r} ms), "
-                  f"plain {plain_ms!r} ms, sdpa {library_ms!r} ms, bound "
-                  f"{bound_ms!r} ms ({bound_by}: {nbytes} bytes, {flops} "
-                  f"flop)", flush=True)
+                  f"d={d} bf16 {design}: kernel {ms!r} ms (device {dev_ms!r} "
+                  f"ms), plain {plain_ms!r} ms, sdpa {library_ms!r} ms "
+                  f"(device {library_dev_ms!r} ms), bound {bound_ms!r} ms "
+                  f"({bound_by}: {nbytes} bytes, {flops} flop), share of "
+                  f"bound {row['bound_share']!r}; two-pass tile (device) "
+                  f"{two_pass_ms!r} ms", flush=True)
             if variant == "packed":
                 by_pack[pack] = row
             else:
@@ -488,6 +611,8 @@ def check_k5() -> dict:
         by_pack[K5_MAIN_PACK], pack=K5_MAIN_PACK,
         ms_by_pack={p: r["ms"] for p, r in by_pack.items()},
         device_ms_by_pack={p: r["device_ms"] for p, r in by_pack.items()},
+        two_pass_device_ms_by_pack={p: r["two_pass_device_ms"]
+                                    for p, r in by_pack.items()},
         bound_ms_by_pack={p: r["bound_ms"] for p, r in by_pack.items()})
     return results
 
@@ -572,8 +697,39 @@ def main_path(card: str) -> dict:
                   bits_per_img=rate, symbol_flip_fraction=flip_frac,
                   decode_max_abs_err=dec_err)
     print(json.dumps({"main_path": result}), flush=True)
+    encode_head_batch_record(comp, batches, s_kernel, s_plain, card)
     profile_encode(comp, batches[:4], card)
     return launches
+
+
+def encode_head_batch_record(comp, batches, s_kernel, s_plain, card: str):
+    """Phase 4c, a record with no bound: the encode path with blocks 0-10
+    on K5b's tensor-core tile (`HEAD_BATCH=True`): its symbol flips against
+    the plain attention and against K1 on the first batch, encode img/s
+    over the same batches, and K5b's device ms a batch."""
+    from lossyless_tpu_torch.nn import flash_attn as fa
+
+    x0 = batches[0][0]
+    with Knobs(HEAD_BATCH=True):
+        s_hb = comp.codec.decode_batch(comp.compress(x0), comp.indexes)
+        before = fa.LAUNCHES["fused_attention_headbatched"]
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            comp.compress_dataset(iter(batches), Path(tmp) / "hb.bin",
+                                  is_info=False)
+            t_enc = time.perf_counter() - t0
+        launches = fa.LAUNCHES["fused_attention_headbatched"] - before
+        k5b_ms = device_ms(lambda: comp.compress(x0),
+                           ("k5_onepass", "headbatched_attention"), reps=5)
+    n = sum(len(x) for x, _ in batches)
+    record = dict(
+        card=card, images=n, knob="HEAD_BATCH=True",
+        symbol_flip_fraction_vs_plain=float((s_hb != s_plain).mean()),
+        symbol_flip_fraction_vs_k1=float((s_hb != s_kernel).mean()),
+        symbols=int(s_hb.size), encode_img_per_s=n / t_enc,
+        k5b_launches_per_batch=launches / len(batches),
+        k5b_device_ms_per_batch=k5b_ms)
+    print(json.dumps({"encode_head_batch_record": record}), flush=True)
 
 
 def eb_params_for(C: int, filters, seed: int) -> dict:
@@ -965,13 +1121,21 @@ def slice_path(card: str) -> dict:
         ab = build_state(config.apply_precision(copy.deepcopy(cfg)),
                          AB_STEPS, device=DEVICE)
         ab.model.load_state_dict(init)
-        rows = []
+        rows, ab_ms, t_ab = [], [], [0.0]
+
+        def on_ab_step(step, st, lg):
+            sync()
+            now = time.perf_counter()
+            ab_ms.append((now - t_ab[0]) * 1e3)
+            t_ab[0] = now
+            rows.append({k: float(lg[k]) for k in keys})
+
         before = read_launches()
         with Knobs(**kw):
+            t_ab[0] = time.perf_counter()
             run_featurizer(cfg, batches[:AB_STEPS], state=ab,
                            log=lambda _: None, device=DEVICE,
-                           on_step=lambda s, st, lg: rows.append(
-                               {k: float(lg[k]) for k in keys}))
+                           on_step=on_ab_step)
         after = read_launches()
         got = {k: (after[k] - before[k]) / AB_STEPS for k in after}
         attn = {"default": "fused_attention", "packed":
@@ -982,7 +1146,7 @@ def slice_path(card: str) -> dict:
         if got != wanted:
             raise AssertionError(f"{name}: launches per step {got}, "
                                  f"expected {wanted}")
-        runs[name] = dict(logs=rows, launches_per_step=got)
+        runs[name] = dict(logs=rows, launches_per_step=got, step_ms=ab_ms)
     worst = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
                 for name in ("packed", "headbatched")
                 for a, b in zip(runs[name]["logs"], runs["default"]["logs"])
@@ -992,6 +1156,49 @@ def slice_path(card: str) -> dict:
         flush=True)
     if not worst <= 1e-2:
         raise AssertionError(f"knob runs differ from the default by {worst}")
+
+    # step ms under each knob, in turns on one state, each round starting
+    # one knob later; then a profile under each (a record: the step is
+    # host-bound, so its clock spreads from run to run)
+    n_knobs = len(KNOB_RUNS)
+    timed = build_state(config.apply_precision(copy.deepcopy(cfg)),
+                        (TIME_ROUNDS * TIME_STEPS + PROFILE_STEPS) * n_knobs,
+                        device=DEVICE)
+    timed.model.load_state_dict(init)
+    turns = {name: [] for name, _ in KNOB_RUNS}
+    for r in range(TIME_ROUNDS):
+        for name, kw in KNOB_RUNS[r % n_knobs:] + KNOB_RUNS[:r % n_knobs]:
+            ts, t_turn = [], [0.0]
+
+            def on_timed_step(step, st, lg):
+                sync()
+                now = time.perf_counter()
+                ts.append((now - t_turn[0]) * 1e3)
+                t_turn[0] = now
+
+            with Knobs(**kw):
+                t_turn[0] = time.perf_counter()
+                run_featurizer(cfg, batches[:TIME_STEPS], state=timed,
+                               log=lambda _: None, device=DEVICE,
+                               on_step=on_timed_step)
+            turns[name].append(ts)
+    profiles = {}
+    for name, kw in KNOB_RUNS:
+        with Knobs(**kw):
+            prof = device_profile(
+                lambda: run_featurizer(cfg, batches[:PROFILE_STEPS],
+                                       state=timed, log=lambda _: None,
+                                       device=DEVICE), card)
+        profiles[name] = {k: prof[k] for k in (
+            "wall_ms", "device_busy_ms", "device_idle_share", "by_group_ms",
+            "top_host_ms")}
+    print(json.dumps({"slice_knob_step_ms": dict(
+        card=card, rounds=TIME_ROUNDS, steps=TIME_STEPS,
+        median_after_first={name: float(np.median([t for r in rs
+                                                   for t in r[1:]]))
+                            for name, rs in turns.items()},
+        turns=turns, profile_steps=PROFILE_STEPS, profiles=profiles)}),
+        flush=True)
 
     # 8c. the communication stage on the trained state under each knob
     comm_batches = train_images(COMM_BATCHES, seed=23, batch=COMM_BATCH)
@@ -1057,8 +1264,8 @@ COMM_BATCHES, COMM_BATCH = 4, 256
 OUT_DIR = None     # a temporary directory for the stages' files (main)
 
 
-KERNEL_GROUPS = {"attention K5a": ("packed_attention",),
-                 "attention K5b": ("headbatched_attention",),
+KERNEL_GROUPS = {"attention K5a/K5b": ("k5_onepass", "packed_attention",
+                                       "headbatched_attention"),
                  "attention K1/K2": ("attention_kernel",),
                  "mlp K4": ("mlp_block_kernel",),
                  "likelihood K3": ("eb_likelihood_kernel",),
@@ -1067,9 +1274,9 @@ KERNEL_GROUPS = {"attention K5a": ("packed_attention",),
 
 
 def device_profile(fn, card: str, **fields) -> dict:
-    """Run `fn()` under torch.profiler; the device time by kernel group and
-    the device idle share against the host clock around the call (which
-    ends in a synchronize)."""
+    """Run `fn()` under torch.profiler; the device time by kernel group, the
+    device idle share against the host clock around the call (which ends
+    in a synchronize) and the host ops of most self time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1089,12 +1296,17 @@ def device_profile(fn, card: str, **fields) -> dict:
                       if any(k in name.lower() for k in keys)), "other")
         by_group[group] += ms
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    host = sorted((e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)[:10]
     return dict(
         card=card, **fields, wall_ms=wall_ms,
         device_busy_ms=busy_ms if busy_ms else "not measured",
         device_idle_share=1 - busy_ms / wall_ms if busy_ms else
         "not measured", by_group_ms=by_group,
-        top_kernels_ms=[[name[:80], ms] for name, ms in top])
+        top_kernels_ms=[[name[:80], ms] for name, ms in top],
+        top_host_ms=[[e.key[:80], e.self_cpu_time_total / 1e3, e.count]
+                     for e in host])
 
 
 def profile_encode(comp, batches, card: str):
@@ -1118,6 +1330,15 @@ def k1_k2_kernel(fn: str) -> str | None:
             k in fn for k in ("packed", "headbatched")):
         return "fused_attention"
     return None
+
+
+def k5_kernel(fn: str, name: str) -> bool:
+    """Whether a compiled function, mangled or demangled, is one of the
+    kernels wrapper `name` (K5a or K5b) launches: the one-pass tile both
+    share, or its own two-pass / fp32 kernel."""
+    own = {"fused_attention_packed": "packed_attention",
+           "fused_attention_headbatched": "headbatched_attention"}[name]
+    return "k5_onepass" in fn or own in fn
 
 
 def ptxas_report(log: str) -> dict:
@@ -1237,10 +1458,13 @@ def main() -> int:
                 launches_on_slice_path=slice_launches[name])
         row = dict(name=name, route="cuda", source=sources[name],
                    replaces=replaces[name], **counts, **timings[name])
+        # registers and spills of the kernel's instantiations
         if name in ("fused_attention", "fused_attention_cls"):
-            # registers and spills of the kernel's instantiations
             row["ptxas"] = {fn: info for fn, info in ptxas["attention"].items()
                             if k1_k2_kernel(fn) == name}
+        elif name in NO_K5:
+            row["ptxas"] = {fn: info for fn, info in ptxas["attention"].items()
+                            if k5_kernel(fn, name)}
         kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -9,14 +9,16 @@
 //     _attn_cls_kernel :327-345): the same attention for the class-token
 //     query only, q0 (B, 1, D) and kv (B, N, 2D) -> (B, 1, D). Runs in the
 //     last ViT block and the RN50 attention pool (fp32, h=32, d=64).
-// K5a lossyless_fused_attention_packed  replaces fused_attention with
-//     IMAGE_PACK > 1 (_attn_kernel_packed): K1's function computed as the
-//     TPU kernel computes it, P consecutive images' tokens stacked into one
-//     (M = P*N)-token operand per head, the full M x M logits with an
-//     additive block-diagonal mask (0 within an image, -1e9 across).
-// K5b lossyless_fused_attention_headbatched  replaces fused_attention with
-//     HEAD_BATCH (_attn_kernel_headbatched): K1's function with the head a
-//     batch index inside the block (one block covers all heads of an image).
+// K5a lossyless_fused_attention_packed (and _k5_onepass)  replaces
+//     fused_attention with IMAGE_PACK > 1 (_attn_kernel_packed): K1's
+//     function, which the TPU kernel computes with P consecutive images'
+//     tokens stacked into one (M = P*N)-token operand per head, the full
+//     M x M logits with an additive block-diagonal mask (0 within an image,
+//     -1e9 across).
+// K5b lossyless_fused_attention_headbatched (and _k5_onepass)  replaces
+//     fused_attention with HEAD_BATCH (_attn_kernel_headbatched): K1's
+//     function with the head a batch index inside the block (a block
+//     covers all heads of the images it takes).
 //
 // Arithmetic (the TPU kernels', at every rounding point): q.k is
 // accumulated in fp32 and multiplied by d^-1/2 AFTER the dot (K5a then adds
@@ -33,9 +35,9 @@
 //      it.
 //   K2 reads 78.6 MB of kv (+0.8 MB q0) and writes 0.8 MB: 24 us; 4*B*h*N*d
 //      = 0.08 GFLOP. A GEMV: bytes bound it.
-//   K5a moves K1's bytes (47 us) and does P times K1's operations (the
-//      masked blocks): 4 us x P, 64 us at P=16, so operations bound it
-//      from P=12 on. K5b moves K1's bytes and does K1's operations.
+//   K5a and K5b move K1's bytes and do K1's operations: 47 us from
+//      memory at every pack (K5a's masked cross-image blocks add nothing to
+//      the output, and the one-pass design skips them).
 //
 // K1 design (attention_kernel<T>, both dtypes; the first design, kept). One
 // block of 8 warps per (image, head). The block zero-fills its buffers and
@@ -88,31 +90,48 @@
 // 16-byte aligned (the host's plan, flash_attn.py::k2_plan), else element
 // loads.
 //
-// K5a/K5b design. bf16 runs both dots on the tensor cores (mma.sync
-// m16n8k16, bf16 in, fp32 accumulate; mma_attend_tile); fp32 runs on the
-// CUDA cores through K1's attend_rows (a bf16 product would not hold fp32's
-// 1e-5). A warp owns 16 query rows and streams them over all keys in
-// chunks of 16, the logits never leaving its registers: pass 1 keeps each
-// row's running max and sum of exp (rescaled when the max grows), pass 2
-// recomputes the chunk's logits, forms p = exp(l - max) / sum, rounds it to
-// bf16 in the A-fragment layout straight from the accumulator layout, and
-// accumulates P.V. Q fragments come from device memory into registers;
-// K and V are staged in shared memory as bf16, zero-padded to a multiple of
-// 16 in both dims, row pitch padded by 16 bytes so ldmatrix is
-// conflict-free.
+// K5a/K5b design, bf16 at N <= 64 (k5_onepass_kernel; the host's plan,
+// flash_attn.py::k5_plan, picks it): one kernel for both, which differ only
+// in how a work item maps to (image, head) (k5_item). K5a skips the masked
+// cross-image blocks and computes each image's N x N diagonal block alone:
+// a masked logit adds exp(-1e9 - max) == 0 exactly to its row's fp32 sum
+// and 0 * v == 0 to P.V, so this is the TPU kernel's function (as the
+// note at lossyless_tpu/nn/flash_attn.py:86 says). Work items
+// are (image, head) pairs; block x takes a run of per_block items (runs
+// sized so 4 blocks an SM fill 132 SMs; the last run may be short, masked
+// in the kernel). About the bound: every input byte crosses once through a
+// cp.async ring of two stages (16-byte copies, each stage one item's Q, K
+// and V at a pitch padded by 16 bytes, so ldmatrix is conflict-free; the
+// next item's copies are in flight while the warps compute the current
+// one; only pad rows and columns are zeroed, once a block), and the output
+// leaves in 16-byte stores. A warp owns 16 query rows (onepass_tile): Q
+// fragments by ldmatrix, the logits of all padded keys (<= 64) computed
+// once into 32 fp32 registers with mma.sync m16n8k16, the row max over
+// the whole row, exp and the sum in fp32, p = e / s (a reciprocal and one
+// FMA correction) rounded to bf16 straight from the accumulator layout
+// into the A-fragment layout, P.V on mma.sync in fp32, the result rounded
+// to bf16 and written through the warp's own Q rows. Tile counts (16-key
+// chunks, head dim padded to 32, 64 or 128) and the ring's depth are
+// compile-time. Element loads and stores where d % 8 or the pointers are
+// not 16-byte aligned (d = 20, 33, a view at an odd storage offset).
+//
+// K5a/K5b design, bf16 at N > 64 (the first, two-pass tile, kept there;
+// mma_attend_tile) and fp32 (the CUDA-core row code, attend_rows; a bf16
+// product would not hold fp32's 1e-5). Two-pass: a warp owns 16 query
+// rows and streams them over all keys in chunks of 16, the logits never
+// leaving its registers: pass 1 keeps each row's running max and sum of
+// exp (rescaled when the max grows), pass 2 recomputes the chunk's logits,
+// forms p = exp(l - max) / sum, rounds it to bf16 in the A-fragment layout
+// and accumulates P.V. Q fragments come from device memory; K and V are
+// staged in shared memory as bf16, zero-padded to a multiple of 16 in both
+// dims.
 //   K5a: one block per (group of P images, head). It stages the group's
-//        M x d K and V (2*M*d bf16: 51 KB at P=4, 230 KB with padding at
-//        P=16, N=50, d=64, the largest that fits) and runs the full masked
-//        M x M product; masked entries contribute exp(-1e9 - max) = 0, so
-//        the result is K1's.
-//   K5b: one block per image, all heads (the grid is over images, not
-//        images x heads). One image's qkv row tile (50 x 2304 bf16, 230 KB)
-//        does not fit an SM with its padding, so the block stages the K/V
-//        of a subset of heads at a time (as many as fit half the SM:
-//        6 heads of 18 KB at the slice shape, two passes over 12 heads) and
-//        its warps take (head, 16-row tile) work items of that pass: the
-//        head is a batch index inside the block. fp32 stages Q, K and V of
-//        the pass's heads and its warps take (head, 4-row) items.
+//        M x d K and V and runs the full masked M x M product.
+//   K5b: one block per image, all heads: the block stages the K/V of
+//        `hp` heads a pass (the host's plan picks hp so that a pass fits
+//        half an SM) and its warps take (head, 16-row tile) items of that
+//        pass. fp32 stages Q, K and V of the pass's heads and its warps
+//        take (head, 4-row) items.
 //
 // Every input byte is read from device memory once and every output byte
 // written once; logits and probabilities never leave the SM. Measured
@@ -137,7 +156,6 @@ constexpr int kRows = 4;                 // query rows per warp step (FMA)
 constexpr int kMaxK16 = kMaxD / 16;      // k-steps of the q.k mma
 constexpr int kMaxN8 = kMaxD / 8;        // n-tiles of the P.V mma
 constexpr int kPad16 = 8;                // bf16 row-pitch pad (16 bytes)
-constexpr size_t kPassBudget = 116224;   // bytes: half an SM's shared memory
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
@@ -726,6 +744,317 @@ __global__ void headbatched_attention_mma_kernel(const bf16* __restrict__ qkv,
 }
 
 // ---------------------------------------------------------------------------
+// K5a/K5b one-pass tile (bf16, N <= 64, d <= 128): see the note at the top
+// ---------------------------------------------------------------------------
+
+constexpr int kOnePassMaxN = 64;
+constexpr int kStages = 2;  // ring stages: one item lands while one computes
+
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most kPending of this thread's copy groups are in flight
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Head-dim class of the one-pass tile: d is zero-padded to 32, 64 or 128
+// columns (compile-time k-steps; the pad columns add zeros).
+__host__ __device__ __forceinline__ int onepass_d16(int d) {
+  return d <= 32 ? 2 : d <= 64 ? 4 : 8;
+}
+
+// Work item i -> (image b, head h). K5b (pack 1): image-major, all heads
+// of an image in a run. K5a: group g of `pack` images, then head, then the
+// image in the group, so a run covers a group's images for one head.
+__device__ __forceinline__ void k5_item(int i, int heads, int pack, int& b,
+                                        int& h) {
+  if (pack > 1) {
+    const int per_group = heads * pack;
+    const int g = i / per_group;
+    const int r = i - g * per_group;
+    h = r / pack;
+    b = g * pack + (r - h * pack);
+  } else {
+    b = i / heads;
+    h = i - b * heads;
+  }
+}
+
+// Stage item (b, h)'s Q, K and V (N x d each) into one ring stage: three
+// tiles of `tile` elements at pitch ld. `vec`: cp.async 16-byte copies
+// (d % 8 == 0, qkv 16-byte aligned), the thread's chunks stepped without
+// divisions (it starts at row r, chunk c of the row and steps dr rows and
+// dc chunks: the block's threads in row-major chunk order); else element
+// loads.
+__device__ __forceinline__ void onepass_stage(bf16* st, int ld, int tile,
+                                              const bf16* __restrict__ qkv,
+                                              int64_t D, int N, int d,
+                                              int b, int h, bool vec, int r,
+                                              int c, int dr, int dc) {
+  const bf16* src = qkv + static_cast<int64_t>(b) * N * 3 * D +
+                    static_cast<int64_t>(h) * d;
+  const int row = static_cast<int>(3 * D);  // token stride in the image
+  const int k_off = static_cast<int>(D);
+  if (vec) {
+    const int per_row = d / 8;
+    while (r < N) {
+      const int g = r * row + c * 8;
+      const int s = r * ld + c * 8;
+      cp_async16(st + s, src + g);
+      cp_async16(st + tile + s, src + k_off + g);
+      cp_async16(st + 2 * tile + s, src + 2 * k_off + g);
+      r += dr;
+      c += dc;
+      if (c >= per_row) {
+        c -= per_row;
+        ++r;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int m = 0; m < 3; ++m)
+      for (int e = threadIdx.x; e < N * d; e += blockDim.x) {
+        const int rr = e / d;
+        const int col = e - rr * d;
+        st[m * tile + rr * ld + col] = src[rr * row + m * k_off + col];
+      }
+  }
+}
+
+// One warp: the 16 query rows r0.. of one (image, head) whose Q, K and V
+// sit in shared memory (qs: row r0 of Q; ks, vs: key 0), zero-padded to
+// kKC*16 rows and kD16*16 columns at pitch kLd. Accumulator element e of
+// n-tile j sits at row g + 8*(e >> 1), column 8*j + 2*t + (e & 1)
+// (g = lane / 4, t = lane % 4). The output leaves through the warp's own Q
+// rows (its Q fragments are in registers by then): 16-byte stores where
+// `vec`, else element stores from the fragments.
+template <int kKC, int kD16>
+__device__ __forceinline__ void onepass_tile(bf16* qs, const bf16* ks,
+                                             const bf16* vs, int N, int d,
+                                             float scale, int r0,
+                                             bf16* __restrict__ out,
+                                             int64_t out_row, bool vec) {
+  constexpr int kLd = kD16 * 16 + kPad16;
+  constexpr int kNT = 2 * kKC;   // n-tiles of 8 keys
+  constexpr int kDT = 2 * kD16;  // n-tiles of 8 output columns
+  const int lane = threadIdx.x % kWarp;
+  const int g = lane >> 2, t = lane & 3;
+
+  // logits of all kKC*16 padded keys, once, into registers
+  float l[kNT][4];
+  {
+    uint32_t qa[kD16][4];
+    const bf16* qrow = qs + (lane & 15) * kLd + (lane >> 4) * 8;
+#pragma unroll
+    for (int kk = 0; kk < kD16; ++kk) ldsm_x4(qa[kk], qrow + kk * 16);
+    const bf16* krow =
+        ks + ((lane & 7) + ((lane >> 4) << 3)) * kLd + ((lane >> 3) & 1) * 8;
+#pragma unroll
+    for (int kc = 0; kc < kKC; ++kc) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) l[2 * kc][e] = l[2 * kc + 1][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kD16; ++kk) {
+        uint32_t b[4];
+        ldsm_x4(b, krow + kc * 16 * kLd + kk * 16);
+        mma(l[2 * kc], qa[kk], b);
+        mma(l[2 * kc + 1], qa[kk], b + 2);
+      }
+    }
+  }
+
+  // fp32 softmax over the whole row: scale after the dot, padded keys -inf
+  float m[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < kNT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 8 * j + 2 * t + (e & 1);
+      l[j][e] = col < N ? l[j][e] * scale : -INFINITY;
+      m[e >> 1] = fmaxf(m[e >> 1], l[j][e]);
+    }
+  float s[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    m[h] = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 1));
+    m[h] = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 2));
+  }
+#pragma unroll
+  for (int j = 0; j < kNT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      l[j][e] = expf(l[j][e] - m[e >> 1]);
+      s[e >> 1] += l[j][e];
+    }
+  float rs[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    s[h] += __shfl_xor_sync(0xffffffffu, s[h], 1);
+    s[h] += __shfl_xor_sync(0xffffffffu, s[h], 2);
+    rs[h] = __frcp_rn(s[h]);
+  }
+
+  // P.V: p = e / s (a reciprocal and one FMA correction: the quotient),
+  // rounded to bf16 straight into the A-fragment layout
+  float o[kDT][4];
+#pragma unroll
+  for (int nt = 0; nt < kDT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
+  const bf16* vrow = vs + (lane & 15) * kLd + (lane >> 4) * 8;
+#pragma unroll
+  for (int kc = 0; kc < kKC; ++kc) {
+    float p[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float ev = l[2 * kc + j][e], sv = s[e >> 1], r = rs[e >> 1];
+        const float q = ev * r;
+        p[j][e] = fmaf(fmaf(-q, sv, ev), r, q);
+      }
+    const uint32_t pa[4] = {pack_f32(p[0][0], p[0][1]),
+                            pack_f32(p[0][2], p[0][3]),
+                            pack_f32(p[1][0], p[1][1]),
+                            pack_f32(p[1][2], p[1][3])};
+#pragma unroll
+    for (int np = 0; np < kD16; ++np) {
+      uint32_t b[4];
+      ldsm_x4_trans(b, vrow + kc * 16 * kLd + np * 16);
+      mma(o[2 * np], pa, b);
+      mma(o[2 * np + 1], pa, b + 2);
+    }
+  }
+
+  if (vec) {  // through the warp's Q rows, then 16-byte stores
+#pragma unroll
+    for (int nt = 0; nt < kDT; ++nt) {
+      const int col = nt * 8 + 2 * t;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int rr = g + 8 * h;
+        if (col < d && r0 + rr < N)
+          *reinterpret_cast<uint32_t*>(qs + rr * kLd + col) =
+              pack_f32(o[nt][2 * h], o[nt][2 * h + 1]);
+      }
+    }
+    __syncwarp();
+    const int per_row = d / 8;
+    for (int c = lane; c < 16 * per_row; c += kWarp) {
+      const int rr = c / per_row;
+      const int col = (c - rr * per_row) * 8;
+      if (r0 + rr < N)
+        *reinterpret_cast<uint4*>(out + (r0 + rr) * out_row + col) =
+            *reinterpret_cast<const uint4*>(qs + rr * kLd + col);
+    }
+  } else {
+#pragma unroll
+    for (int nt = 0; nt < kDT; ++nt) {
+      const int col = nt * 8 + 2 * t;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = r0 + g + 8 * h;
+        if (row >= N) continue;
+        bf16* orow = out + row * out_row;
+        if (col < d) orow[col] = __float2bfloat16_rn(o[nt][2 * h]);
+        if (col + 1 < d) orow[col + 1] = __float2bfloat16_rn(o[nt][2 * h + 1]);
+      }
+    }
+  }
+}
+
+// K5a and K5b, one-pass (bf16, N <= 64): block x takes the run of work
+// items [x * per_block, ...) (k5_item maps an item to (image, head); the
+// last run may be short). kKC warps, one a 16-row tile of the item. A ring
+// of kStages stages, each Q, K and V of one item: the copies of the next
+// kStages - 1 items are in flight while the warps compute the current one.
+template <int kKC, int kD16>
+__global__ void __launch_bounds__(kKC* kWarp, kD16 <= 4 ? 4 : 2)
+    k5_onepass_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
+                      int B, int N, int heads, int d, int pack, float scale,
+                      int per_block, bool vec) {
+  extern __shared__ __align__(16) bf16 smem_bf16[];
+  constexpr int kLd = kD16 * 16 + kPad16;
+  constexpr int kTile = kKC * 16 * kLd;
+  const int64_t D = static_cast<int64_t>(heads) * d;
+  const int first = blockIdx.x * per_block;
+  const int count = min(per_block, B * heads - first);
+  if (count <= 0) return;  // the whole block: nothing below has run
+  const int warp = threadIdx.x / kWarp;
+
+  // zero the pad rows and columns of every tile, once; copies never
+  // write there
+  for (int z = 0; z < 3 * kStages; ++z) {
+    bf16* tile = smem_bf16 + z * kTile;
+    uint4* rows = reinterpret_cast<uint4*>(tile + N * kLd);
+    for (int i = threadIdx.x; i < (kKC * 16 - N) * kLd / 8; i += blockDim.x)
+      rows[i] = make_uint4(0u, 0u, 0u, 0u);
+    const int pad = kD16 * 16 - d;
+    for (int i = threadIdx.x; i < N * pad; i += blockDim.x) {
+      const int r = i / pad;
+      tile[r * kLd + d + (i - r * pad)] = __float2bfloat16_rn(0.f);
+    }
+  }
+
+  // this thread's first 16-byte chunk and its step (vec path)
+  const int per_row = max(d / 8, 1);
+  const int r0 = threadIdx.x / per_row, c0 = threadIdx.x - r0 * per_row;
+  const int dr = blockDim.x / per_row, dc = blockDim.x - dr * per_row;
+  int b, h;
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < count) {
+      k5_item(first + i, heads, pack, b, h);
+      onepass_stage(smem_bf16 + i * 3 * kTile, kLd, kTile, qkv, D, N, d, b,
+                    h, vec, r0, c0, dr, dc);
+    }
+    cp_async_commit();
+  }
+  for (int i = 0; i < count; ++i) {
+    const int next = i + kStages - 1;
+    if (next < count) {
+      k5_item(first + next, heads, pack, b, h);
+      onepass_stage(smem_bf16 + (next % kStages) * 3 * kTile, kLd, kTile, qkv,
+                    D, N, d, b, h, vec, r0, c0, dr, dc);
+    }
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();  // item i's group has landed
+    __syncthreads();
+    bf16* st = smem_bf16 + (i % kStages) * 3 * kTile;
+    k5_item(first + i, heads, pack, b, h);
+    onepass_tile<kKC, kD16>(st + warp * 16 * kLd, st + kTile, st + 2 * kTile,
+                            N, d, scale, warp * 16,
+                            out + static_cast<int64_t>(b) * N * D +
+                                static_cast<int64_t>(h) * d,
+                            D, vec);
+    __syncthreads();  // the stage is free for item i + kStages
+  }
+}
+
+// ---------------------------------------------------------------------------
 // K2, both dtypes: one warp per (image, head), every warp computing
 // ---------------------------------------------------------------------------
 
@@ -971,14 +1300,40 @@ cudaError_t launch_k2(const void* q0, const void* kv, void* out, int B,
   return cudaGetLastError();
 }
 
-// Heads a K5b pass stages: as many as fit half an SM's shared memory (two
-// blocks an SM), at least one.
-int heads_per_pass(int dtype, int N, int d, int heads, int n_warps) {
-  int hp = heads;
-  while (hp > 1 && headbatched_smem_bytes(dtype, N, d, hp, n_warps) >
-                       kPassBudget)
-    --hp;
-  return hp;
+size_t onepass_smem_bytes(int N, int d) {
+  return sizeof(bf16) * static_cast<size_t>(kStages) * 3 * round_up(N, 16) *
+         (onepass_d16(d) * 16 + kPad16);
+}
+
+template <int kKC, int kD16>
+cudaError_t launch_onepass(const bf16* qkv, bf16* out, int B, int N,
+                           int heads, int d, int pack, float scale,
+                           int per_block, bool vec, cudaStream_t stream) {
+  auto kernel = k5_onepass_kernel<kKC, kD16>;
+  const size_t smem = onepass_smem_bytes(N, d);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int items = B * heads;
+  kernel<<<(items + per_block - 1) / per_block, kKC * kWarp, smem, stream>>>(
+      qkv, out, B, N, heads, d, pack, scale, per_block, vec);
+  return cudaGetLastError();
+}
+
+template <int kKC>
+cudaError_t launch_onepass_d(const bf16* qkv, bf16* out, int B, int N,
+                             int heads, int d, int pack, float scale,
+                             int per_block, bool vec, cudaStream_t s) {
+  switch (onepass_d16(d)) {
+    case 2:
+      return launch_onepass<kKC, 2>(qkv, out, B, N, heads, d, pack, scale,
+                                    per_block, vec, s);
+    case 4:
+      return launch_onepass<kKC, 4>(qkv, out, B, N, heads, d, pack, scale,
+                                    per_block, vec, s);
+    default:
+      return launch_onepass<kKC, 8>(qkv, out, B, N, heads, d, pack, scale,
+                                    per_block, vec, s);
+  }
 }
 
 }  // namespace
@@ -1083,17 +1438,17 @@ size_t lossyless_attention_headbatched_smem_bytes(int dtype, int N, int d,
 }
 
 // K5b. qkv (B, N, 3*heads*d) contiguous -> out (B, N, heads*d), one block
-// per image. bf16 on the tensor cores, fp32 on the CUDA cores.
+// per image staging `hp` (1..heads) heads a pass. bf16 on the tensor cores,
+// fp32 on the CUDA cores.
 int lossyless_fused_attention_headbatched(const void* qkv, void* out, int B,
                                           int N, int heads, int d, int dtype,
-                                          float scale, int n_warps,
+                                          float scale, int n_warps, int hp,
                                           int device, void* stream) {
   if (B < 1 || N < 1 || d < 1 || d > kMaxD || heads < 1 || n_warps < 1 ||
-      (dtype != 0 && dtype != 1))
+      hp < 1 || hp > heads || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int hp = heads_per_pass(dtype, N, d, heads, n_warps);
   const size_t smem = headbatched_smem_bytes(dtype, N, d, hp, n_warps);
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
@@ -1112,6 +1467,55 @@ int lossyless_fused_attention_headbatched(const void* qkv, void* out, int B,
         scale, hp, vec);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Shared memory of one one-pass K5a/K5b block: kStages ring stages of
+// one item's Q, K and V.
+size_t lossyless_attention_k5_onepass_smem_bytes(int N, int d) {
+  return onepass_smem_bytes(N, d);
+}
+
+// K5a (pack >= 2) and K5b (pack == 1) on the one-pass tile: qkv
+// (B, N, 3*heads*d) bf16 contiguous -> out (B, N, heads*d); N <= 64.
+// Blocks of ceil(N/16) warps take runs of `per_block` (image, head) items
+// through a ring of kStages stages. vec selects cp.async 16-byte copies
+// and 16-byte stores (refused unless qkv and out are 16-byte aligned and
+// d % 8 == 0).
+int lossyless_fused_attention_k5_onepass(const void* qkv, void* out, int B,
+                                         int N, int heads, int d, int pack,
+                                         float scale, int per_block,
+                                         int vec, int device, void* stream) {
+  if (B < 1 || N < 1 || N > kOnePassMaxN || d < 1 || d > kMaxD ||
+      heads < 1 || pack < 1 || B % pack || per_block < 1 ||
+      static_cast<int64_t>(B) * heads > INT32_MAX ||      // items
+      static_cast<int64_t>(N) * 3 * heads * d > INT32_MAX ||  // an image
+
+      (vec && (!aligned16(qkv) || !aligned16(out) || d % 8)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto q = static_cast<const bf16*>(qkv);
+  auto o = static_cast<bf16*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  switch ((N + 15) / 16) {
+    case 1:
+      err = launch_onepass_d<1>(q, o, B, N, heads, d, pack, scale, per_block,
+                                vec, s);
+      break;
+    case 2:
+      err = launch_onepass_d<2>(q, o, B, N, heads, d, pack, scale, per_block,
+                                vec, s);
+      break;
+    case 3:
+      err = launch_onepass_d<3>(q, o, B, N, heads, d, pack, scale, per_block,
+                                vec, s);
+      break;
+    default:
+      err = launch_onepass_d<4>(q, o, B, N, heads, d, pack, scale, per_block,
+                                vec, s);
+      break;
+  }
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

@@ -12,9 +12,13 @@ Counterpart of the Pallas kernels in `lossyless_tpu/nn/flash_attn.py`:
 * K5a (packed) and K5b (head-batched) — K1's function on the TPU's two
   other layouts, chosen inside `fused_attention` by the module knobs
   `IMAGE_PACK` and `HEAD_BATCH`, as JAX's `fused_attention` chooses
-  `_attn_kernel_packed` / `_attn_kernel_headbatched`. K5a stacks `pack`
-  images' tokens into one (pack*N)-token operand per head under a
-  block-diagonal -1e9 mask; K5b runs all heads of an image in one block.
+  `_attn_kernel_packed` / `_attn_kernel_headbatched`. The TPU's K5a
+  stacks `pack` images' tokens into one (pack*N)-token operand per head
+  under a block-diagonal -1e9 mask, whose masked blocks add exactly 0;
+  K5b folds the heads into the batch of its dots. On the card both run,
+  in bf16 at N <= 64, one single-pass tensor-core kernel over (image,
+  head) items, K5a's masked blocks skipped; longer sequences take the
+  first, two-pass tile and fp32 the CUDA-core row code.
 * K4 `fused_mlp_block(x, ln_scale, ln_bias, fc_w, fc_b, pr_w, pr_b)` —
   the MLP half-block `x + proj(QuickGELU(fc(LN(x))))` in one kernel, bf16.
   Replaces `fused_mlp_block` / `_mlp_kernel`. Runs the MLP of ViT blocks
@@ -27,8 +31,9 @@ stream. Each wrapper checks device, dtype, shape and contiguity,
 allocates the output, launches, raises if the launch returned a CUDA
 error, and adds one to its entry of `LAUNCHES`. K2's launch geometry
 (blocks, warps a block, shared memory, and the 16-byte or element load
-path) is chosen here, by the pure function `k2_plan`, which the CPU tests
-check at every shape the card's checks run.
+path) is chosen here, by the pure function `k2_plan`, and K5a's and K5b's
+design and geometry by `k5_plan`; the CPU tests check both at every shape
+the card's checks run.
 
 A CPU tensor goes to the plain version (`attention_plain`,
 `attention_packed_plain`, `attention_headbatched_plain`,
@@ -67,7 +72,12 @@ MAX_D = 128
 MAX_SMEM = 232448          # bytes of shared memory a Hopper block can use
 K1_WARPS = 8               # warps per (image, head) block; each takes rows
 K2_WARPS = 8               # K2: one (image, head) item a warp
-K5_WARPS = 8               # K5a/K5b: warps take 16-row (bf16) or 4-row items
+K5_WARPS = 8               # K5a/K5b two-pass and fp32: warps take row items
+K5_ONEPASS_MAX_N = 64      # the longest sequence the one-pass tile takes
+K5_STAGES = 2              # one-pass ring stages (attention.cu kStages)
+K5_SMS = 132               # SMs of an H100 SXM
+K5_BLOCKS_PER_SM = 4       # one-pass blocks the plan aims to keep on an SM
+K5_PASS_BUDGET = 116224    # K5b two-pass: a pass's bytes (half an SM)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _lib = None
@@ -107,7 +117,14 @@ def _get_lib():
                     i, i, i, i, i]
                 lib.lossyless_fused_attention_headbatched.restype = i
                 lib.lossyless_fused_attention_headbatched.argtypes = [
-                    p, p, i, i, i, i, i, f, i, i, p]
+                    p, p, i, i, i, i, i, f, i, i, i, p]
+                lib.lossyless_attention_k5_onepass_smem_bytes.restype = \
+                    ctypes.c_size_t
+                lib.lossyless_attention_k5_onepass_smem_bytes.argtypes = [
+                    i, i]
+                lib.lossyless_fused_attention_k5_onepass.restype = i
+                lib.lossyless_fused_attention_k5_onepass.argtypes = [
+                    p, p, i, i, i, i, i, f, i, i, i, p]
                 _lib = lib
     return _lib
 
@@ -285,6 +302,130 @@ def k2_plan(B: int, N: int, heads: int, d: int, dtype,
 
 
 # ---------------------------------------------------------------------------
+# K5a/K5b's launch plan (a pure function of shape, dtype, pack, alignment)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class K5Plan:
+    """The launch geometry of one K5a (pack >= 2) or K5b (pack 1) call.
+
+    design: "onepass" (bf16, N <= 64: the single-pass tensor-core tile,
+    a cp.async ring of `stages` stages, fixed in the kernel), "twopass"
+    (bf16, N > 64: the two-pass tensor-core tile) or "fma" (fp32, the
+    CUDA-core row code).
+    Work items are (image, head) pairs in `k5_item` order; block i takes
+    items [i * per_block, (i + 1) * per_block), the last run possibly
+    short. `smem` bytes of shared memory a block, `warps` warps a block;
+    vec: 16-byte copies and stores, else element loads and stores.
+    `heads_per_pass`: the heads a two-pass or fp32 K5b block stages at
+    once, passed to the kernel (else 0)."""
+
+    design: str
+    items: int
+    per_block: int
+    blocks: int
+    warps: int
+    stages: int
+    smem: int
+    vec: bool
+    heads: int
+    pack: int
+    heads_per_pass: int = 0
+
+    def block_items(self, i: int) -> list[tuple[int, int]]:
+        """The (image, head) items block i takes, in order."""
+        return [k5_item(j, self.heads, self.pack) for j in range(
+            i * self.per_block, min((i + 1) * self.per_block, self.items))]
+
+
+def k5_item(i: int, heads: int, pack: int) -> tuple[int, int]:
+    """Work item i -> (image, head), as the kernels map it: image-major
+    for K5b (pack 1); for K5a group of `pack` images, then head, then the
+    image in the group, so a run covers a group's images for one head."""
+    if pack > 1:
+        g, r = divmod(i, heads * pack)
+        h, j = divmod(r, pack)
+        return g * pack + j, h
+    return divmod(i, heads)
+
+
+def _onepass_d16(d: int) -> int:
+    """16-column k-steps the one-pass tile pads the head dim to."""
+    return 2 if d <= 32 else 4 if d <= 64 else 8
+
+
+def _fp32_layout(n_q: int, N: int, d: int) -> tuple[int, int]:
+    """(floats of Q, K and V, floats of one warp's probability rows) of the
+    CUDA-core row code's shared memory (attention.cu `layout`)."""
+    ld = _round_up(d, 4) | 4
+    n4 = _round_up(N, 4)
+    return (_round_up(n_q, 4) + 2 * n4) * ld, 4 * n4
+
+
+def _twopass_tile(M: int, d: int) -> int:
+    """bf16 elements of one K (or V) tile of the two-pass tile."""
+    return _round_up(M, 16) * (_round_up(d, 16) + 8)
+
+
+def k5b_pass(N: int, heads: int, d: int, dtype) -> tuple[int, int]:
+    """(heads a pass, shared memory bytes) of a two-pass (bf16) or fp32
+    K5b block: as many heads as fit `K5_PASS_BUDGET` (two blocks an SM),
+    at least one."""
+    def pass_bytes(hp):
+        if dtype == torch.float32:
+            qkv_f, p_f = _fp32_layout(N, N, d)
+            return 4 * (hp * qkv_f + K5_WARPS * p_f)
+        return 2 * 2 * hp * _twopass_tile(N, d)
+    hp = heads
+    while hp > 1 and pass_bytes(hp) > K5_PASS_BUDGET:
+        hp -= 1
+    return hp, pass_bytes(hp)
+
+
+@functools.lru_cache(maxsize=256)
+def k5_plan(B: int, N: int, heads: int, d: int, dtype, pack: int = 1,
+            aligned: bool = True) -> K5Plan:
+    """K5a's (pack >= 2) or K5b's (pack 1) geometry at this shape.
+
+    bf16 with N <= 64 takes the one-pass tile: ceil(N / 16) warps a block,
+    one 16-row tile of an item each; runs of items sized so that the grid
+    fills `K5_SMS` SMs `K5_BLOCKS_PER_SM` deep; `K5_STAGES` ring stages of
+    one item's Q, K and V at a 16-byte-padded pitch. Longer sequences take
+    the two-pass tile and fp32 the row code, one block per (group, head)
+    (K5a) or per image (K5b), as the first designs launch. `aligned`: the
+    input's and output's data pointers are 16-byte aligned."""
+    if pack < 1 or B % pack:
+        raise ValueError(f"pack={pack} must be >= 1 and divide B={B}")
+    items = B * heads
+    vec = sixteen_byte_path(d, dtype.itemsize, aligned)
+    common = dict(items=items, vec=vec, heads=heads, pack=pack)
+    if dtype == torch.bfloat16 and N <= K5_ONEPASS_MAX_N:
+        per_block = -(-items // (K5_SMS * K5_BLOCKS_PER_SM))
+        smem = 2 * K5_STAGES * 3 * _round_up(N, 16) * (
+            _onepass_d16(d) * 16 + 8)
+        plan = K5Plan("onepass", per_block=per_block,
+                      blocks=-(-items // per_block), warps=-(-N // 16),
+                      stages=K5_STAGES, smem=smem, **common)
+    elif pack > 1:   # one block per (group of pack images, head)
+        M = pack * N
+        qkv_f, p_f = _fp32_layout(M, M, d)
+        smem = 4 * (qkv_f + K5_WARPS * p_f) if dtype == torch.float32 \
+            else 2 * 2 * _twopass_tile(M, d)
+        plan = K5Plan("fma" if dtype == torch.float32 else "twopass",
+                      per_block=pack, blocks=items // pack, warps=K5_WARPS,
+                      stages=1, smem=smem, **common)
+    else:            # one block per image, heads staged in passes
+        hp, smem = k5b_pass(N, heads, d, dtype)
+        plan = K5Plan("fma" if dtype == torch.float32 else "twopass",
+                      per_block=heads, blocks=B, warps=K5_WARPS, stages=1,
+                      smem=smem, heads_per_pass=hp, **common)
+    _check_smem(plan.smem, f"N={N}, d={d}, pack={pack} ({dtype}, "
+                f"{plan.design})")
+    return plan
+
+
+# ---------------------------------------------------------------------------
 # Kernel launches
 # ---------------------------------------------------------------------------
 
@@ -347,42 +488,44 @@ def _launch_attention(qkv: torch.Tensor, heads: int) -> torch.Tensor:
     return out
 
 
-def _launch_attention_packed(qkv: torch.Tensor, heads: int,
-                             pack: int) -> torch.Tensor:
+def _launch_k5(qkv: torch.Tensor, heads: int, pack: int) -> torch.Tensor:
+    """K5a (pack >= 2) or K5b (pack 1) on the design `k5_plan` picks."""
     B, N, D, d = _check_qkv(qkv, heads)
-    if pack < 2 or B % pack:
-        raise ValueError(f"pack={pack} must be >= 2 and divide B={B}")
+    out = torch.empty((B, N, D), dtype=qkv.dtype, device=qkv.device)
+    plan = k5_plan(B, N, heads, d, qkv.dtype, pack,
+                   qkv.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
     lib = _get_lib()
     dt = _DTYPE_CODE[qkv.dtype]
-    _check_smem(lib.lossyless_attention_packed_smem_bytes(
-        dt, pack * N, d, K5_WARPS), f"pack={pack}, N={N}, d={d} "
-        f"({qkv.dtype}, K and V of {pack * N} tokens)")
-    out = torch.empty((B, N, D), dtype=qkv.dtype, device=qkv.device)
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
-    rc = lib.lossyless_fused_attention_packed(
-        qkv.data_ptr(), out.data_ptr(), B, N, heads, d, pack, dt, d**-0.5,
-        K5_WARPS, qkv.device.index, stream)
-    _raise_on(rc, "fused_attention_packed")
-    LAUNCHES["fused_attention_packed"] += 1
+    if plan.design == "onepass":
+        rc = lib.lossyless_fused_attention_k5_onepass(
+            qkv.data_ptr(), out.data_ptr(), B, N, heads, d, pack, d**-0.5,
+            plan.per_block, int(plan.vec), qkv.device.index, stream)
+    elif pack > 1:
+        rc = lib.lossyless_fused_attention_packed(
+            qkv.data_ptr(), out.data_ptr(), B, N, heads, d, pack, dt,
+            d**-0.5, K5_WARPS, qkv.device.index, stream)
+    else:
+        rc = lib.lossyless_fused_attention_headbatched(
+            qkv.data_ptr(), out.data_ptr(), B, N, heads, d, dt, d**-0.5,
+            K5_WARPS, plan.heads_per_pass, qkv.device.index, stream)
+    name = "fused_attention_packed" if pack > 1 \
+        else "fused_attention_headbatched"
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
     return out
+
+
+def _launch_attention_packed(qkv: torch.Tensor, heads: int,
+                             pack: int) -> torch.Tensor:
+    if pack < 2:
+        raise ValueError(f"pack={pack} must be >= 2")
+    return _launch_k5(qkv, heads, pack)
 
 
 def _launch_attention_headbatched(qkv: torch.Tensor,
                                   heads: int) -> torch.Tensor:
-    B, N, D, d = _check_qkv(qkv, heads)
-    lib = _get_lib()
-    dt = _DTYPE_CODE[qkv.dtype]
-    # the kernel stages as many heads a pass as fit; one must
-    _check_smem(lib.lossyless_attention_headbatched_smem_bytes(
-        dt, N, d, 1, K5_WARPS), f"N={N}, d={d} ({qkv.dtype}, one head)")
-    out = torch.empty((B, N, D), dtype=qkv.dtype, device=qkv.device)
-    stream = torch.cuda.current_stream(qkv.device).cuda_stream
-    rc = lib.lossyless_fused_attention_headbatched(
-        qkv.data_ptr(), out.data_ptr(), B, N, heads, d, dt, d**-0.5,
-        K5_WARPS, qkv.device.index, stream)
-    _raise_on(rc, "fused_attention_headbatched")
-    LAUNCHES["fused_attention_headbatched"] += 1
-    return out
+    return _launch_k5(qkv, heads, 1)
 
 
 def _launch_attention_cls(q0: torch.Tensor, kv: torch.Tensor,

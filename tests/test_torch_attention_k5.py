@@ -7,6 +7,10 @@ in interpret mode, as tests/test_flash_attn.py does. The port's
 tensors, takes the matching plain version (`attention_packed_plain`,
 `attention_headbatched_plain`), which repeats the CUDA kernels' arithmetic.
 
+`k5_plan`, the pure function the CUDA launchers take their design and
+geometry from, is run at every shape chip_smoke.py's phase 3c checks on
+the card (`K5_CHECKS`).
+
 Tolerances are tests/test_flash_attn.py's: fp32 rtol/atol 1e-5 (summation
 order; the packed product also sums the masked zeros), bf16 atol 2e-2 (one
 bf16 rounding of the probabilities and the output); gradients rtol 1e-5 /
@@ -15,6 +19,8 @@ the tiny tower at tests/test_torch_vit.py's fp32 tolerance, 2e-4.
 """
 
 import contextlib
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -26,6 +32,9 @@ from lossyless_tpu.nn import flash_attn as jfa
 from lossyless_tpu.nn import vit as jvit
 from lossyless_tpu_torch.nn import flash_attn as tfa
 from lossyless_tpu_torch.nn import vit as tvit
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
 
 D, HEADS = 96, 4
 FP32 = dict(rtol=1e-5, atol=1e-5)
@@ -224,3 +233,84 @@ def test_tiny_tower_under_each_knob(tower_params, kw):
                                      else "headbatched")
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
     np.testing.assert_allclose(got, base, rtol=2e-4, atol=2e-4)
+
+
+def _k5_cases():
+    def name(c):
+        return "-".join(map(str, (*c[:5], *c[5].items(), *c[6])))
+    return [pytest.param(*c, id=name(c)) for c in chip_smoke.K5_CHECKS]
+
+
+@pytest.mark.parametrize("B,N,heads,d,dt,kw,opt", _k5_cases())
+def test_k5_plan_at_the_card_check_shapes(B, N, heads, d, dt, kw, opt):
+    """`k5_plan` at every shape phase 3c checks on the card: a block fits
+    Hopper's shared memory, the blocks' runs cover every (image, head)
+    item exactly once, bf16 takes the one-pass tile at N <= 64 and the
+    two-pass tile above, fp32 the row code."""
+    dtype = getattr(torch, dt)
+    with knobs(**kw):
+        variant, pack = tfa.attention_variant(
+            torch.zeros(B, N, 3 * heads * d, dtype=dtype))
+    assert variant == ("packed" if "IMAGE_PACK" in kw else "headbatched")
+    aligned = not opt.get("unaligned", False)
+    plan = tfa.k5_plan(B, N, heads, d, dtype, pack, aligned)
+    assert 0 < plan.smem <= tfa.MAX_SMEM
+    assert plan.design == ("fma" if dtype == torch.float32 else
+                           "onepass" if N <= 64 else "twopass")
+    covered = [it for i in range(plan.blocks) for it in plan.block_items(i)]
+    assert sorted(covered) == [(b, h) for b in range(B)
+                               for h in range(heads)]
+    assert all(plan.block_items(i) for i in range(plan.blocks))
+    assert plan.vec == (aligned and (d * dtype.itemsize) % 16 == 0)
+    if plan.design == "onepass":
+        assert plan.warps == -(-N // 16) and plan.stages >= 2
+    elif variant == "packed":   # a block: one head of one group's images
+        for i in range(plan.blocks):
+            items = plan.block_items(i)
+            assert len({h for _, h in items}) == 1
+            assert len({b // pack for b, _ in items}) == 1
+    else:   # the heads a pass stages, which the launch hands the kernel
+        assert 1 <= plan.heads_per_pass <= heads
+        assert (plan.heads_per_pass, plan.smem) == tfa.k5b_pass(
+            N, heads, d, dtype)
+
+
+def test_k5_plan_at_the_slice_shape():
+    """B=512, N=50, 12 heads of 64, bf16, every pack and head-batched:
+    6144 items in 512 runs of 12 (4 a resident block on each of 132 SMs
+    at most), two stages of Q, K, V at a 72-element pitch; a ragged last
+    run at B=300."""
+    for pack in (1, 2, 4, 8, 16):
+        plan = tfa.k5_plan(512, 50, 12, 64, torch.bfloat16, pack)
+        assert (plan.design, plan.items, plan.per_block, plan.blocks) == \
+            ("onepass", 6144, 12, 512)
+        assert plan.smem == 2 * 2 * 3 * 64 * 72 and plan.vec
+        assert plan.blocks <= tfa.K5_SMS * tfa.K5_BLOCKS_PER_SM
+    plan = tfa.k5_plan(300, 50, 12, 64, torch.bfloat16, 1)
+    assert plan.items % plan.per_block
+    assert len(plan.block_items(plan.blocks - 1)) == plan.items % \
+        plan.per_block
+    # K5a's item order: a run takes one head of consecutive images
+    plan = tfa.k5_plan(8, 50, 2, 64, torch.bfloat16, 4)
+    assert [tfa.k5_item(i, 2, 4) for i in range(8)] == \
+        [(0, 0), (1, 0), (2, 0), (3, 0), (0, 1), (1, 1), (2, 1), (3, 1)]
+    assert tfa.k5_plan(2, 65, 12, 64, torch.bfloat16, 1).design == "twopass"
+    with pytest.raises(ValueError, match="divide"):
+        tfa.k5_plan(6, 50, 12, 64, torch.bfloat16, 4)
+
+
+@pytest.mark.parametrize("B,N,heads,d,dt,kw,opt", _k5_cases())
+def test_k5_matches_pallas_at_the_card_check_shapes(B, N, heads, d, dt, kw,
+                                                    opt):
+    """Every K5a/K5b case phase 3c checks on the card, cut to one image
+    group (K5a) or two images (K5b): the plain version the card's checks
+    hold the kernels to, against JAX's kernel under the same knob."""
+    dtype = getattr(torch, dt)
+    with knobs(**kw):
+        _, pack = tfa.attention_variant(torch.zeros(B, N, 3 * heads * d,
+                                                    dtype=dtype))
+        x = _qkv(pack if "IMAGE_PACK" in kw else min(B, 2), N, seed=N + d,
+                 width=heads * d)
+        got, want = _both(x, dtype, heads)
+    np.testing.assert_allclose(got, want,
+                               **(FP32 if dtype == torch.float32 else BF16))
