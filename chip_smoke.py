@@ -25,11 +25,18 @@ non-zero without printing a result:
    and the share of the bound reached;
 3b. K3 (entropy-bottleneck likelihood) at the training shape (128, 512) and
    at odd shapes in fp32, to rtol 1e-5 / atol 1e-7, and K4 (fused MLP
-   half-block) at the training shape (128 x 50 tokens, width 768) and odd
-   shapes in bf16, to atol 2e-2 plus one bf16 ulp of the value; then
-   CUDA-event and device-only (torch.profiler) timings of each, of its
-   plain version and, for K4, of the op path it replaces (LayerNorm, two
-   matmuls, elementwise: a yardstick);
+   half-block) at every `K4_CHECKS` case in bf16, to atol 2e-2 plus one
+   bf16 ulp of the value: the training shape (128 x 50 tokens, width 768),
+   a ragged last row tile (129 x 50), x and fc_w at a 16-byte storage
+   offset, M = 21 at width 64, and widths 96 and 72; each case asserts the
+   design `k4_plan` picks (wgmma for widths that are multiples of 64, else
+   mma.sync) and holds the plan's shared memory to the library's count;
+   K4's QuickGELU epilogue at all 65,536 bf16 inputs, bit for bit;
+   then CUDA-event and device-only (torch.profiler) timings of each, of
+   its plain version and, for K4, its device time by kernel, the mma.sync
+   design's device time on the same inputs (through the library) and the
+   op path it replaces (LayerNorm, two matmuls, elementwise: a yardstick;
+   both clocks);
 3c. K5a (packed, packs 2, 4, 8, 16) and K5b (head-batched) through the
    `fused_attention` wrapper under their knobs at every `K5_CHECKS` case:
    B=512, N=50, h=12, d=64, bf16; odd shapes (B=7, N=37, d=40 in fp32 and
@@ -55,7 +62,11 @@ non-zero without printing a result:
    kernel group and the device idle share; then, as a record with no
    bound, the same encode under `HEAD_BATCH=True` (K5b in blocks 0-10):
    its symbol flips against the plain attention and K1, its img/s over the
-   8 batches and K5b's device ms a batch;
+   8 batches and K5b's device ms a batch; then, a record with no bound
+   (4d), the symbols flipped on the first batch between the plain tower
+   and the same tower with its plain attention in float64 (rounded at the
+   plain path's points) and in fp32 with its sums reversed, and between
+   those two;
 5. the training path at full width: the `clip_hub` recipe with K3 and K4
    switched on (`rate.eb_use_pallas=True`,
    `encoder.arch_kwargs.mlp_impl=pallas`) through `pipeline.run.
@@ -88,7 +99,7 @@ non-zero without printing a result:
    torch.profiler trace of 3 steps;
 7. the `kernels` JSON line (K1-K4, K5a, K5b; with `device_ms` and
    `bound_share`, K1/K2 also at batch 256, and the registers and spills
-   of K1's, K2's, K5a's and K5b's instantiations) and, last,
+   of K1's, K2's, K4's, K5a's and K5b's kernels) and, last,
    `{"ok": true, "device": {...}}`.
 
 It needs a CUDA card and the repository around it: with no card, or run
@@ -164,31 +175,49 @@ def bound(bytes_moved: float, flops: float, dtype: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def device_ms(fn, match=None, reps: int = 20):
-    """Device-only time of one `fn()` from a torch.profiler trace of `reps`
-    calls after a warm-up: the summed time of the CUDA kernels whose names
-    contain one of `match` (all of the call's kernels where None), over
-    `reps`; the median of three traces (a trace now and then loses
-    events), None if none holds such kernel time."""
+def _traces(fn, match, reps: int) -> list[dict]:
+    """Three torch.profiler traces of `reps` calls of `fn` after a
+    warm-up: per trace, the device time per call (ms) of each CUDA kernel
+    whose name contains one of `match` (every kernel where None)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    times = []
+    traces = []
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and (match is None or any(m in e.key for m in match)))
-        if us:
-            times.append(us / reps / 1e3)
+        traces.append({e.key: e.self_device_time_total / reps / 1e3
+                       for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and e.self_device_time_total
+                       and (match is None or any(m in e.key for m in match))})
+    return traces
+
+
+def device_ms(fn, match=None, reps: int = 20):
+    """Device-only time of one `fn()` from a torch.profiler trace of `reps`
+    calls after a warm-up: the summed time of the CUDA kernels whose names
+    contain one of `match` (all of the call's kernels where None), over
+    `reps`; the median of three traces (a trace now and then loses
+    events), None if none holds such kernel time."""
+    times = [sum(t.values()) for t in _traces(fn, match, reps) if t]
     return float(np.median(times)) if times else None
+
+
+def device_ms_by_kernel(fn, match, reps: int = 20) -> dict:
+    """`device_ms` split by kernel: each matching kernel's median device
+    ms per call over three traces (a kernel missing from a trace counts
+    0 there)."""
+    traces = _traces(fn, match, reps)
+    names = sorted({k for t in traces for k in t})
+    return {k: float(np.median([t.get(k, 0.0) for t in traces]))
+            for k in names}
 
 
 def bound_share(bound_ms: float, ms) -> float | None:
@@ -697,7 +726,8 @@ def main_path(card: str) -> dict:
                   bits_per_img=rate, symbol_flip_fraction=flip_frac,
                   decode_max_abs_err=dec_err)
     print(json.dumps({"main_path": result}), flush=True)
-    encode_head_batch_record(comp, batches, s_kernel, s_plain, card)
+    hb = encode_head_batch_record(comp, batches, s_kernel, s_plain, card)
+    summation_order_record(plain, x0, s_plain, flip_frac, hb, card)
     profile_encode(comp, batches[:4], card)
     return launches
 
@@ -730,6 +760,88 @@ def encode_head_batch_record(comp, batches, s_kernel, s_plain, card: str):
         k5b_launches_per_batch=launches / len(batches),
         k5b_device_ms_per_batch=k5b_ms)
     print(json.dumps({"encode_head_batch_record": record}), flush=True)
+    return record
+
+
+def attention_float64(qkv, heads: int):
+    """The plain attention's function evaluated in float64, rounded where
+    the plain path rounds: the logits to fp32, the probabilities and the
+    output to the io dtype."""
+    import torch
+
+    B, N, threeD = qkv.shape
+    D = threeD // 3
+    d = D // heads
+    q, k, v = (t.reshape(B, N, heads, d)
+               for t in qkv.double().split(D, dim=-1))
+    logits = (torch.einsum("bqhd,bkhd->bhqk", q, k) * d**-0.5).float()
+    logits = logits.double()
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    attn = (p / p.sum(dim=-1, keepdim=True)).to(qkv.dtype).double()
+    out = torch.einsum("bhqk,bkhd->bqhd", attn, v)
+    return out.reshape(B, N, D).to(qkv.dtype)
+
+
+def attention_reversed(qkv, heads: int):
+    """The plain attention in fp32 with its sums in the reverse order: the
+    head dim flipped in q and k, the key axis flipped in k (so in the
+    logits and p) and in v."""
+    import torch
+
+    B, N, threeD = qkv.shape
+    D = threeD // 3
+    d = D // heads
+    q, k, v = (t.reshape(B, N, heads, d)
+               for t in qkv.float().split(D, dim=-1))
+    q, k, v = q.flip(-1), k.flip(-1).flip(1), v.flip(1)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * d**-0.5
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    attn = (p / p.sum(dim=-1, keepdim=True)).to(qkv.dtype).float()
+    out = torch.einsum("bhqk,bkhd->bqhd", attn, v)
+    return out.reshape(B, N, D).to(qkv.dtype)
+
+
+class PlainAttention:
+    """Inside the block, the towers' plain attention (`vit.attention_plain`,
+    blocks 0-10 of an `attn_impl="plain"` tower) is `fn`."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __enter__(self):
+        from lossyless_tpu_torch.nn import vit
+
+        self.saved = vit.attention_plain
+        vit.attention_plain = self.fn
+
+    def __exit__(self, *exc):
+        from lossyless_tpu_torch.nn import vit
+
+        vit.attention_plain = self.saved
+
+
+def summation_order_record(plain, x0, s_plain, flip_frac, hb, card: str):
+    """Phase 4d, a record with no bound: the symbol flips between two plain
+    attentions that differ only in summation order, on phase 4's first
+    batch and weights: the plain tower against the same tower with its
+    plain attention evaluated in float64 (a) and in fp32 with its sums
+    reversed (b), and (a) against (b); beside phase 4's kernel reading and
+    phase 4c's K5b reading."""
+    symbols = {}
+    for name, fn in (("float64", attention_float64),
+                     ("reversed", attention_reversed)):
+        with PlainAttention(fn):
+            symbols[name] = plain.codec.decode_batch(plain.compress(x0),
+                                                     plain.indexes)
+    a, b = symbols["float64"], symbols["reversed"]
+    record = dict(
+        card=card, symbols=int(s_plain.size),
+        flips_plain_vs_float64=float((a != s_plain).mean()),
+        flips_plain_vs_reversed=float((b != s_plain).mean()),
+        flips_float64_vs_reversed=float((a != b).mean()),
+        phase4_k1_vs_plain=flip_frac,
+        phase4c_k5b_vs_plain=hb["symbol_flip_fraction_vs_plain"])
+    print(json.dumps({"summation_order_record": record}), flush=True)
 
 
 def eb_params_for(C: int, filters, seed: int) -> dict:
@@ -746,8 +858,11 @@ def eb_params_for(C: int, filters, seed: int) -> dict:
             for k, v in p.items()}
 
 
-def mlp_inputs(B: int, N: int, D: int, seed: int):
-    """x (B, N, D) bf16 and the block's weights, CLIP-init scales."""
+def mlp_inputs(B: int, N: int, D: int, seed: int, offset: bool = False):
+    """x (B, N, D) bf16 and the block's weights, CLIP-init scales.
+    `offset`: x and fc_w (then bf16) are views 16 bytes into their
+    storage (aligned as TMA and the 16-byte loads need, but not to the
+    allocator's 256 bytes)."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -755,10 +870,119 @@ def mlp_inputs(B: int, N: int, D: int, seed: int):
     def rnd(*shape, std=1.0, mean=0.0):
         return torch.randn(*shape, generator=g, device="cuda") * std + mean
 
+    def shifted(t):   # the same values at a 16-byte storage offset
+        flat = torch.empty(t.numel() + 8, dtype=t.dtype, device="cuda")
+        view = flat[8:].view(t.shape)
+        view.copy_(t)
+        return view
+
     H = 4 * D
-    return (rnd(B, N, D, std=0.5).to(torch.bfloat16), rnd(D, std=0.1, mean=1),
-            rnd(D, std=0.1), rnd(D, H, std=0.02), rnd(H, std=0.02),
-            rnd(H, D, std=0.02), rnd(D, std=0.02))
+    x, lns, lnb, fc_w, fc_b, pr_w, pr_b = (
+        rnd(B, N, D, std=0.5).to(torch.bfloat16), rnd(D, std=0.1, mean=1),
+        rnd(D, std=0.1), rnd(D, H, std=0.02), rnd(H, std=0.02),
+        rnd(H, D, std=0.02), rnd(D, std=0.02))
+    if offset:
+        x, fc_w = shifted(x), shifted(fc_w.to(torch.bfloat16))
+    return x, lns, lnb, fc_w, fc_b, pr_w, pr_b
+
+
+# Phase 3b's K4 cases: (B, N, D, options), H = 4 D; option "offset": x and
+# fc_w at a 16-byte storage offset (`mlp_inputs`).
+K4_CHECKS = [
+    (TRAIN_BATCH, 50, 768, {}),              # the slice shape
+    (3, 7, 64, {}),                          # M = 21: one partial row tile
+    (1, 3, 96, {}),                          # D not x64: mma.sync design
+    (2, 9, 72, {}),
+    (129, 50, 768, {}),                      # a ragged last 128-row tile
+    (3, 50, 768, {"offset": True}),
+]
+
+
+def k4_design(D: int) -> str:
+    """The design phase 3b expects `k4_plan` to pick (H = 4 D)."""
+    return "wgmma" if D % 64 == 0 else "mma_sync"
+
+
+def k4_library_smem(lib, plan, D: int) -> list[tuple[int, int]]:
+    """(plan's, library's) shared memory bytes of each kernel the plan
+    launches with shared memory."""
+    if plan.design == "mma_sync":
+        return [(plan.smem, lib.lossyless_mlp_block_smem_bytes(D))]
+    return [(p.smem, lib.lossyless_mlp_block_tile_smem_bytes(p.n_tile,
+                                                               p.stages))
+            for p in (plan.fc, plan.proj)]
+
+
+def check_k4_quick_gelu(lib) -> int:
+    """K4's QuickGELU (the fc product's epilogue) at every one of the
+    65,536 bf16 values against the plain version's, bit for bit (NaN
+    where it is NaN): with zero fc weights the hidden is QuickGELU(fc_b),
+    and fc_b holds every bf16 bit pattern. Through the library, for its
+    scratch hidden; returns the values that differ (0, or it raises)."""
+    import torch
+
+    from lossyless_tpu_torch.nn import flash_attn as fa
+
+    M, D, H = 1, 64, 1 << 16
+    bf16, dev = torch.bfloat16, "cuda"
+    fc_b = torch.arange(H, dtype=torch.int32, device=dev).to(
+        torch.int16).view(bf16)
+    ins = [torch.randn(M, D, device=dev).to(bf16),
+           torch.ones(D, device=dev), torch.zeros(D, device=dev),
+           torch.zeros(D, H, dtype=bf16, device=dev), fc_b,
+           torch.zeros(H, D, dtype=bf16, device=dev),
+           torch.zeros(D, dtype=bf16, device=dev)]
+    y = torch.empty(M, D, dtype=bf16, device=dev)
+    hidden = torch.empty(M, H, dtype=bf16, device=dev)
+    out = torch.empty(M, D, dtype=bf16, device=dev)
+    plan = fa.k4_plan(M, D, H)
+    fa._raise_on(lib.lossyless_fused_mlp_block_tile(
+        *(t.data_ptr() for t in ins), y.data_ptr(), hidden.data_ptr(),
+        out.data_ptr(), M, D, H, 1e-5, plan.fc.args(), plan.proj.args(),
+        0, torch.cuda.current_stream().cuda_stream), "K4 QuickGELU check")
+    torch.cuda.synchronize()
+    got = hidden[0]
+    want = fa.quick_gelu_plain(torch.zeros(H, dtype=bf16, device=dev)
+                               + fc_b)
+    nan = torch.isnan(want)
+    bad = (torch.isnan(got) != nan) | (~nan & (got.view(torch.int16)
+                                               != want.view(torch.int16)))
+    n_bad = int(bad.sum())
+    print(f"check K4 QuickGELU at all {H} bf16 values: {n_bad} differ "
+          f"from the plain version {'ok' if not n_bad else 'FAIL'}",
+          flush=True)
+    if n_bad:
+        i = torch.nonzero(bad)[:8, 0]
+        raise AssertionError(f"K4's QuickGELU differs at {n_bad} bf16 "
+                             f"inputs, e.g. {fc_b[i].tolist()} -> "
+                             f"{got[i].tolist()} vs {want[i].tolist()}")
+    return n_bad
+
+
+def mma_sync_k4(lib, args):
+    """A function that runs K4's mma.sync design (the one before the wgmma
+    design, kept for the shapes the wgmma design does not take) on `args`
+    through the library itself: for timing beside the wgmma design on the
+    same inputs, outside the wrapper and its launch count."""
+    import torch
+
+    from lossyless_tpu_torch.nn import flash_attn as fa
+
+    x, lns, lnb, fcw, fcb, prw, prb = args
+    D, H = fcw.shape
+    bf16 = torch.bfloat16
+    ins = [x.reshape(-1, D).contiguous(), lns.float().contiguous(),
+           lnb.float().contiguous(), *(t.to(bf16).contiguous()
+                                       for t in (fcw, fcb, prw, prb))]
+    out = torch.empty_like(ins[0])
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+
+    def launch():
+        fa._raise_on(lib.lossyless_fused_mlp_block(
+            *(t.data_ptr() for t in ins), out.data_ptr(), ins[0].shape[0],
+            D, H, 1e-5, x.device.index, stream), "mma.sync K4")
+        return out.view(x.shape)
+    return launch
 
 
 def op_path_mlp(x, lns, lnb, fcw, fcb, prw, prb):
@@ -830,46 +1054,89 @@ def check_k3_k4() -> dict:
 
         # K4: bf16, atol 2e-2 plus one bf16 ulp of the value (two roundings
         # of sums taken in another order can each flip an ulp)
+        lib = fa._get_mlp_lib()
         errs = []
-        for i, (B, N, D) in enumerate([(TRAIN_BATCH, 50, 768), (3, 7, 64),
-                                       (1, 3, 96), (2, 9, 72)]):
-            args = mlp_inputs(B, N, D, seed=i)
+        for i, (B, N, D, opt) in enumerate(K4_CHECKS):
+            args = mlp_inputs(B, N, D, seed=i, **opt)
+            plan = fa.k4_plan(B * N, D, 4 * D)
+            if plan.design != k4_design(D):
+                raise AssertionError(f"K4 at B={B} N={N} D={D}: plan "
+                                     f"{plan.design}, expected "
+                                     f"{k4_design(D)}")
+            smem = k4_library_smem(lib, plan, D)
+            if any(ours != theirs for ours, theirs in smem):
+                raise AssertionError(f"K4 plan {plan} disagrees with the "
+                                     f"library's shared memory {smem}")
+            before = fa.LAUNCHES["fused_mlp_block"]
             got = fa.fused_mlp_block(*args)
             torch.cuda.synchronize()
+            if fa.LAUNCHES["fused_mlp_block"] != before + 1:
+                raise AssertionError("fused_mlp_block did not count its "
+                                     "launch")
             want = fa.mlp_block_plain(*args)
             diff = (got.float() - want.float()).abs()
             err = diff.max().item()
             ok = bool(torch.isfinite(got).all()) and bool(
                 (diff <= 2e-2 + 2 ** -7 * want.float().abs()).all())
-            print(f"check fused_mlp_block B={B} N={N} D={D} bf16: "
+            if plan.design == "wgmma":
+                how = ", ".join(
+                    f"{name} {p.grid[0]}x{p.grid[1]} tiles of 128x"
+                    f"{p.n_tile} on {p.blocks} blocks ({p.stages} stages, "
+                    f"{p.smem} B)"
+                    for name, p in (("fc", plan.fc), ("proj", plan.proj)))
+            else:
+                how = f"{plan.blocks} blocks, {plan.smem} B"
+            print(f"check fused_mlp_block B={B} N={N} D={D} bf16 "
+                  f"{plan.design} ({how}"
+                  f"{', 16-byte offset input' if opt else ''}): "
                   f"max_abs_err={err!r} tol=atol 2e-2 + 1 ulp "
                   f"{'ok' if ok else 'FAIL'}", flush=True)
             if not ok:
                 raise AssertionError(f"fused_mlp_block disagrees with its "
                                      f"plain version at B={B} N={N} D={D}")
             errs.append(err)
+        check_k4_quick_gelu(lib)
         B, N, D = TRAIN_BATCH, 50, 768
         args = mlp_inputs(B, N, D, seed=100)
         # the ops path holds its weights in bf16, its LayerNorm params fp32
         ops_args = [*args[:3], *(a.to(torch.bfloat16) for a in args[3:])]
         M, H = B * N, 4 * D
+        plan = fa.k4_plan(M, D, H)
         nbytes = 2 * M * D * 2 + 2 * D * H * 2 + (H + D) * 2 + 2 * D * 4
         flops = 4 * M * D * H
-        ms = median_ms(lambda: fa.fused_mlp_block(*args))
-        dev_ms = device_ms(lambda: fa.fused_mlp_block(*args),
-                           ("mlp_block_kernel",))
+        kernel = lambda: fa.fused_mlp_block(*args)  # noqa: E731
+        ms = median_ms(kernel)
+        by_kernel = device_ms_by_kernel(kernel, ("mlp_block_kernel",))
+        dev_ms = sum(by_kernel.values()) or None
+        # the mma.sync design on the same inputs, in the same run
+        mma_sync = mma_sync_k4(lib, args)
+        want = fa.mlp_block_plain(*args).float()
+        if not bool(((mma_sync().float() - want).abs()
+                     <= 2e-2 + 2 ** -7 * want.abs()).all()):
+            raise AssertionError("the mma.sync K4 disagrees with its plain "
+                                 "version at the slice shape")
+        mma_sync_ms = device_ms(mma_sync, ("mlp_block_kernel",))
         plain_ms = median_ms(lambda: fa.mlp_block_plain(*args))
         op_ms = median_ms(lambda: op_path_mlp(*ops_args))
+        op_dev_ms = device_ms(lambda: op_path_mlp(*ops_args))
         bound_ms, bound_by = bound(nbytes, flops, "bfloat16")
+        share = bound_share(bound_ms, dev_ms or ms)
         results["fused_mlp_block"] = dict(
-            max_abs_err=errs[0], ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by,
-            bound_share=bound_share(bound_ms, dev_ms or ms), library_ms=None,
-            op_path_ms=op_ms)
-        print(f"time fused_mlp_block B={B} N={N} D={D} bf16: kernel {ms!r} "
-              f"ms (device {dev_ms!r} ms), plain {plain_ms!r} ms, op path "
-              f"{op_ms!r} ms, bound {bound_ms!r} ms ({bound_by}: {nbytes} "
-              f"bytes, {flops} flop)", flush=True)
+            max_abs_err=errs[0], design=plan.design,
+            n_tiles=dict(fc=plan.fc.n_tile, proj=plan.proj.n_tile),
+            stages=dict(fc=plan.fc.stages, proj=plan.proj.stages),
+            blocks=dict(fc=plan.fc.blocks, proj=plan.proj.blocks),
+            ms=ms, device_ms=dev_ms, device_ms_by_kernel=by_kernel,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            bound_share=share, library_ms=None,
+            mma_sync_design_device_ms=mma_sync_ms, op_path_ms=op_ms,
+            op_path_device_ms=op_dev_ms)
+        print(f"time fused_mlp_block B={B} N={N} D={D} bf16 {plan.design}: "
+              f"kernel {ms!r} ms (device {dev_ms!r} ms: {by_kernel}), "
+              f"mma.sync design (device) {mma_sync_ms!r} ms, plain "
+              f"{plain_ms!r} ms, op path {op_ms!r} ms (device {op_dev_ms!r} "
+              f"ms), bound {bound_ms!r} ms ({bound_by}: {nbytes} bytes, "
+              f"{flops} flop), share of bound {share!r}", flush=True)
     return results
 
 
@@ -1465,6 +1732,8 @@ def main() -> int:
         elif name in NO_K5:
             row["ptxas"] = {fn: info for fn, info in ptxas["attention"].items()
                             if k5_kernel(fn, name)}
+        elif name == "fused_mlp_block":   # both designs' kernels
+            row["ptxas"] = ptxas["mlp_block"]
         kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

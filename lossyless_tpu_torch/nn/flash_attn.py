@@ -20,9 +20,12 @@ Counterpart of the Pallas kernels in `lossyless_tpu/nn/flash_attn.py`:
   head) items, K5a's masked blocks skipped; longer sequences take the
   first, two-pass tile and fp32 the CUDA-core row code.
 * K4 `fused_mlp_block(x, ln_scale, ln_bias, fc_w, fc_b, pr_w, pr_b)` —
-  the MLP half-block `x + proj(QuickGELU(fc(LN(x))))` in one kernel, bf16.
-  Replaces `fused_mlp_block` / `_mlp_kernel`. Runs the MLP of ViT blocks
-  0..L-2 with `mlp_impl="kernel"`.
+  the MLP half-block `x + proj(QuickGELU(fc(LN(x))))`, bf16, with the TPU
+  kernel's rounding points. Replaces `fused_mlp_block` / `_mlp_kernel`.
+  Runs the MLP of ViT blocks 0..L-2 with `mlp_impl="kernel"`. Widths that
+  are multiples of 64 take the wgmma design (a LayerNorm pass and two
+  persistent wgmma products fed by TMA, the bf16 hidden through device
+  memory); others the one-kernel mma.sync design.
 
 K1, K2, K5a and K5b are CUDA C++ in `csrc/attention.cu`, K4 in
 `csrc/mlp_block.cu` (design and bounds noted there), built with nvcc at
@@ -31,9 +34,9 @@ stream. Each wrapper checks device, dtype, shape and contiguity,
 allocates the output, launches, raises if the launch returned a CUDA
 error, and adds one to its entry of `LAUNCHES`. K2's launch geometry
 (blocks, warps a block, shared memory, and the 16-byte or element load
-path) is chosen here, by the pure function `k2_plan`, and K5a's and K5b's
-design and geometry by `k5_plan`; the CPU tests check both at every shape
-the card's checks run.
+path) is chosen here, by the pure function `k2_plan`, K5a's and K5b's
+design and geometry by `k5_plan`, and K4's by `k4_plan`; the CPU tests
+check each at every shape the card's checks run.
 
 A CPU tensor goes to the plain version (`attention_plain`,
 `attention_packed_plain`, `attention_headbatched_plain`,
@@ -648,11 +651,15 @@ def _get_mlp_lib():
                 i, f, p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
                 lib.lossyless_mlp_block_smem_bytes.restype = ctypes.c_size_t
                 lib.lossyless_mlp_block_smem_bytes.argtypes = [i]
-                lib.lossyless_mlp_block_max_d.restype = i
-                lib.lossyless_mlp_block_chunk.restype = i
                 lib.lossyless_fused_mlp_block.restype = i
                 lib.lossyless_fused_mlp_block.argtypes = [
                     p, p, p, p, p, p, p, p, i, i, i, f, i, p]
+                lib.lossyless_mlp_block_tile_smem_bytes.restype = \
+                    ctypes.c_size_t
+                lib.lossyless_mlp_block_tile_smem_bytes.argtypes = [i, i]
+                lib.lossyless_fused_mlp_block_tile.restype = i
+                lib.lossyless_fused_mlp_block_tile.argtypes = [
+                    p, p, p, p, p, p, p, p, p, p, i, i, i, f, p, p, i, p]
                 _mlp_lib = lib
     return _mlp_lib
 
@@ -670,11 +677,128 @@ def mlp_block_plain(x, ln_scale, ln_bias, fc_w, fc_b, pr_w, pr_b,
     y = (xf - mean) * torch.rsqrt(var + eps)
     y = (y * ln_scale.float() + ln_bias.float()).to(dt)
     h = torch.matmul(y.float(), fc_w.to(dt).float()).to(dt) + fc_b.to(dt)
-    one = torch.ones((), dtype=dt, device=x.device)
-    k = torch.full((), -1.702, dtype=dt, device=x.device)
-    h = h * (one / (one + torch.exp(k * h)))
+    h = quick_gelu_plain(h)
     o = torch.matmul(h.float(), pr_w.to(dt).float()).to(dt) + pr_b.to(dt)
     return x + o
+
+
+def quick_gelu_plain(h: torch.Tensor) -> torch.Tensor:
+    """`h * (1 / (1 + exp(-1.702 h)))` in h's dtype, every operation (and
+    the constant) rounded to it, as `_mlp_kernel` computes it."""
+    one = torch.ones((), dtype=h.dtype, device=h.device)
+    k = torch.full((), -1.702, dtype=h.dtype, device=h.device)
+    return h * (one / (one + torch.exp(k * h)))
+
+
+# K4's plan. The mma.sync design's limits mirror mlp_block.cu's kMaxD and
+# kChunk; the wgmma design's constants its kTileM, kTileK and tile_smem_bytes.
+K4_MMA_MAX_D = 768         # mma.sync design: D <= this (its accumulator)
+K4_MMA_CHUNK = 32          # mma.sync design: H a multiple of this
+K4_MMA_ROWS = 32           # mma.sync design: token rows a block
+K4_TILE_M = 128            # wgmma design: output rows a block
+K4_TILE_K = 64             # wgmma design: a k-step (one 128-byte row)
+K4_MAX_STAGES = 8          # wgmma design: ring stages at most
+
+
+@dataclass(frozen=True)
+class K4Product:
+    """One wgmma product of K4, (M, K) . (K, N): 128 x `n_tile` output
+    tiles, `grid` = (column tiles, row tiles), taken by `blocks`
+    persistent blocks (one an SM) in turn; a ring of `stages` k-steps of
+    64 and `smem` bytes of shared memory a block."""
+
+    n_tile: int
+    grid: tuple[int, int]
+    blocks: int
+    stages: int
+    smem: int
+
+    def args(self):
+        """The four ints the library takes for a product."""
+        return (ctypes.c_int * 4)(self.n_tile, self.stages, self.blocks,
+                                  self.smem)
+
+
+@dataclass(frozen=True)
+class K4Plan:
+    """The design and geometry of one K4 call at (M, D, H).
+
+    design "wgmma": three kernels, the LayerNorm pass, the fc product
+    `fc` (N = H, K = D) and the proj product `proj` (N = D, K = H);
+    `smem` is the larger product's.
+    design "mma_sync": the one-kernel design, `blocks` blocks of
+    `K4_MMA_ROWS` rows with `smem` bytes each."""
+
+    design: str
+    smem: int
+    blocks: int = 0
+    fc: K4Product | None = None
+    proj: K4Product | None = None
+
+
+def _k4_tile_smem(n_tile: int, stages: int) -> int:
+    """mlp_block.cu `tile_smem_bytes`: the swizzle-alignment slack, the
+    ring (an A tile of 128 x 64 and n_tile / 64 B boxes of 64 x 64, bf16),
+    the two consumers' epilogue tiles (128 rows of n_tile + 8 bf16) and
+    the ring's and the consumers' mbarriers."""
+    return 1024 + stages * (2 * K4_TILE_M * K4_TILE_K
+                            + 2 * n_tile * K4_TILE_K) \
+        + 2 * K4_TILE_M * (n_tile + 8) * 2 + (stages + 1) * 16
+
+
+def _k4_mma_smem(D: int) -> int:
+    """mlp_block.cu `layout(D).total` in bytes."""
+    d16 = _round_up(D, 16)
+    pitch = K4_MMA_CHUNK + 8
+    return 2 * (K4_MMA_ROWS * (d16 + 8) + d16 * pitch
+                + K4_MMA_CHUNK * (D + 8) + K4_MMA_ROWS * pitch)
+
+
+def _k4_product(M: int, N: int) -> K4Product:
+    """The product's tiles: 128 columns where they divide N, else 64 (a
+    narrower tile reads its A operand from shared memory for too few
+    columns to keep the tensor cores fed; a wider one's accumulator, both
+    64-row halves of a tile in one consumer, would not fit the registers).
+    One persistent block an SM (`K5_SMS`) while there are as many tiles;
+    the ring takes as many stages as fit beside the epilogue tiles."""
+    n_tile = 128 if N % 128 == 0 else 64
+    grid = (N // n_tile, -(-M // K4_TILE_M))
+    stages = 2
+    while stages < K4_MAX_STAGES \
+            and _k4_tile_smem(n_tile, stages + 1) <= MAX_SMEM:
+        stages += 1
+    return K4Product(n_tile, grid, min(K5_SMS, grid[0] * grid[1]), stages,
+                     _k4_tile_smem(n_tile, stages))
+
+
+@functools.lru_cache(maxsize=256)
+def k4_plan(M: int, D: int, H: int) -> K4Plan:
+    """K4's design at M token rows of width D with hidden width H.
+
+    "wgmma" where D and H are multiples of 64 (whole 64-wide k-steps and
+    output tiles; TMA pads a ragged M with zeros), else "mma_sync" where
+    D <= K4_MMA_MAX_D and H is a multiple of K4_MMA_CHUNK; any other shape
+    raises, naming both rules. D and H must be multiples of 8 either way
+    (16-byte rows: TMA's stride rule and the 16-byte loads)."""
+    if M < 1:
+        raise ValueError(f"empty input (M={M})")
+    if D % 8 or H % 8 or D < 8 or H < 8:
+        raise ValueError(f"D={D} and H={H} must be multiples of 8 "
+                         f"(16-byte rows)")
+    if D % K4_TILE_K == 0 and H % K4_TILE_K == 0:
+        fc, proj = _k4_product(M, H), _k4_product(M, D)
+        plan = K4Plan("wgmma", smem=max(fc.smem, proj.smem), fc=fc,
+                      proj=proj)
+    elif D <= K4_MMA_MAX_D and H % K4_MMA_CHUNK == 0:
+        plan = K4Plan("mma_sync", smem=_k4_mma_smem(D),
+                      blocks=-(-M // K4_MMA_ROWS))
+    else:
+        raise ValueError(
+            f"no K4 design takes D={D}, H={H}: the wgmma design needs D and "
+            f"H multiples of {K4_TILE_K}, the mma.sync design D <= "
+            f"{K4_MMA_MAX_D} and H a multiple of {K4_MMA_CHUNK}")
+    _check_smem(plan.smem, f"K4 at M={M}, D={D}, H={H} ({plan.design})")
+    return plan
 
 
 def _launch_mlp_block(x, ln_scale, ln_bias, fc_w, fc_b, pr_w, pr_b,
@@ -689,21 +813,14 @@ def _launch_mlp_block(x, ln_scale, ln_bias, fc_w, fc_b, pr_w, pr_b,
     if fc_w.dim() != 2 or fc_w.shape[0] != D:
         raise ValueError(f"fc_w must be (D={D}, H), got {tuple(fc_w.shape)}")
     H = fc_w.shape[1]
-    if D % 8 or H % 8:
-        raise ValueError(f"D={D} and H={H} must be multiples of 8")
-    lib = _get_mlp_lib()
-    if D > lib.lossyless_mlp_block_max_d() \
-            or H % lib.lossyless_mlp_block_chunk():
-        raise ValueError(
-            f"D={D}, H={H}: the kernel takes D <= "
-            f"{lib.lossyless_mlp_block_max_d()} and H a multiple of "
-            f"{lib.lossyless_mlp_block_chunk()}")
+    M = x.numel() // D
+    plan = k4_plan(M, D, H)
     bf16 = torch.bfloat16
-    x2 = x.reshape(-1, D).contiguous()
+    x2 = x.reshape(M, D).contiguous()
     args = [x2, ln_scale.float().contiguous(), ln_bias.float().contiguous(),
             fc_w.to(bf16).contiguous(), fc_b.to(bf16).contiguous(),
             pr_w.to(bf16).contiguous(), pr_b.to(bf16).contiguous()]
-    shapes = [(x2.shape[0], D), (D,), (D,), (D, H), (H,), (H, D), (D,)]
+    shapes = [(M, D), (D,), (D,), (D, H), (H,), (H, D), (D,)]
     names = ["x", "ln_scale", "ln_bias", "fc_w", "fc_b", "pr_w", "pr_b"]
     for name, t, shape in zip(names, args, shapes):
         if t.device != x.device:
@@ -714,10 +831,18 @@ def _launch_mlp_block(x, ln_scale, ln_bias, fc_w, fc_b, pr_w, pr_b,
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     out = torch.empty_like(x2)
+    lib = _get_mlp_lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.lossyless_fused_mlp_block(
-        *(t.data_ptr() for t in args), out.data_ptr(), x2.shape[0], D, H,
-        eps, x.device.index, stream)
+    ptrs = [t.data_ptr() for t in args]
+    if plan.design == "wgmma":
+        y = torch.empty((M, D), dtype=bf16, device=x.device)
+        hidden = torch.empty((M, H), dtype=bf16, device=x.device)
+        rc = lib.lossyless_fused_mlp_block_tile(
+            *ptrs, y.data_ptr(), hidden.data_ptr(), out.data_ptr(), M, D, H,
+            eps, plan.fc.args(), plan.proj.args(), x.device.index, stream)
+    else:
+        rc = lib.lossyless_fused_mlp_block(
+            *ptrs, out.data_ptr(), M, D, H, eps, x.device.index, stream)
     _raise_on(rc, "fused_mlp_block")
     LAUNCHES["fused_mlp_block"] += 1
     return out.reshape(x.shape)
