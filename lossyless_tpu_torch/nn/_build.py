@@ -2,7 +2,8 @@
 
 Shared libraries with plain C interfaces, loaded with ctypes:
 
-* ``attention`` — ``nn/csrc/attention.cu``, the attention kernels K1, K2;
+* ``attention`` — ``nn/csrc/attention.cu``, the attention kernels K1, K2,
+  K5a and K5b;
 * ``mlp_block`` — ``nn/csrc/mlp_block.cu``, the fused MLP half-block K4;
 * ``eb_likelihood`` — ``coding/csrc/eb_likelihood.cu``, the
   entropy-bottleneck likelihood K3;
@@ -10,12 +11,14 @@ Shared libraries with plain C interfaces, loaded with ctypes:
 
 A ``.cu`` source is compiled with nvcc for ``sm_90a``, a ``.cpp`` one with
 g++ for the build host's ISA. All go into ``lossyless_tpu_torch/_build/``
-at first use, under a file name keyed on a hash of the sources and the
-compile command (plus the host's ISA for the ``-march=native`` codec), so
-an edited source or another CPU never picks up a stale library. Each build writes a per-pid temp file and
-``os.replace``s it into place: processes racing the first build never
-interleave writes into one library. A failed build raises; nothing falls
-back to another path.
+at first use, under a file name keyed on a hash of the sources, the
+headers they include (``HEADERS``: ``nn/csrc/hopper.cuh``, the Hopper
+helpers both ``.cu`` sources of ``nn/`` share) and the compile command
+(plus the host's ISA for the ``-march=native`` codec), so an edited source
+or header, or another CPU, never picks up a stale library. Each build
+writes a per-pid temp file and ``os.replace``s it into place: processes
+racing the first build never interleave writes into one library. A failed
+build raises; nothing falls back to another path.
 """
 
 from __future__ import annotations
@@ -39,6 +42,10 @@ SOURCES = {
     "eb_likelihood": (_PKG / "coding" / "csrc" / "eb_likelihood.cu",),
     "rans": (_PKG / "coding" / "csrc" / "rans.cpp",),
 }
+# headers a source includes: not compiled on their own, but an edit to one
+# must rebuild every library that includes it
+_HOPPER = _PKG / "nn" / "csrc" / "hopper.cuh"
+HEADERS = {"attention": (_HOPPER,), "mlp_block": (_HOPPER,)}
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -90,7 +97,7 @@ def _command(name: str, out: Path) -> list[str]:
 def library_path(name: str) -> Path:
     """Where the library built from the current sources lives."""
     h = hashlib.sha256()
-    for src in SOURCES[name]:
+    for src in (*SOURCES[name], *HEADERS.get(name, ())):
         h.update(src.read_bytes())
     # the command minus its tool path and output name: a flag change rebuilds
     h.update(" ".join(_command(name, Path("out"))[1:]).encode())

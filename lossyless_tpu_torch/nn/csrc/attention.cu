@@ -1,21 +1,22 @@
 // Multi-head attention for short token sequences, hand-written for Hopper.
 //
-// K1  lossyless_fused_attention      replaces the Pallas kernel
-//     lossyless_tpu/nn/flash_attn.py::fused_attention (:211, _attn_kernel
-//     :50-70): MHSA straight off the fused qkv projection,
+// K1  lossyless_fused_attention_tile (and _k5_onepass, and
+//     lossyless_fused_attention for fp32 and N > 64) replaces the Pallas
+//     kernel lossyless_tpu/nn/flash_attn.py::fused_attention (:211,
+//     _attn_kernel :50-70): MHSA straight off the fused qkv projection,
 //     (B, N, 3D) -> (B, N, D). Runs in CLIP ViT blocks 0..L-2.
 // K2  lossyless_fused_attention_cls  replaces
 //     lossyless_tpu/nn/flash_attn.py::fused_attention_cls (:349,
 //     _attn_cls_kernel :327-345): the same attention for the class-token
 //     query only, q0 (B, 1, D) and kv (B, N, 2D) -> (B, 1, D). Runs in the
 //     last ViT block and the RN50 attention pool (fp32, h=32, d=64).
-// K5a lossyless_fused_attention_packed (and _k5_onepass)  replaces
-//     fused_attention with IMAGE_PACK > 1 (_attn_kernel_packed): K1's
-//     function, which the TPU kernel computes with P consecutive images'
-//     tokens stacked into one (M = P*N)-token operand per head, the full
-//     M x M logits with an additive block-diagonal mask (0 within an image,
-//     -1e9 across).
-// K5b lossyless_fused_attention_headbatched (and _k5_onepass)  replaces
+// K5a lossyless_fused_attention_packed (and K1's tile and one-pass tile)
+//     replaces fused_attention with IMAGE_PACK > 1 (_attn_kernel_packed):
+//     K1's function, which the TPU kernel computes with P consecutive
+//     images' tokens stacked into one (M = P*N)-token operand per head, the
+//     full M x M logits with an additive block-diagonal mask (0 within an
+//     image, -1e9 across).
+// K5b lossyless_fused_attention_headbatched (and K1's tiles) replaces
 //     fused_attention with HEAD_BATCH (_attn_kernel_headbatched): K1's
 //     function with the head a batch index inside the block (a block
 //     covers all heads of the images it takes).
@@ -37,9 +38,48 @@
 //      = 0.08 GFLOP. A GEMV: bytes bound it.
 //   K5a and K5b move K1's bytes and do K1's operations: 47 us from
 //      memory at every pack (K5a's masked cross-image blocks add nothing to
-//      the output, and the one-pass design skips them).
+//      the output, and the tile designs skip them).
 //
-// K1 design (attention_kernel<T>, both dtypes; the first design, kept). One
+// K1, K5a and K5b design, bf16 at N <= 64 with d a multiple of 16 up to 128
+// and 16-byte-aligned pointers (attention_tile_kernel; the host's plans,
+// flash_attn.py::k1_plan and k5_plan, pick it). About the bound: the bytes
+// (47 us at the slice shape) must stream at the card's rate, so the design
+// keeps several items' loads in flight with no thread spending registers or
+// issue slots on them, and computes at the tensor cores' rate. Persistent:
+// one block of three warpgroups on each SM walks (image, head) items in
+// image-major order (item i = b * heads + h; block x takes x, x + grid,
+// ...). Warpgroup 0's first thread is the producer: it issues each item's
+// Q, K and V as TMA boxes of N rows x 64 columns (one 2D tensor map over
+// qkv as (B*N, 3D), 128-byte swizzle; two boxes an operand where d > 64)
+// into a ring of kTileStages stages (full mbarriers with the item's byte
+// count, empty mbarriers a consumer's four warps arrive on). A box of N
+// rows reads no byte of the next image; the pad rows N..63 of every stage
+// are zeroed once and never written by TMA. The other two warpgroups are
+// consumers that take alternate items (ping-pong), so one's softmax and
+// stores overlap the other's products; setmaxnreg moves registers from the
+// producer to them. A consumer, per item: S = Q.K^T with wgmma m64n64k16
+// straight from the swizzled stage (Q as A and K as B, both K-major, d / 16
+// k-steps); the scale after the dot, keys >= N set to -inf, the exact row
+// max over the whole <= 64-key row (one pass, no rescaling), exp and sum in
+// fp32, p = e / s (the one-pass tile's reciprocal and FMA correction)
+// rounded to bf16 straight from the accumulator layout into wgmma's
+// register-A layout; O = P.V with wgmma m64nXk16 (X = 64 or 128), V as an
+// MN-major B operand, fp32 sums; the stage released; O rounded to bf16
+// through the consumer's own swizzled output tile and stored in 16-byte
+// pieces, rows < N. What it does about the one-pass tile's three limits:
+// no block barrier per item (the ring's mbarriers pace the producer and
+// each consumer alone, and the copies cost the consumers nothing), one
+// wgmma per 64 x 64 x 16 step in place of eight mma.sync and their
+// ldmatrix loads, and the padding of 50 tokens to 64 costs tensor-core
+// time only, which is not what bounds it. Tile counts (head-dim k-steps)
+// are compile-time.
+//
+// K1 design, bf16 at N <= 64 outside the tile's scope (d = 20, 33, 40, an
+// input at an odd storage offset): the K5a/K5b one-pass tile below
+// (k5_onepass_kernel), with the same items.
+//
+// K1 design, fp32 and bf16 at N > 64 (attention_kernel<T>; the first
+// design, kept there: a bf16 product would not hold fp32's 1e-5). One
 // block of 8 warps per (image, head). The block zero-fills its buffers and
 // stages that head's Q, K and V slices as fp32 (exact for bf16 inputs),
 // zero-padding rows and columns to a multiple of 4 (the pads add zeros;
@@ -52,21 +92,17 @@
 //   softmax  warp shuffles give each row's max and sum.
 //   P.V   lane owns column pairs (2*lane, +1) and (+64); float2 of V against
 //         float4 broadcasts of 4 probabilities per row.
-// The sums over the head dim and over the keys run in index order, the
-// plain path's order on the card, so K1's outputs are bit for bit the
-// plain attention's. Its staging path: 16-byte loads where d is a whole
-// number of 16-byte chunks and q, k and v are 16-byte aligned (every row
-// start is then aligned too: the condition a TMA descriptor would need);
-// element loads otherwise (d = 20, 33, a view at an odd storage offset).
-// A tensor-core K1 (mma.sync m16n8k16, one register pass at N <= 64, a
-// cp.async ring over runs of items) ran in 0.072 ms at B=512 against this
-// design's 0.34, but sums in the tensor core's order: 1.9e-4 of its
-// outputs differ from the plain path's by a bf16 ulp, and through 11
-// layers of the random-weight tower that flips 1.8% of the encode path's
-// symbols, past the 1% bound chip_smoke.py holds K1 to against the plain
-// attention. That bound depends on the summation order of the plain path's
-// library, not only on its rounding points; until it is repaired the
-// redesign waits (ROADMAP.md, queue 3).
+// The sums over the head dim and over the keys run in index order. Its
+// staging path: 16-byte loads where d is a whole number of 16-byte chunks
+// and q, k and v are 16-byte aligned; element loads otherwise.
+//
+// The tensor-core designs sum in the tensor cores' order, not the plain
+// path's: about 1e-4 of their bf16 outputs differ from the plain
+// attention's by an ulp. chip_smoke.py holds every design to the plain
+// version (atol 2e-2 in bf16) and, at the slice shape, to the attention
+// evaluated in float64: the share of outputs that differ from it at most
+// 1.5 times the plain path's, and no output farther from it than the plain
+// path's farthest plus one ulp.
 //
 // K2 design, both dtypes (k2_attention_kernel). One warp per (image, head)
 // item, 8 warps a block, every warp computing (the first design ran one
@@ -90,16 +126,19 @@
 // 16-byte aligned (the host's plan, flash_attn.py::k2_plan), else element
 // loads.
 //
-// K5a/K5b design, bf16 at N <= 64 (k5_onepass_kernel; the host's plan,
-// flash_attn.py::k5_plan, picks it): one kernel for both, which differ only
-// in how a work item maps to (image, head) (k5_item). K5a skips the masked
-// cross-image blocks and computes each image's N x N diagonal block alone:
-// a masked logit adds exp(-1e9 - max) == 0 exactly to its row's fp32 sum
-// and 0 * v == 0 to P.V, so this is the TPU kernel's function (as the
-// note at lossyless_tpu/nn/flash_attn.py:86 says). Work items
-// are (image, head) pairs; block x takes a run of per_block items (runs
-// sized so 4 blocks an SM fill 132 SMs; the last run may be short, masked
-// in the kernel). About the bound: every input byte crosses once through a
+// K5a/K5b: at bf16 N <= 64 both run K1's kernels above (the tile where it
+// takes the shape, else the one-pass tile), with K1's items. K5a skips the
+// masked cross-image blocks and computes each image's N x N diagonal block
+// alone: a masked logit adds exp(-1e9 - max) == 0 exactly to its row's fp32
+// sum and 0 * v == 0 to P.V, so this is the TPU kernel's function (as the
+// note at lossyless_tpu/nn/flash_attn.py:86 says).
+//
+// The one-pass tile (k5_onepass_kernel; bf16, N <= 64, any d <= 128, any
+// alignment; the design before the TMA/wgmma tile, 0.066 against its 0.057
+// ms at the slice shape on an H100 SXM): work items are (image, head) pairs in
+// image-major order; block x takes a run of per_block items (runs sized
+// so 4 blocks an SM fill 132 SMs; the last run may be short, masked in the
+// kernel). About the bound: every input byte crosses once through a
 // cp.async ring of two stages (16-byte copies, each stage one item's Q, K
 // and V at a pitch padded by 16 bytes, so ldmatrix is conflict-free; the
 // next item's copies are in flight while the warps compute the current
@@ -141,10 +180,9 @@
 // stream, does not synchronise and returns cudaGetLastError() (or
 // cudaErrorInvalidValue for arguments it does not take, before launching).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"  // mbarriers, TMA, wgmma, the tensor-map encoder
 
 namespace {
 
@@ -446,10 +484,6 @@ __global__ void headbatched_attention_fma_kernel(const T* __restrict__ qkv,
 // ---------------------------------------------------------------------------
 // Tensor-core path (bf16): mma.sync m16n8k16, bf16 in, fp32 accumulate.
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // B fragment (k 16 x n 8) from a [n][k] row-major tile at p (K rows).
 __device__ __forceinline__ void load_b_nk(uint32_t b[2], const bf16* p,
@@ -787,23 +821,6 @@ __host__ __device__ __forceinline__ int onepass_d16(int d) {
   return d <= 32 ? 2 : d <= 64 ? 4 : 8;
 }
 
-// Work item i -> (image b, head h). K5b (pack 1): image-major, all heads
-// of an image in a run. K5a: group g of `pack` images, then head, then the
-// image in the group, so a run covers a group's images for one head.
-__device__ __forceinline__ void k5_item(int i, int heads, int pack, int& b,
-                                        int& h) {
-  if (pack > 1) {
-    const int per_group = heads * pack;
-    const int g = i / per_group;
-    const int r = i - g * per_group;
-    h = r / pack;
-    b = g * pack + (r - h * pack);
-  } else {
-    b = i / heads;
-    h = i - b * heads;
-  }
-}
-
 // Stage item (b, h)'s Q, K and V (N x d each) into one ring stage: three
 // tiles of `tile` elements at pitch ld. `vec`: cp.async 16-byte copies
 // (d % 8 == 0, qkv 16-byte aligned), the thread's chunks stepped without
@@ -987,15 +1004,16 @@ __device__ __forceinline__ void onepass_tile(bf16* qs, const bf16* ks,
   }
 }
 
-// K5a and K5b, one-pass (bf16, N <= 64): block x takes the run of work
-// items [x * per_block, ...) (k5_item maps an item to (image, head); the
-// last run may be short). kKC warps, one a 16-row tile of the item. A ring
-// of kStages stages, each Q, K and V of one item: the copies of the next
-// kStages - 1 items are in flight while the warps compute the current one.
+// The one-pass tile (bf16, N <= 64; K1, K5a and K5b): block x takes the
+// run of work items [x * per_block, ...) (item i is image i / heads, head
+// i % heads; the last run may be short). kKC warps, one a 16-row tile of
+// the item. A ring of kStages stages, each Q, K and V of one item: the
+// copies of the next kStages - 1 items are in flight while the warps
+// compute the current one.
 template <int kKC, int kD16>
 __global__ void __launch_bounds__(kKC* kWarp, kD16 <= 4 ? 4 : 2)
     k5_onepass_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
-                      int B, int N, int heads, int d, int pack, float scale,
+                      int B, int N, int heads, int d, float scale,
                       int per_block, bool vec) {
   extern __shared__ __align__(16) bf16 smem_bf16[];
   constexpr int kLd = kD16 * 16 + kPad16;
@@ -1027,7 +1045,8 @@ __global__ void __launch_bounds__(kKC* kWarp, kD16 <= 4 ? 4 : 2)
   int b, h;
   for (int i = 0; i < kStages - 1; ++i) {
     if (i < count) {
-      k5_item(first + i, heads, pack, b, h);
+      b = (first + i) / heads;
+      h = first + i - b * heads;
       onepass_stage(smem_bf16 + i * 3 * kTile, kLd, kTile, qkv, D, N, d, b,
                     h, vec, r0, c0, dr, dc);
     }
@@ -1036,7 +1055,8 @@ __global__ void __launch_bounds__(kKC* kWarp, kD16 <= 4 ? 4 : 2)
   for (int i = 0; i < count; ++i) {
     const int next = i + kStages - 1;
     if (next < count) {
-      k5_item(first + next, heads, pack, b, h);
+      b = (first + next) / heads;
+      h = first + next - b * heads;
       onepass_stage(smem_bf16 + (next % kStages) * 3 * kTile, kLd, kTile, qkv,
                     D, N, d, b, h, vec, r0, c0, dr, dc);
     }
@@ -1044,13 +1064,241 @@ __global__ void __launch_bounds__(kKC* kWarp, kD16 <= 4 ? 4 : 2)
     cp_async_wait<kStages - 1>();  // item i's group has landed
     __syncthreads();
     bf16* st = smem_bf16 + (i % kStages) * 3 * kTile;
-    k5_item(first + i, heads, pack, b, h);
+    b = (first + i) / heads;
+    h = first + i - b * heads;
     onepass_tile<kKC, kD16>(st + warp * 16 * kLd, st + kTile, st + 2 * kTile,
                             N, d, scale, warp * 16,
                             out + static_cast<int64_t>(b) * N * D +
                                 static_cast<int64_t>(h) * d,
                             D, vec);
     __syncthreads();  // the stage is free for item i + kStages
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K1, K5a, K5b tile (bf16, N <= 64, d % 16 == 0, d <= 128): TMA and wgmma;
+// see the note at the top
+// ---------------------------------------------------------------------------
+
+constexpr int kTileThreads = 384;  // a producer and two consumer warpgroups
+constexpr int kBox = 64 * 128;     // a TMA box's region: 64 rows of 128 bytes
+constexpr int kTileMaxN = 64;      // keys and query rows: one m64 tile
+// ring stages: the fastest of depths 3 to 8 at the slice shape on an H100
+// (deeper rings were slower); 4 also fit beside the output tiles at d = 128
+constexpr int kTileStages = 4;
+
+// bytes of a ring stage: Q, K and V of one item, each d64 boxes of 64
+// head-dim columns
+__host__ __device__ constexpr int tile_stage_bytes(int d64) {
+  return 3 * d64 * kBox;
+}
+
+// dynamic shared memory of a tile block: the slack that aligns the ring to
+// the swizzle period, the ring, the two consumers' output tiles and the
+// ring's full and empty and the consumers' two turn mbarriers
+__host__ __device__ inline size_t tile_smem_bytes(int d) {
+  const int d64 = (d + 63) / 64;
+  return kSwizzleAlign +
+         static_cast<size_t>(kTileStages) * tile_stage_bytes(d64) +
+         2 * static_cast<size_t>(d64) * kBox +
+         static_cast<size_t>(2 * kTileStages + 2) * sizeof(uint64_t);
+}
+
+// kDK = d / 16: the k-steps of S = Q.K^T. Block x takes items x, x + grid,
+// ...; the producer streams them through the ring in that order and the
+// consumers take alternate ones (consumer c the block's items c, c + 2,
+// ...). A consumer waits for an item's stage only after the other has
+// seen the previous item's stage land (turn mbarriers), so every wait by
+// parity on the ring is within one phase of the barrier.
+template <int kDK>
+__global__ void __launch_bounds__(kTileThreads, 1)
+    attention_tile_kernel(const __grid_constant__ CUtensorMap qkv_map,
+                          bf16* __restrict__ out, int items, int N,
+                          int heads, float scale) {
+  constexpr int kD64 = (kDK + 3) / 4;  // 64-column boxes of an operand
+  constexpr int kDN = 64 * kD64;       // P.V's n: the boxes' columns
+  constexpr int kStage = tile_stage_bytes(kD64);
+  constexpr int kChunks = 2 * kDK;     // 16-byte pieces of an output row
+  constexpr int d = 16 * kDK;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t ring = (raw + kSwizzleAlign - 1) & ~(kSwizzleAlign - 1);
+  uint8_t* ring_ptr = smem_raw + (ring - raw);
+  const uint32_t outs = ring + kTileStages * kStage;  // consumers' tiles
+  const uint32_t full = outs + 2 * kD64 * kBox;
+  const uint32_t empty = full + 8 * kTileStages;  // full[s], then empty[s]
+  const uint32_t turn = empty + 8 * kTileStages;  // turn[consumer]
+  const int64_t D = static_cast<int64_t>(heads) * d;
+  const int wg = threadIdx.x >> 7;
+
+  // zero the pad rows N..63 of every box of every stage, once: the boxes
+  // are N rows, so TMA never writes there, and a pad key's V row is then
+  // 0 (its probability is 0, and 0 * 0 adds nothing)
+  for (int z = 0; z < kTileStages * 3 * kD64; ++z) {
+    uint4* pad = reinterpret_cast<uint4*>(ring_ptr + z * kBox + N * 128);
+    for (int i = threadIdx.x; i < (kTileMaxN - N) * 8; i += blockDim.x)
+      pad[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  fence_proxy_async();  // the zeros are visible to wgmma's operand reads
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kTileStages; ++s) {
+      mbar_init(full + 8 * s, 1);   // the producer's expect_tx
+      mbar_init(empty + 8 * s, 4);  // each warp of the consuming warpgroup
+    }
+    mbar_init(turn, 1);      // consumer 1 has seen its item's stage land
+    mbar_init(turn + 8, 1);  // consumer 0 has
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      const uint32_t bytes = 3 * kD64 * N * 128;
+      int s = 0;
+      uint32_t phase = 0;
+      for (int it = blockIdx.x; it < items; it += gridDim.x) {
+        const int b = it / heads;
+        const int h = it - b * heads;
+        mbar_wait(empty + 8 * s, phase ^ 1);
+        const uint32_t st = ring + s * kStage;
+        mbar_expect_tx(full + 8 * s, bytes);
+#pragma unroll
+        for (int m = 0; m < 3; ++m)  // Q, K, V
+#pragma unroll
+          for (int x = 0; x < kD64; ++x)
+            tma_load(st + (m * kD64 + x) * kBox, &qkv_map, full + 8 * s,
+                     static_cast<int>(m * D) + h * d + 64 * x, b * N);
+        if (++s == kTileStages) {
+          s = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int c = wg - 1;  // this consumer
+  const int tid = threadIdx.x & 127;
+  const int lane = tid & 31;
+  const int t = lane & 3;
+  // accumulator layout: this thread holds rows rw and rw + 8 of the item,
+  // columns 8 j + 2 t and + 1 of each 8-column group j
+  const int rw = (tid >> 5) * 16 + (lane >> 2);
+  uint8_t* tile = ring_ptr + (outs - ring) + c * kD64 * kBox;
+
+  for (int j = c, turns = 0; blockIdx.x + j * gridDim.x < items;
+       j += 2, ++turns) {
+    const int it = blockIdx.x + j * gridDim.x;
+    const int b = it / heads;
+    const int h = it - b * heads;
+    const int s = j % kTileStages;
+    if (j > 0) mbar_wait(turn + 8 * c, (c == 0 ? turns - 1 : turns) & 1);
+    mbar_wait(full + 8 * s, (j / kTileStages) & 1);
+    if (tid == 0) mbar_arrive(turn + 8 * (1 - c));
+    const uint32_t q_st = ring + s * kStage;
+    const uint32_t k_st = q_st + kD64 * kBox;
+    const uint32_t v_st = k_st + kD64 * kBox;
+
+    // S = Q.K^T over 64 (padded) keys: k-step k is 32 bytes into the
+    // swizzle row of box k / 4; 8-row groups 1024 bytes apart
+    float l[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) l[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < kDK; ++k) {
+      const uint32_t off = (k / 4) * kBox + 32 * (k % 4);
+      wgmma_ss<64, 0>(l, sw128_desc(q_st + off, 16, 1024),
+                      sw128_desc(k_st + off, 16, 1024), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(l);
+
+    // fp32 softmax over the whole row: scale after the dot, keys >= N -inf
+    float m[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int key = 8 * (i >> 2) + 2 * t + (i & 1);
+      l[i] = key < N ? l[i] * scale : -INFINITY;
+      m[(i >> 1) & 1] = fmaxf(m[(i >> 1) & 1], l[i]);
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      m[hh] = fmaxf(m[hh], __shfl_xor_sync(0xffffffffu, m[hh], 1));
+      m[hh] = fmaxf(m[hh], __shfl_xor_sync(0xffffffffu, m[hh], 2));
+    }
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      l[i] = expf(l[i] - m[(i >> 1) & 1]);
+      sum[(i >> 1) & 1] += l[i];
+    }
+    float rs[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 1);
+      sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 2);
+      rs[hh] = __frcp_rn(sum[hh]);
+    }
+    // p = e / s (a reciprocal and one FMA correction: the quotient),
+    // rounded to bf16: the accumulator layout of key groups 2 kc and
+    // 2 kc + 1 is the register-A layout of P.V's k-step kc
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      float p[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float ev = l[8 * kc + e];
+        const float r = rs[(e >> 1) & 1], sv = sum[(e >> 1) & 1];
+        const float q = ev * r;
+        p[e] = fmaf(fmaf(-q, sv, ev), r, q);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pa[kc][e] = pack_f32(p[2 * e], p[2 * e + 1]);
+    }
+
+    // O = P.V: V is MN-major (head-dim columns contiguous), k-steps of 16
+    // keys 2048 bytes apart, 8-key groups 1024 apart, boxes kBox apart
+    float o[kDN / 2];
+#pragma unroll
+    for (int i = 0; i < kDN / 2; ++i) o[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc)
+      wgmma_rs<kDN, 1>(o, pa[kc], sw128_desc(v_st + 2048 * kc, kBox, 1024),
+                       1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(o);
+    if (lane == 0) mbar_arrive(empty + 8 * s);  // this warp is done with it
+
+    // O rounded to bf16 into this consumer's tile (128-byte rows, 16-byte
+    // chunk q of row r at chunk q ^ (r % 8): conflict-free both ways), then
+    // 16-byte stores of rows < N
+    named_sync(1 + c, 128);  // the previous item's chunks are all read
+#pragma unroll
+    for (int jn = 0; jn < kChunks; ++jn)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = rw + 8 * hh;
+        *reinterpret_cast<uint32_t*>(
+            tile + (jn >> 3) * kBox + r * 128 + (((jn & 7) ^ (r & 7)) << 4) +
+            4 * t) = pack_f32(o[4 * jn + 2 * hh], o[4 * jn + 2 * hh + 1]);
+      }
+    named_sync(1 + c, 128);
+    bf16* ob = out + static_cast<int64_t>(b) * N * D +
+               static_cast<int64_t>(h) * d;
+    for (int i = tid; i < N * kChunks; i += 128) {
+      const int r = i / kChunks;
+      const int q = i - r * kChunks;
+      *reinterpret_cast<uint4*>(ob + r * D + 8 * q) =
+          *reinterpret_cast<const uint4*>(tile + (q >> 3) * kBox + r * 128 +
+                                          (((q & 7) ^ (r & 7)) << 4));
+    }
   }
 }
 
@@ -1307,33 +1555,46 @@ size_t onepass_smem_bytes(int N, int d) {
 
 template <int kKC, int kD16>
 cudaError_t launch_onepass(const bf16* qkv, bf16* out, int B, int N,
-                           int heads, int d, int pack, float scale,
-                           int per_block, bool vec, cudaStream_t stream) {
+                           int heads, int d, float scale, int per_block,
+                           bool vec, cudaStream_t stream) {
   auto kernel = k5_onepass_kernel<kKC, kD16>;
   const size_t smem = onepass_smem_bytes(N, d);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const int items = B * heads;
   kernel<<<(items + per_block - 1) / per_block, kKC * kWarp, smem, stream>>>(
-      qkv, out, B, N, heads, d, pack, scale, per_block, vec);
+      qkv, out, B, N, heads, d, scale, per_block, vec);
   return cudaGetLastError();
 }
 
 template <int kKC>
 cudaError_t launch_onepass_d(const bf16* qkv, bf16* out, int B, int N,
-                             int heads, int d, int pack, float scale,
-                             int per_block, bool vec, cudaStream_t s) {
+                             int heads, int d, float scale, int per_block,
+                             bool vec, cudaStream_t s) {
   switch (onepass_d16(d)) {
     case 2:
-      return launch_onepass<kKC, 2>(qkv, out, B, N, heads, d, pack, scale,
+      return launch_onepass<kKC, 2>(qkv, out, B, N, heads, d, scale,
                                     per_block, vec, s);
     case 4:
-      return launch_onepass<kKC, 4>(qkv, out, B, N, heads, d, pack, scale,
+      return launch_onepass<kKC, 4>(qkv, out, B, N, heads, d, scale,
                                     per_block, vec, s);
     default:
-      return launch_onepass<kKC, 8>(qkv, out, B, N, heads, d, pack, scale,
+      return launch_onepass<kKC, 8>(qkv, out, B, N, heads, d, scale,
                                     per_block, vec, s);
   }
+}
+
+template <int kDK>
+cudaError_t launch_tile(const CUtensorMap& map, bf16* out, int items, int N,
+                        int heads, float scale, int blocks, size_t smem,
+                        cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      attention_tile_kernel<kDK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  attention_tile_kernel<kDK><<<blocks, kTileThreads, smem, stream>>>(
+      map, out, items, N, heads, scale);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -1475,21 +1736,19 @@ size_t lossyless_attention_k5_onepass_smem_bytes(int N, int d) {
   return onepass_smem_bytes(N, d);
 }
 
-// K5a (pack >= 2) and K5b (pack == 1) on the one-pass tile: qkv
-// (B, N, 3*heads*d) bf16 contiguous -> out (B, N, heads*d); N <= 64.
-// Blocks of ceil(N/16) warps take runs of `per_block` (image, head) items
-// through a ring of kStages stages. vec selects cp.async 16-byte copies
-// and 16-byte stores (refused unless qkv and out are 16-byte aligned and
-// d % 8 == 0).
+// K1, K5a and K5b on the one-pass tile: qkv (B, N, 3*heads*d) bf16
+// contiguous -> out (B, N, heads*d); N <= 64. Blocks of ceil(N/16) warps
+// take runs of `per_block` (image, head) items in image-major order through
+// a ring of kStages stages. vec selects cp.async 16-byte copies and 16-byte
+// stores (refused unless qkv and out are 16-byte aligned and d % 8 == 0).
 int lossyless_fused_attention_k5_onepass(const void* qkv, void* out, int B,
-                                         int N, int heads, int d, int pack,
+                                         int N, int heads, int d,
                                          float scale, int per_block,
                                          int vec, int device, void* stream) {
   if (B < 1 || N < 1 || N > kOnePassMaxN || d < 1 || d > kMaxD ||
-      heads < 1 || pack < 1 || B % pack || per_block < 1 ||
-      static_cast<int64_t>(B) * heads > INT32_MAX ||      // items
+      heads < 1 || per_block < 1 ||
+      static_cast<int64_t>(B) * heads > INT32_MAX ||          // items
       static_cast<int64_t>(N) * 3 * heads * d > INT32_MAX ||  // an image
-
       (vec && (!aligned16(qkv) || !aligned16(out) || d % 8)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
@@ -1499,20 +1758,78 @@ int lossyless_fused_attention_k5_onepass(const void* qkv, void* out, int B,
   auto s = static_cast<cudaStream_t>(stream);
   switch ((N + 15) / 16) {
     case 1:
-      err = launch_onepass_d<1>(q, o, B, N, heads, d, pack, scale, per_block,
+      err = launch_onepass_d<1>(q, o, B, N, heads, d, scale, per_block,
                                 vec, s);
       break;
     case 2:
-      err = launch_onepass_d<2>(q, o, B, N, heads, d, pack, scale, per_block,
+      err = launch_onepass_d<2>(q, o, B, N, heads, d, scale, per_block,
                                 vec, s);
       break;
     case 3:
-      err = launch_onepass_d<3>(q, o, B, N, heads, d, pack, scale, per_block,
+      err = launch_onepass_d<3>(q, o, B, N, heads, d, scale, per_block,
                                 vec, s);
       break;
     default:
-      err = launch_onepass_d<4>(q, o, B, N, heads, d, pack, scale, per_block,
+      err = launch_onepass_d<4>(q, o, B, N, heads, d, scale, per_block,
                                 vec, s);
+      break;
+  }
+  return static_cast<int>(err);
+}
+
+// Shared memory of one tile block (K1, K5a, K5b) at head dim d.
+size_t lossyless_attention_tile_smem_bytes(int d) {
+  return tile_smem_bytes(d);
+}
+
+// K1, K5a and K5b on the tile: qkv (B, N, 3*heads*d) bf16 contiguous ->
+// out (B, N, heads*d), both 16-byte aligned; N <= 64, d a multiple of 16
+// up to 128. The plan's geometry (`blocks` persistent blocks, `smem`
+// bytes) must be this file's.
+int lossyless_fused_attention_tile(const void* qkv, void* out, int B, int N,
+                                   int heads, int d, float scale, int blocks,
+                                   size_t smem, int device, void* stream) {
+  const int64_t items = static_cast<int64_t>(B) * heads;
+  if (B < 1 || N < 1 || N > kTileMaxN || heads < 1 || d < 16 || d % 16 ||
+      d > kMaxD || items > INT32_MAX ||
+      static_cast<int64_t>(B) * N > INT32_MAX ||
+      static_cast<int64_t>(3) * heads * d > INT32_MAX || blocks < 1 ||
+      smem != tile_smem_bytes(d) || smem > kMaxSmem ||
+      !aligned16(qkv) || !aligned16(out))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap map;
+  if (!bf16_map(&map, qkv, static_cast<int64_t>(3) * heads * d,
+                static_cast<int64_t>(B) * N, N))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto o = static_cast<bf16*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  const int n = static_cast<int>(items);
+  switch (d / 16) {
+    case 1:
+      err = launch_tile<1>(map, o, n, N, heads, scale, blocks, smem, st);
+      break;
+    case 2:
+      err = launch_tile<2>(map, o, n, N, heads, scale, blocks, smem, st);
+      break;
+    case 3:
+      err = launch_tile<3>(map, o, n, N, heads, scale, blocks, smem, st);
+      break;
+    case 4:
+      err = launch_tile<4>(map, o, n, N, heads, scale, blocks, smem, st);
+      break;
+    case 5:
+      err = launch_tile<5>(map, o, n, N, heads, scale, blocks, smem, st);
+      break;
+    case 6:
+      err = launch_tile<6>(map, o, n, N, heads, scale, blocks, smem, st);
+      break;
+    case 7:
+      err = launch_tile<7>(map, o, n, N, heads, scale, blocks, smem, st);
+      break;
+    default:
+      err = launch_tile<8>(map, o, n, N, heads, scale, blocks, smem, st);
       break;
   }
   return static_cast<int>(err);

@@ -5,7 +5,10 @@ Counterpart of the Pallas kernels in `lossyless_tpu/nn/flash_attn.py`:
 * K1 `fused_attention(qkv, heads)` — MHSA straight off the fused qkv
   projection in its natural (B, N, 3D) layout, out (B, N, D). Replaces
   `fused_attention` / `_attn_kernel`. Runs the attention of CLIP ViT
-  blocks 0..L-2.
+  blocks 0..L-2. In bf16 at N <= 64 a TMA-fed tensor-core tile (wgmma)
+  where d is a multiple of 16 and the pointers are 16-byte aligned, else
+  the cp.async one-pass tile; fp32 and longer sequences the CUDA-core row
+  code.
 * K2 `fused_attention_cls(q0, kv, heads)` — the class-token query only:
   q0 (B, 1, D), kv (B, N, 2D), out (B, 1, D). Replaces
   `fused_attention_cls` / `_attn_cls_kernel`. Runs the last ViT block.
@@ -16,9 +19,9 @@ Counterpart of the Pallas kernels in `lossyless_tpu/nn/flash_attn.py`:
   stacks `pack` images' tokens into one (pack*N)-token operand per head
   under a block-diagonal -1e9 mask, whose masked blocks add exactly 0;
   K5b folds the heads into the batch of its dots. On the card both run,
-  in bf16 at N <= 64, one single-pass tensor-core kernel over (image,
-  head) items, K5a's masked blocks skipped; longer sequences take the
-  first, two-pass tile and fp32 the CUDA-core row code.
+  in bf16 at N <= 64, K1's kernels with K1's (image, head) items, K5a's
+  masked blocks skipped; longer sequences take the two-pass tile and fp32
+  the CUDA-core row code.
 * K4 `fused_mlp_block(x, ln_scale, ln_bias, fc_w, fc_b, pr_w, pr_b)` —
   the MLP half-block `x + proj(QuickGELU(fc(LN(x))))`, bf16, with the TPU
   kernel's rounding points. Replaces `fused_mlp_block` / `_mlp_kernel`.
@@ -34,9 +37,10 @@ stream. Each wrapper checks device, dtype, shape and contiguity,
 allocates the output, launches, raises if the launch returned a CUDA
 error, and adds one to its entry of `LAUNCHES`. K2's launch geometry
 (blocks, warps a block, shared memory, and the 16-byte or element load
-path) is chosen here, by the pure function `k2_plan`, K5a's and K5b's
-design and geometry by `k5_plan`, and K4's by `k4_plan`; the CPU tests
-check each at every shape the card's checks run.
+path) is chosen here, by the pure function `k2_plan`, K1's design and
+geometry by `k1_plan`, K5a's and K5b's by `k5_plan`, and K4's by
+`k4_plan`; the CPU tests check each at every shape the card's checks
+run.
 
 A CPU tensor goes to the plain version (`attention_plain`,
 `attention_packed_plain`, `attention_headbatched_plain`,
@@ -73,7 +77,11 @@ BLOCK_LIMIT = 16
 
 MAX_D = 128
 MAX_SMEM = 232448          # bytes of shared memory a Hopper block can use
-K1_WARPS = 8               # warps per (image, head) block; each takes rows
+K1_WARPS = 8               # row code: warps per (image, head) block
+TILE_MAX_N = 64            # the TMA/wgmma tile: the longest sequence
+TILE_THREADS = 384         # a producer and two consumer warpgroups
+TILE_BOX = 64 * 128        # bytes of a TMA box's region (64 rows of 128)
+TILE_STAGES = 4            # ring stages (attention.cu kTileStages)
 K2_WARPS = 8               # K2: one (image, head) item a warp
 K5_WARPS = 8               # K5a/K5b two-pass and fp32: warps take row items
 K5_ONEPASS_MAX_N = 64      # the longest sequence the one-pass tile takes
@@ -127,7 +135,13 @@ def _get_lib():
                     i, i]
                 lib.lossyless_fused_attention_k5_onepass.restype = i
                 lib.lossyless_fused_attention_k5_onepass.argtypes = [
-                    p, p, i, i, i, i, i, f, i, i, i, p]
+                    p, p, i, i, i, i, f, i, i, i, p]
+                lib.lossyless_attention_tile_smem_bytes.restype = \
+                    ctypes.c_size_t
+                lib.lossyless_attention_tile_smem_bytes.argtypes = [i]
+                lib.lossyless_fused_attention_tile.restype = i
+                lib.lossyless_fused_attention_tile.argtypes = [
+                    p, p, i, i, i, i, f, i, ctypes.c_size_t, i, p]
                 _lib = lib
     return _lib
 
@@ -305,24 +319,37 @@ def k2_plan(B: int, N: int, heads: int, d: int, dtype,
 
 
 # ---------------------------------------------------------------------------
-# K5a/K5b's launch plan (a pure function of shape, dtype, pack, alignment)
+# K1's, K5a's and K5b's launch plans (pure functions of shape, dtype, pack
+# and alignment)
 # ---------------------------------------------------------------------------
 
 
 @dataclass(frozen=True)
-class K5Plan:
-    """The launch geometry of one K5a (pack >= 2) or K5b (pack 1) call.
+class AttentionPlan:
+    """The design and geometry of one K1 (`k1_plan`), K5a (pack >= 2) or
+    K5b (pack 1) call (`k5_plan`).
 
-    design: "onepass" (bf16, N <= 64: the single-pass tensor-core tile,
-    a cp.async ring of `stages` stages, fixed in the kernel), "twopass"
-    (bf16, N > 64: the two-pass tensor-core tile) or "fma" (fp32, the
-    CUDA-core row code).
-    Work items are (image, head) pairs in `k5_item` order; block i takes
-    items [i * per_block, (i + 1) * per_block), the last run possibly
-    short. `smem` bytes of shared memory a block, `warps` warps a block;
-    vec: 16-byte copies and stores, else element loads and stores.
-    `heads_per_pass`: the heads a two-pass or fp32 K5b block stages at
-    once, passed to the kernel (else 0)."""
+    design:
+    * "wgmma": bf16, N <= `TILE_MAX_N`, d a multiple of 16 up to 128,
+      16-byte-aligned input and output: the TMA-fed tensor-core tile,
+      `blocks` persistent blocks (at most one an SM) of `warps` warps, a
+      ring of `TILE_STAGES` stages fixed in the kernel; block i takes items
+      i, i + blocks, ... (`per_block` at most);
+    * "onepass": bf16, N <= 64 outside the tile's scope: the cp.async
+      one-pass tile, `K5_STAGES` stages fixed in the kernel; block i takes
+      the run of items [i * per_block, (i + 1) * per_block), the last run
+      possibly short;
+    * "rows" (K1: fp32, bf16 N > 64): the CUDA-core row code, one block
+      per (image, head);
+    * "twopass" (K5a/K5b: bf16, N > 64): the two-pass tensor-core tile;
+      "fma" (K5a/K5b: fp32): the CUDA-core row code. One block per (group
+      of `pack` images, head) for K5a, per image for K5b. Only these two
+      designs read `pack`; the others leave it at 1.
+    Work items are (image, head) pairs in image-major order
+    (`attention_item`). `smem` bytes of shared memory a block; vec: 16-byte
+    copies and stores, else element loads and stores. `heads_per_pass`:
+    the heads a two-pass or fp32 K5b block stages at once, passed to the
+    kernel (else 0)."""
 
     design: str
     items: int
@@ -333,23 +360,23 @@ class K5Plan:
     smem: int
     vec: bool
     heads: int
-    pack: int
+    pack: int = 1
     heads_per_pass: int = 0
 
     def block_items(self, i: int) -> list[tuple[int, int]]:
         """The (image, head) items block i takes, in order."""
-        return [k5_item(j, self.heads, self.pack) for j in range(
+        if self.design == "wgmma":
+            return [attention_item(j, self.heads)
+                    for j in range(i, self.items, self.blocks)]
+        if self.pack > 1 and self.design in ("twopass", "fma"):
+            g, h = divmod(i, self.heads)   # one head of a group's images
+            return [(g * self.pack + j, h) for j in range(self.pack)]
+        return [attention_item(j, self.heads) for j in range(
             i * self.per_block, min((i + 1) * self.per_block, self.items))]
 
 
-def k5_item(i: int, heads: int, pack: int) -> tuple[int, int]:
-    """Work item i -> (image, head), as the kernels map it: image-major
-    for K5b (pack 1); for K5a group of `pack` images, then head, then the
-    image in the group, so a run covers a group's images for one head."""
-    if pack > 1:
-        g, r = divmod(i, heads * pack)
-        h, j = divmod(r, pack)
-        return g * pack + j, h
+def attention_item(i: int, heads: int) -> tuple[int, int]:
+    """Work item i -> (image, head), image-major, as the kernels map it."""
     return divmod(i, heads)
 
 
@@ -386,43 +413,106 @@ def k5b_pass(N: int, heads: int, d: int, dtype) -> tuple[int, int]:
     return hp, pass_bytes(hp)
 
 
+def tile_scope(B: int, N: int, d: int, dtype, aligned: bool) -> bool:
+    """Whether the TMA/wgmma tile takes the shape: bf16, N <= 64, d a
+    multiple of 16 up to 128 (whole k-steps of 16; 128-byte rows of one or
+    two TMA boxes), 16-byte-aligned input and output (TMA's rule), and row
+    and item counts that fit TMA's and the kernel's 32-bit coordinates."""
+    return (dtype == torch.bfloat16 and 1 <= N <= TILE_MAX_N
+            and d % 16 == 0 and 16 <= d <= MAX_D and aligned
+            and B * N < 2**31)
+
+
+def tile_smem(d: int) -> int:
+    """attention.cu `tile_smem_bytes`: the swizzle-alignment slack, the ring
+    (Q, K and V of an item, each ceil(d / 64) boxes), the two consumers'
+    output tiles, and the ring's and the consumers' mbarriers."""
+    d64 = -(-d // 64)
+    return 1024 + TILE_STAGES * 3 * d64 * TILE_BOX + 2 * d64 * TILE_BOX \
+        + (2 * TILE_STAGES + 2) * 8
+
+
+def _tile_plan(B, heads, d) -> AttentionPlan:
+    """The tile's geometry: one persistent block an SM (`K5_SMS`) while
+    there are as many items; a ring of `TILE_STAGES` stages, which fits
+    beside the output tiles at every d <= 128."""
+    items = B * heads
+    blocks = min(K5_SMS, items)
+    return AttentionPlan("wgmma", items=items, per_block=-(-items // blocks),
+                         blocks=blocks, warps=TILE_THREADS // 32,
+                         stages=TILE_STAGES, smem=tile_smem(d), vec=True,
+                         heads=heads)
+
+
+def _onepass_plan(B, N, heads, d, vec) -> AttentionPlan:
+    """The one-pass tile's geometry: ceil(N / 16) warps a block, one 16-row
+    tile of an item each; runs of items sized so that the grid fills
+    `K5_SMS` SMs `K5_BLOCKS_PER_SM` deep; `K5_STAGES` ring stages of one
+    item's Q, K and V at a 16-byte-padded pitch."""
+    items = B * heads
+    per_block = -(-items // (K5_SMS * K5_BLOCKS_PER_SM))
+    smem = 2 * K5_STAGES * 3 * _round_up(N, 16) * (_onepass_d16(d) * 16 + 8)
+    return AttentionPlan("onepass", items=items, per_block=per_block,
+                         blocks=-(-items // per_block), warps=-(-N // 16),
+                         stages=K5_STAGES, smem=smem, vec=vec, heads=heads)
+
+
+@functools.lru_cache(maxsize=256)
+def k1_plan(B: int, N: int, heads: int, d: int, dtype,
+            aligned: bool = True) -> AttentionPlan:
+    """K1's design and geometry at this shape: the TMA/wgmma tile where
+    `tile_scope` holds, else the one-pass tile for bf16 at N <= 64, else
+    (fp32, bf16 N > 64) the row code, one block of `K1_WARPS` warps per
+    (image, head). `aligned`: the input's and output's data pointers are
+    16-byte aligned."""
+    vec = sixteen_byte_path(d, dtype.itemsize, aligned)
+    if tile_scope(B, N, d, dtype, aligned):
+        plan = _tile_plan(B, heads, d)
+    elif dtype == torch.bfloat16 and N <= K5_ONEPASS_MAX_N:
+        plan = _onepass_plan(B, N, heads, d, vec)
+    else:
+        qkv_f, p_f = _fp32_layout(N, N, d)
+        plan = AttentionPlan("rows", items=B * heads, per_block=1,
+                             blocks=B * heads, warps=K1_WARPS, stages=1,
+                             smem=4 * (qkv_f + K1_WARPS * p_f), vec=vec,
+                             heads=heads)
+    _check_smem(plan.smem, f"N={N}, d={d} ({dtype}, {plan.design})")
+    return plan
+
+
 @functools.lru_cache(maxsize=256)
 def k5_plan(B: int, N: int, heads: int, d: int, dtype, pack: int = 1,
-            aligned: bool = True) -> K5Plan:
-    """K5a's (pack >= 2) or K5b's (pack 1) geometry at this shape.
-
-    bf16 with N <= 64 takes the one-pass tile: ceil(N / 16) warps a block,
-    one 16-row tile of an item each; runs of items sized so that the grid
-    fills `K5_SMS` SMs `K5_BLOCKS_PER_SM` deep; `K5_STAGES` ring stages of
-    one item's Q, K and V at a 16-byte-padded pitch. Longer sequences take
-    the two-pass tile and fp32 the row code, one block per (group, head)
-    (K5a) or per image (K5b), as the first designs launch. `aligned`: the
-    input's and output's data pointers are 16-byte aligned."""
+            aligned: bool = True) -> AttentionPlan:
+    """K5a's (pack >= 2) or K5b's (pack 1) design and geometry at this
+    shape. bf16 at N <= 64 takes K1's kernels with K1's items: the tile
+    where `tile_scope` holds, else the one-pass tile. Longer sequences
+    take the two-pass tile and fp32 the row code, one block per (group,
+    head) (K5a) or per image (K5b), as the first designs launch.
+    `aligned`: the input's and output's data pointers are 16-byte
+    aligned."""
     if pack < 1 or B % pack:
         raise ValueError(f"pack={pack} must be >= 1 and divide B={B}")
     items = B * heads
     vec = sixteen_byte_path(d, dtype.itemsize, aligned)
     common = dict(items=items, vec=vec, heads=heads, pack=pack)
-    if dtype == torch.bfloat16 and N <= K5_ONEPASS_MAX_N:
-        per_block = -(-items // (K5_SMS * K5_BLOCKS_PER_SM))
-        smem = 2 * K5_STAGES * 3 * _round_up(N, 16) * (
-            _onepass_d16(d) * 16 + 8)
-        plan = K5Plan("onepass", per_block=per_block,
-                      blocks=-(-items // per_block), warps=-(-N // 16),
-                      stages=K5_STAGES, smem=smem, **common)
+    if tile_scope(B, N, d, dtype, aligned):
+        plan = _tile_plan(B, heads, d)
+    elif dtype == torch.bfloat16 and N <= K5_ONEPASS_MAX_N:
+        plan = _onepass_plan(B, N, heads, d, vec)
     elif pack > 1:   # one block per (group of pack images, head)
         M = pack * N
         qkv_f, p_f = _fp32_layout(M, M, d)
         smem = 4 * (qkv_f + K5_WARPS * p_f) if dtype == torch.float32 \
             else 2 * 2 * _twopass_tile(M, d)
-        plan = K5Plan("fma" if dtype == torch.float32 else "twopass",
-                      per_block=pack, blocks=items // pack, warps=K5_WARPS,
-                      stages=1, smem=smem, **common)
+        plan = AttentionPlan("fma" if dtype == torch.float32 else "twopass",
+                             per_block=pack, blocks=items // pack,
+                             warps=K5_WARPS, stages=1, smem=smem, **common)
     else:            # one block per image, heads staged in passes
         hp, smem = k5b_pass(N, heads, d, dtype)
-        plan = K5Plan("fma" if dtype == torch.float32 else "twopass",
-                      per_block=heads, blocks=B, warps=K5_WARPS, stages=1,
-                      smem=smem, heads_per_pass=hp, **common)
+        plan = AttentionPlan("fma" if dtype == torch.float32 else "twopass",
+                             per_block=heads, blocks=B, warps=K5_WARPS,
+                             stages=1, smem=smem, heads_per_pass=hp,
+                             **common)
     _check_smem(plan.smem, f"N={N}, d={d}, pack={pack} ({dtype}, "
                 f"{plan.design})")
     return plan
@@ -477,15 +567,40 @@ def _raise_on(rc: int, name: str):
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
-def _launch_attention(qkv: torch.Tensor, heads: int) -> torch.Tensor:
-    B, N, D, d = _check_qkv(qkv, heads)
-    _check_smem(_get_lib().lossyless_attention_smem_bytes(
-        N, N, d, K1_WARPS), f"N={N}, d={d}")
-    out = torch.empty((B, N, D), dtype=qkv.dtype, device=qkv.device)
+def _launch_tile_designs(lib, qkv, out, heads: int, plan) -> int | None:
+    """Launch the design `plan` picked if it is one of the tiles K1, K5a
+    and K5b share (their item order is one); None for any other design."""
+    B, N, threeD = qkv.shape
+    d = threeD // (3 * heads)
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
-    rc = _get_lib().lossyless_fused_attention(
-        qkv.data_ptr(), out.data_ptr(), B, N, heads, d,
-        _DTYPE_CODE[qkv.dtype], d**-0.5, K1_WARPS, qkv.device.index, stream)
+    if plan.design == "wgmma":
+        return lib.lossyless_fused_attention_tile(
+            qkv.data_ptr(), out.data_ptr(), B, N, heads, d, d**-0.5,
+            plan.blocks, plan.smem, qkv.device.index, stream)
+    if plan.design == "onepass":
+        return lib.lossyless_fused_attention_k5_onepass(
+            qkv.data_ptr(), out.data_ptr(), B, N, heads, d, d**-0.5,
+            plan.per_block, int(plan.vec), qkv.device.index, stream)
+    return None
+
+
+def _aligned(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _launch_attention(qkv: torch.Tensor, heads: int) -> torch.Tensor:
+    """K1 on the design `k1_plan` picks."""
+    B, N, D, d = _check_qkv(qkv, heads)
+    out = torch.empty((B, N, D), dtype=qkv.dtype, device=qkv.device)
+    plan = k1_plan(B, N, heads, d, qkv.dtype, _aligned(qkv, out))
+    lib = _get_lib()
+    rc = _launch_tile_designs(lib, qkv, out, heads, plan)
+    if rc is None:   # the row code
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        rc = lib.lossyless_fused_attention(
+            qkv.data_ptr(), out.data_ptr(), B, N, heads, d,
+            _DTYPE_CODE[qkv.dtype], d**-0.5, K1_WARPS, qkv.device.index,
+            stream)
     _raise_on(rc, "fused_attention")
     LAUNCHES["fused_attention"] += 1
     return out
@@ -495,20 +610,16 @@ def _launch_k5(qkv: torch.Tensor, heads: int, pack: int) -> torch.Tensor:
     """K5a (pack >= 2) or K5b (pack 1) on the design `k5_plan` picks."""
     B, N, D, d = _check_qkv(qkv, heads)
     out = torch.empty((B, N, D), dtype=qkv.dtype, device=qkv.device)
-    plan = k5_plan(B, N, heads, d, qkv.dtype, pack,
-                   qkv.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+    plan = k5_plan(B, N, heads, d, qkv.dtype, pack, _aligned(qkv, out))
     lib = _get_lib()
     dt = _DTYPE_CODE[qkv.dtype]
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
-    if plan.design == "onepass":
-        rc = lib.lossyless_fused_attention_k5_onepass(
-            qkv.data_ptr(), out.data_ptr(), B, N, heads, d, pack, d**-0.5,
-            plan.per_block, int(plan.vec), qkv.device.index, stream)
-    elif pack > 1:
+    rc = _launch_tile_designs(lib, qkv, out, heads, plan)
+    if rc is None and pack > 1:
         rc = lib.lossyless_fused_attention_packed(
             qkv.data_ptr(), out.data_ptr(), B, N, heads, d, pack, dt,
             d**-0.5, K5_WARPS, qkv.device.index, stream)
-    else:
+    elif rc is None:
         rc = lib.lossyless_fused_attention_headbatched(
             qkv.data_ptr(), out.data_ptr(), B, N, heads, d, dt, d**-0.5,
             K5_WARPS, plan.heads_per_pass, qkv.device.index, stream)

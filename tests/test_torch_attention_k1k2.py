@@ -10,12 +10,15 @@ cast to the io dtype, fp32 P.V). Tolerances are test_flash_attn.py's:
 fp32 rtol/atol 1e-5 (summation order only), bf16 atol 2e-2 (one bf16
 rounding of the probabilities and of the output).
 
-`k2_plan` is the pure function from which K2's CUDA launcher takes its
-geometry. The plan test runs it at every shape that chip_smoke.py's
-phase 3 checks on the card (`K2_CHECKS`) and shows that a block fits
-Hopper's shared memory, that the blocks cover every (image, head) item
-exactly once, and that the element path is taken exactly where 16-byte
-loads cannot describe the tensor.
+`k2_plan` and `k1_plan` are the pure functions from which K2's and K1's
+CUDA launchers take their geometry (and K1 its design). The plan tests
+run them at every shape that chip_smoke.py's phase 3 checks on the card
+(`K2_CHECKS`, `K1_CHECKS`) and show that a block fits Hopper's shared
+memory, that the blocks cover every (image, head) item exactly once,
+that K1 takes the design phase 3 asserts, and that the element path is
+taken exactly where 16-byte loads cannot describe the tensor. The pure
+parts of phase 3's and phase 4's bounds against the float64 attention
+(`float64_check`, `flip_bound`, `bf16_ulp`) are pinned here too.
 """
 
 import functools
@@ -163,3 +166,121 @@ def test_element_path_exactly_where_16_byte_copies_fail(itemsize):
 def test_plans_refuse_shapes_past_shared_memory():
     with pytest.raises(ValueError, match="shared memory"):
         tfa.k2_plan(1, 8000, 12, 64, torch.bfloat16)
+
+
+@pytest.mark.parametrize("B,N,heads,d,dt,tol,opt",
+                         _cases(chip_smoke.K1_CHECKS, "k1"))
+def test_k1_plan_at_the_card_check_shapes(B, N, heads, d, dt, tol, opt):
+    """`k1_plan` at every shape phase 3 checks on the card picks the design
+    phase 3 asserts, fits Hopper's shared memory and covers every (image,
+    head) item exactly once; the tile's persistent blocks take them in
+    image-major order, round by round (block i's k-th item is item
+    k * blocks + i)."""
+    dtype = getattr(torch, dt)
+    aligned = not opt.get("unaligned", False)
+    plan = tfa.k1_plan(B, N, heads, d, dtype, aligned)
+    assert plan.design == chip_smoke.k1_design(N, d, dt, aligned)
+    assert 0 < plan.smem <= tfa.MAX_SMEM and plan.items == B * heads
+    lists = [plan.block_items(i) for i in range(plan.blocks)]
+    assert all(lists)
+    assert sorted(sum(lists, [])) == [(b, h) for b in range(B)
+                                      for h in range(heads)]
+    if plan.design == "wgmma":
+        rounds = [lst[k] for k in range(plan.per_block) for lst in lists
+                  if k < len(lst)]
+        assert rounds == [(b, h) for b in range(B) for h in range(heads)]
+        assert plan.blocks == min(tfa.K5_SMS, B * heads)
+        assert plan.stages == tfa.TILE_STAGES
+        assert plan.smem == tfa.tile_smem(d)
+    else:   # runs of consecutive items, image-major
+        assert sum(lists, []) == [(b, h) for b in range(B)
+                                  for h in range(heads)]
+
+
+def test_k1_plan_at_the_slice_shapes():
+    """B=512 and 256, N=50, 12 heads of 64, bf16: the tile on 132
+    persistent blocks, a ring of 4 stages of 24 KB (Q, K and V, a 64 x 64
+    box each) beside two 8 KB output tiles: 115,792 bytes."""
+    for B, per in ((512, 47), (256, 24)):
+        plan = tfa.k1_plan(B, 50, 12, 64, torch.bfloat16)
+        assert (plan.design, plan.items, plan.blocks, plan.per_block,
+                plan.stages, plan.warps, plan.smem) == (
+            "wgmma", B * 12, 132, per, 4, 12, 115792)
+    # d = 128: two boxes an operand, still 4 stages (230,480 bytes)
+    plan = tfa.k1_plan(3, 50, 2, 128, torch.bfloat16)
+    assert (plan.stages, plan.smem) == (4, 230480)
+    # outside the tile's scope
+    assert tfa.k1_plan(3, 50, 12, 64, torch.bfloat16, False).design == \
+        "onepass"
+    assert tfa.k1_plan(3, 50, 2, 56, torch.bfloat16).design == "onepass"
+    assert tfa.k1_plan(3, 65, 12, 64, torch.bfloat16).design == "rows"
+    assert tfa.k1_plan(512, 50, 12, 64, torch.float32).design == "rows"
+
+
+def test_k1_plan_refuses_shapes_past_shared_memory():
+    with pytest.raises(ValueError, match="shared memory"):
+        tfa.k1_plan(1, 8000, 12, 64, torch.bfloat16)
+
+
+@pytest.mark.parametrize("reading,want", [
+    (0.017853, 1.25 * 0.017853),   # phase 4d's plain vs float64 on an H100
+    (0.017723, 1.25 * 0.017723),   # plain vs reversed sums
+    (0.018280, 1.25 * 0.018280),   # the one-pass tile vs plain
+    (0.02, 0.025),                 # the cap, reached exactly
+    (0.03, 0.025),                 # a library that moved the plain path
+    (0.0, 0.0)])
+def test_flip_bound_at_the_recorded_readings_and_cap(reading, want):
+    assert chip_smoke.flip_bound(reading) == pytest.approx(want, rel=1e-12)
+    assert chip_smoke.flip_bound(reading) <= 0.025
+
+
+def _bf16_qkv(B=2, N=50, heads=4, d=64, seed=7):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(B, N, 3 * heads * d, generator=g).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("fn", ["attention_float64", "attention_reversed"])
+def test_summation_order_variants_within_one_bf16_ulp_of_plain(fn):
+    """Phase 4d's and phase 3's references differ from `attention_plain`
+    by at most one bf16 ulp of the plain value at every output: only the
+    order (and, for float64, the precision) of their sums differs."""
+    qkv = _bf16_qkv()
+    want = tfa.attention_plain(qkv, 4)
+    got = getattr(chip_smoke, fn)(qkv, 4)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    diff = (got.double() - want.double()).abs()
+    assert bool((diff <= chip_smoke.bf16_ulp(want.double())).all())
+
+
+def test_bf16_ulp():
+    x = torch.tensor([1.0, 1.5, -2.0, 0.75, 3e-3, 0.0], dtype=torch.float64)
+    want = [2.0**-7, 2.0**-7, 2.0**-6, 2.0**-8, 2.0**-16, 2.0**-133]
+    assert chip_smoke.bf16_ulp(x).tolist() == want
+    # one ulp up from a bf16 value is the next bf16 value
+    b = torch.tensor([1.0, 0.1, -37.5], dtype=torch.bfloat16)
+    up = (b.double() + chip_smoke.bf16_ulp(b.double())).to(torch.bfloat16)
+    assert bool((up.view(torch.int16) - b.view(torch.int16)).abs().eq(1)
+                .all())
+
+
+def test_float64_check_passes_the_plain_path_and_fails_a_wrong_rounding():
+    """`float64_check` holds the plain path itself (share equal, no excess)
+    and refuses K1 with its probabilities left unrounded (a wrong rounding
+    point: far more outputs move) and an output moved by two ulps."""
+    qkv = _bf16_qkv()
+    plain = tfa.attention_plain(qkv, 4)
+    ref = chip_smoke.attention_float64(qkv, 4)
+    assert chip_smoke.float64_check(plain, plain, ref)["ok"]
+    B, N, threeD = qkv.shape
+    q, k, v = (t.reshape(B, N, 4, 64) for t in qkv.float().split(256, -1))
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * 64**-0.5
+    unrounded = torch.einsum("bhqk,bkhd->bqhd", logits.softmax(-1), v) \
+        .reshape(B, N, 256).to(torch.bfloat16)
+    check = chip_smoke.float64_check(unrounded, plain, ref)
+    assert not check["ok"] and check["share_kernel"] > check["share_bound"]
+    moved = plain.clone()
+    moved[0, 0, 0] = (plain[0, 0, 0].double()
+                      + 2 * chip_smoke.bf16_ulp(ref[0, 0, 0].double())
+                      + (plain[0, 0, 0].double() - ref[0, 0, 0].double())
+                      .abs()).to(torch.bfloat16)
+    assert not chip_smoke.float64_check(moved, plain, ref)["ok"]

@@ -244,9 +244,10 @@ def _k5_cases():
 @pytest.mark.parametrize("B,N,heads,d,dt,kw,opt", _k5_cases())
 def test_k5_plan_at_the_card_check_shapes(B, N, heads, d, dt, kw, opt):
     """`k5_plan` at every shape phase 3c checks on the card: a block fits
-    Hopper's shared memory, the blocks' runs cover every (image, head)
-    item exactly once, bf16 takes the one-pass tile at N <= 64 and the
-    two-pass tile above, fp32 the row code."""
+    Hopper's shared memory, the blocks cover every (image, head) item
+    exactly once, bf16 at N <= 64 takes K1's tiles (the TMA/wgmma tile
+    where d is a multiple of 16 and the pointers are aligned, else the
+    one-pass tile), the two-pass tile above, fp32 the row code."""
     dtype = getattr(torch, dt)
     with knobs(**kw):
         variant, pack = tfa.attention_variant(
@@ -255,21 +256,30 @@ def test_k5_plan_at_the_card_check_shapes(B, N, heads, d, dt, kw, opt):
     aligned = not opt.get("unaligned", False)
     plan = tfa.k5_plan(B, N, heads, d, dtype, pack, aligned)
     assert 0 < plan.smem <= tfa.MAX_SMEM
+    assert plan.design == chip_smoke.k5_design(N, d, dt, aligned)
     assert plan.design == ("fma" if dtype == torch.float32 else
-                           "onepass" if N <= 64 else "twopass")
+                           "twopass" if N > 64 else
+                           "wgmma" if d % 16 == 0 and aligned
+                           else "onepass")
     covered = [it for i in range(plan.blocks) for it in plan.block_items(i)]
     assert sorted(covered) == [(b, h) for b in range(B)
                                for h in range(heads)]
     assert all(plan.block_items(i) for i in range(plan.blocks))
-    assert plan.vec == (aligned and (d * dtype.itemsize) % 16 == 0)
+    if plan.design == "wgmma":
+        assert plan.warps == 12 and plan.stages == tfa.TILE_STAGES
+        assert plan.vec and plan.blocks == min(tfa.K5_SMS, B * heads)
+        assert plan.smem == tfa.tile_smem(d)
+    else:
+        assert plan.vec == (aligned and (d * dtype.itemsize) % 16 == 0)
     if plan.design == "onepass":
         assert plan.warps == -(-N // 16) and plan.stages >= 2
-    elif variant == "packed":   # a block: one head of one group's images
-        for i in range(plan.blocks):
+    elif plan.design in ("twopass", "fma") and variant == "packed":
+        for i in range(plan.blocks):   # one head of one group's images
             items = plan.block_items(i)
             assert len({h for _, h in items}) == 1
             assert len({b // pack for b, _ in items}) == 1
-    else:   # the heads a pass stages, which the launch hands the kernel
+    elif plan.design in ("twopass", "fma"):
+        # the heads a pass stages, which the launch hands the kernel
         assert 1 <= plan.heads_per_pass <= heads
         assert (plan.heads_per_pass, plan.smem) == tfa.k5b_pass(
             N, heads, d, dtype)
@@ -277,26 +287,45 @@ def test_k5_plan_at_the_card_check_shapes(B, N, heads, d, dt, kw, opt):
 
 def test_k5_plan_at_the_slice_shape():
     """B=512, N=50, 12 heads of 64, bf16, every pack and head-batched:
-    6144 items in 512 runs of 12 (4 a resident block on each of 132 SMs
-    at most), two stages of Q, K, V at a 72-element pitch; a ragged last
-    run at B=300."""
+    K1's TMA/wgmma tile, 6144 items on 132 persistent blocks (47 at most a
+    block), 4 ring stages of Q, K and V (a 64 x 64 box each); at B=300 the
+    blocks take 27 or 28 items. K5a and K5b list the items as K1 does."""
+    k1 = tfa.k1_plan(512, 50, 12, 64, torch.bfloat16)
     for pack in (1, 2, 4, 8, 16):
         plan = tfa.k5_plan(512, 50, 12, 64, torch.bfloat16, pack)
-        assert (plan.design, plan.items, plan.per_block, plan.blocks) == \
-            ("onepass", 6144, 12, 512)
-        assert plan.smem == 2 * 2 * 3 * 64 * 72 and plan.vec
-        assert plan.blocks <= tfa.K5_SMS * tfa.K5_BLOCKS_PER_SM
+        assert (plan.design, plan.items, plan.per_block, plan.blocks,
+                plan.stages) == ("wgmma", 6144, 47, 132, 4)
+        assert plan.smem == 1024 + 4 * 3 * 8192 + 2 * 8192 + 10 * 8
+        assert [plan.block_items(i) for i in range(plan.blocks)] == \
+            [k1.block_items(i) for i in range(k1.blocks)]
     plan = tfa.k5_plan(300, 50, 12, 64, torch.bfloat16, 1)
-    assert plan.items % plan.per_block
-    assert len(plan.block_items(plan.blocks - 1)) == plan.items % \
-        plan.per_block
-    # K5a's item order: a run takes one head of consecutive images
-    plan = tfa.k5_plan(8, 50, 2, 64, torch.bfloat16, 4)
-    assert [tfa.k5_item(i, 2, 4) for i in range(8)] == \
-        [(0, 0), (1, 0), (2, 0), (3, 0), (0, 1), (1, 1), (2, 1), (3, 1)]
+    assert sorted({len(plan.block_items(i)) for i in range(plan.blocks)}) \
+        == [27, 28]
     assert tfa.k5_plan(2, 65, 12, 64, torch.bfloat16, 1).design == "twopass"
     with pytest.raises(ValueError, match="divide"):
         tfa.k5_plan(6, 50, 12, 64, torch.bfloat16, 4)
+
+
+@pytest.mark.parametrize("B,N,heads,d,dt,kw,opt", [
+    c for c in _k5_cases() if c.values[4] == "bfloat16" and c.values[1] <= 64])
+def test_variants_plans_give_one_item_list(B, N, heads, d, dt, kw, opt):
+    """At bf16 N <= 64, K1, K5a (at the pack the knob gives) and K5b run
+    one kernel on one plan: the same design, geometry and item list (the
+    tiles ignore the pack, so the plans are equal), image-major (item i: image i // heads, head i % heads)."""
+    dtype = getattr(torch, dt)
+    with knobs(**kw):
+        _, pack = tfa.attention_variant(
+            torch.zeros(B, N, 3 * heads * d, dtype=dtype))
+    aligned = not opt.get("unaligned", False)
+    k1 = tfa.k1_plan(B, N, heads, d, dtype, aligned)
+    lists = [[k1.block_items(i) for i in range(k1.blocks)]]
+    for p in sorted({1, pack}):
+        plan = tfa.k5_plan(B, N, heads, d, dtype, p, aligned)
+        assert plan == k1   # no field of the plan differs, `pack` included
+        lists.append([plan.block_items(i) for i in range(plan.blocks)])
+    assert all(lst == lists[0] for lst in lists)
+    assert [tfa.attention_item(i, heads) for i in range(2 * heads)] == \
+        [(b, h) for b in range(2) for h in range(heads)]
 
 
 @pytest.mark.parametrize("B,N,heads,d,dt,kw,opt", _k5_cases())
