@@ -34,7 +34,17 @@ non-zero without printing a result:
    tile, the row code: both clocks, each checked against the plain
    version);
 3b. K3 (entropy-bottleneck likelihood) at the training shape (128, 512) and
-   at odd shapes in fp32, to rtol 1e-5 / atol 1e-7, and K4 (fused MLP
+   at odd shapes in fp32 (`K3_CHECKS`), to rtol 1e-5 / atol 1e-7, each on
+   the design `k3_plan` picks (asserted: the fixed chain for (3,3,3,3) and
+   (3,3,3), else the generic one); its backward kernel at the same shapes
+   and the side latent's (128, 102) (`K3_BWD_CHECKS`), through the
+   autograd wrapper, against `likelihood_backward_plain` and against
+   autograd of the reference chain, to rtol 1e-4 with atol 2e-5 of each
+   gradient's largest entry, on inputs where rows 0 and 1 floor under
+   g = +1e9 and -1e9 (no gradient may pass the first), two calls equal bit
+   for bit; both kernels' times beside their plain versions' and the
+   eager backward's (autograd through the reference chain: its time and
+   its device kernels); K4 (fused MLP
    half-block) at every `K4_CHECKS` case in bf16, to atol 2e-2 plus one
    bf16 ulp of the value: the training shape (128 x 50 tokens, width 768),
    a ragged last row tile (129 x 50), x and fc_w at a 16-byte storage
@@ -87,8 +97,9 @@ non-zero without printing a result:
    `encoder.arch_kwargs.mlp_impl=pallas`) through `pipeline.run.
    run_featurizer`, batch 128 of seeded random normalized 224x224 images,
    20 steps: median step ms, img/s, finite loss, rate and distortion, and
-   launches per step K1 11, K2 1, K3 1, K4 11; a torch.profiler trace of 3
-   more steps (device idle share, device ms by kernel group); then 3 steps
+   launches per step K1 11, K2 1, K3 1, K3's backward 1, K4 11; a
+   torch.profiler trace of 3 more steps (device idle share, device ms by
+   kernel group, device kernels a step); then 3 steps
    twice from the same weights and noise, on the kernels and on the plain
    versions of attention, MLP and likelihood, whose logged loss, rate and
    distortion must agree to rtol 1e-2;
@@ -99,7 +110,8 @@ non-zero without printing a result:
 8. the CLIP bottleneck (`clip_bottleneck_pretrain`: the hyperprior rate,
    K3 on its side bottleneck) at full width: 20 training steps at batch
    128 (median step ms, img/s, finite loss, rate, H_q_S, H_q_ZlS and
-   distortion; launches per step K1 11, K2 1, K3 1); 3 steps from the same
+   distortion; launches per step K1 11, K2 1, K3 1, K3's backward 1); 3
+   steps from the same
    weights and noise under the default, `IMAGE_PACK=4` (K5a 11 a step, K1
    0) and `HEAD_BATCH=True` (K5b 11, K1 0), whose loss, rate and
    distortion must equal the default's to rtol 1e-2 (each step's ms is
@@ -111,12 +123,12 @@ non-zero without printing a result:
    ms/img, the `communication` sentinel), the `HyperpriorCoder` decode
    equal to the host dequantize to 1e-5, and the side symbols and the
    main symbols given K1's side latent within 1% of K1's; a
-   torch.profiler trace of 3 steps;
-7. the `kernels` JSON line (K1-K4, K5a, K5b; with `device_ms` and
-   `bound_share`, K1/K2 also at batch 256, K1's design, its float64
-   readings and its designs side by side, and the registers and spills
-   of K1's, K2's, K4's, K5a's and K5b's kernels) and, last,
-   `{"ok": true, "device": {...}}`.
+   torch.profiler trace of 3 steps (with the device kernels a step);
+7. the `kernels` JSON line (K1-K4, K3's backward, K5a, K5b; with
+   `device_ms` and `bound_share`, K1/K2 also at batch 256, K1's design,
+   its float64 readings and its designs side by side, and the registers
+   and spills of every kernel) and, last, `{"ok": true, "device":
+   {...}}`.
 
 It needs a CUDA card and the repository around it: with no card, or run
 from a directory that holds only this file, it fails.
@@ -880,7 +892,7 @@ def main_path(card: str) -> dict:
     # the encode path's MLPs are torch ops and it computes no likelihood
     want = {"fused_attention": (n_layers - 1) * N_BATCHES,
             "fused_attention_cls": N_BATCHES, "fused_mlp_block": 0,
-            "eb_likelihood": 0, **NO_K5}
+            "eb_likelihood": 0, "eb_likelihood_bwd": 0, **NO_K5}
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
     if rans._get_lib()._name != str(_build.library_path("rans")):
@@ -1198,60 +1210,255 @@ def op_path_mlp(x, lns, lnb, fcw, fcb, prw, prb):
     return x + (h @ prw + prb)
 
 
-def check_k3_k4() -> dict:
-    """Phase 3b: K3 and K4 vs their plain versions, then timings."""
+# Phase 3b's K3 cases: (B, C, filters): the training shape, odd shapes on
+# the fixed and the generic chains, one element; the backward also at the
+# side latent of clip_bottleneck_pretrain
+K3_CHECKS = [(TRAIN_BATCH, 512, (3, 3, 3, 3)), (37, 13, (3, 3, 3)),
+             (5, 130, (2, 4)), (1, 1, (3, 3, 3, 3))]
+K3_BWD_CHECKS = K3_CHECKS + [(TRAIN_BATCH, 102, (3, 3, 3, 3))]
+
+
+def k3_design(filters) -> str:
+    """The design phase 3b expects `k3_plan` to pick."""
+    filters = tuple(filters)
+    if filters in ((3, 3, 3, 3), (3, 3, 3)):
+        return f"fixed{filters}"
+    return "generic"
+
+
+def k3_floor_inputs(p: dict, z, g):
+    """Rows 0 and 1 of z moved, on every channel that has one, to a value
+    whose raw likelihood is below 1e-10 but not 0 (it floors and the
+    sigmoids' slopes are not 0), with g = +1e9 on row 0 and -1e9 on row 1
+    (-d log(lik) at the floor, both signs; one row: -1e9). Returns the mask
+    of floored elements given g > 0."""
+    import torch
+
+    from lossyless_tpu_torch.coding import entropy_bottleneck as eb
+
+    B, C = z.shape
+    grid = torch.arange(2.0, 200.0, 0.25, device=z.device)
+    lik = eb.likelihood(p, grid[:, None].expand(-1, C).contiguous())
+    ok = (lik < 1e-10) & (lik > 0)
+    found = ok.any(0)
+    tail = grid[ok.float().argmax(0)]
+    blocked = torch.zeros_like(z, dtype=torch.bool)
+    rows = ((0, 1e9), (1, -1e9)) if B > 1 else ((0, -1e9),)
+    for row, sign in rows:
+        z[row] = torch.where(found, tail, z[row])
+        g[row] = torch.where(found, torch.full_like(tail, sign), g[row])
+        if sign > 0:
+            blocked[row] = found
+    return blocked
+
+
+def k3_grads(p: dict, z, g) -> dict:
+    """{"z": dz, name: grad} of K3 through its autograd wrapper (the kernel
+    pair on the card)."""
     import torch
 
     from lossyless_tpu_torch.coding import eb_kernel
-    from lossyless_tpu_torch.nn import flash_attn as fa
 
-    results = {}
-    with torch.inference_mode():
-        # K3: fp32, rtol 1e-5 / atol 1e-7 (the CPU tests' tolerance)
-        errs = []
-        for i, (B, C, filters) in enumerate([(TRAIN_BATCH, 512, (3, 3, 3, 3)),
-                                             (37, 13, (3, 3, 3)),
-                                             (5, 130, (2, 4)),
-                                             (1, 1, (3, 3, 3, 3))]):
-            p = eb_params_for(C, filters, seed=i)
-            g = torch.Generator(device="cuda").manual_seed(i)
-            z = torch.randn(B, C, generator=g, device="cuda") * 4
-            got = eb_kernel.likelihood(p, z)
-            torch.cuda.synchronize()
-            want = eb_kernel.likelihood_plain(p, z)
+    keys = [name for _, name in eb_kernel.param_slots(p)]
+    tp = {k: v.detach().requires_grad_(k in keys) for k, v in p.items()}
+    tz = z.detach().requires_grad_(True)
+    grads = torch.autograd.grad(eb_kernel.likelihood(tp, tz),
+                                [tz] + [tp[k] for k in keys], g)
+    return dict(zip(["z"] + keys, grads))
+
+
+def k3_bwd_flops(widths) -> int:
+    """Operations of the backward per element: both chains again, the sign
+    trick and the pass-through, and back through both chains (per layer
+    the tanh stage's 5 and, per matrix entry, its gradient's multiply-add
+    and the input gradient's)."""
+    L = len(widths) - 1
+    chain = k3_chain_flops(widths)
+    back = sum(4 * o * i + o + (5 * o if l < L - 1 else 0)
+               for l, (i, o) in enumerate(zip(widths[:-1], widths[1:])))
+    return 2 * chain + 20 + 2 * back
+
+
+def k3_chain_flops(widths) -> int:
+    """Operations of one chain (per layer the products and sums of its
+    matrix, its bias and, but for the last layer, the tanh stage's 3)."""
+    L = len(widths) - 1
+    return sum(2 * o * i + o + (3 * o if l < L - 1 else 0)
+               for l, (i, o) in enumerate(zip(widths[:-1], widths[1:])))
+
+
+def check_k3() -> dict:
+    """Phase 3b, K3: the forward kernel against its plain version at
+    `K3_CHECKS` (rtol 1e-5 / atol 1e-7, the CPU tests'), the backward
+    kernel against `likelihood_backward_plain` and against autograd of
+    the reference chain at `K3_BWD_CHECKS` (rtol 1e-4, atol 2e-5 of the
+    gradient's largest entry, the CPU tests'), on inputs with floored
+    likelihoods under g of both signs; two backward calls equal bit for
+    bit; then timings of both kernels, their plain versions and the eager
+    backward they replace."""
+    import torch
+
+    from lossyless_tpu_torch.coding import eb_kernel
+
+    results, errs, bwd_errs, bwd_abs = {}, [], [], []
+    for i, (B, C, filters) in enumerate(K3_BWD_CHECKS):
+        p = eb_params_for(C, filters, seed=i)
+        gen = torch.Generator(device="cuda").manual_seed(i)
+        z = torch.randn(B, C, generator=gen, device="cuda") * 4
+        plan = eb_kernel.check_params(p, z)
+        if plan.design != k3_design(filters):
+            raise AssertionError(f"k3_plan picked {plan.design} for "
+                                 f"{filters}, expected {k3_design(filters)}")
+        if (B, C, filters) in K3_CHECKS:
+            with torch.inference_mode():
+                got = eb_kernel.likelihood(p, z)
+                torch.cuda.synchronize()
+                want = eb_kernel.likelihood_plain(p, z)
             err = (got - want).abs().max().item()
             ok = bool(torch.isfinite(got).all()) and bool(
                 ((got - want).abs() <= 1e-5 * want.abs() + 1e-7).all())
-            print(f"check eb_likelihood B={B} C={C} filters={filters} fp32: "
-                  f"max_abs_err={err!r} tol=rtol 1e-5 atol 1e-7 "
-                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            print(f"check eb_likelihood B={B} C={C} filters={filters} fp32 "
+                  f"{plan.design}: max_abs_err={err!r} tol=rtol 1e-5 atol "
+                  f"1e-7 {'ok' if ok else 'FAIL'}", flush=True)
             if not ok:
                 raise AssertionError(f"eb_likelihood disagrees with its plain "
                                      f"version at B={B} C={C}")
             errs.append(err)
-        B, C = TRAIN_BATCH, 512
-        p = eb_params_for(C, (3, 3, 3, 3), seed=100)
-        z = torch.randn(B, C, device="cuda") * 4
-        K = eb_kernel.pack_coefficients(p).shape[1]
-        w = eb_kernel.widths(p)
-        chain = sum(2 * o * i + o + (3 * o if l < len(w) - 2 else 0)
-                    for l, (i, o) in enumerate(zip(w[:-1], w[1:])))
-        nbytes = 2 * B * C * 4 + C * K * 4
-        flops = B * C * (2 * chain + 10)   # two chains, sign trick, floor
-        ms = median_ms(lambda: eb_kernel.likelihood(p, z))
-        dev_ms = device_ms(lambda: eb_kernel.likelihood(p, z),
-                           ("eb_likelihood_kernel",))
-        plain_ms = median_ms(lambda: eb_kernel.likelihood_plain(p, z))
-        bound_ms, bound_by = bound(nbytes, flops, "float32")
-        results["eb_likelihood"] = dict(
-            max_abs_err=errs[0], ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by,
-            bound_share=bound_share(bound_ms, dev_ms or ms), library_ms=None)
-        print(f"time eb_likelihood B={B} C={C} fp32: kernel {ms!r} ms "
-              f"(device {dev_ms!r} ms), plain {plain_ms!r} ms, bound "
-              f"{bound_ms!r} ms ({bound_by}: {nbytes} bytes, {flops} flop)",
-              flush=True)
+        g = torch.randn(B, C, generator=gen, device="cuda")
+        blocked = k3_floor_inputs(p, z, g)
+        got = k3_grads(p, z, g)
+        again = k3_grads(p, z, g)
+        torch.cuda.synchronize()
+        same = all(torch.equal(got[k], again[k]) for k in got)
+        dz, grads = eb_kernel.likelihood_backward_plain(p, z, g)
+        plain = {"z": dz, **grads}
+        dz, grads = k3_eager_backward(p, z, g, plan, True, True)
+        auto = {"z": dz, **grads}
+        worst = 0.0
+        ok = same and bool(torch.all(got["z"][blocked] == 0))
+        bwd_abs.append(max((got[k] - plain[k]).abs().max().item()
+                           for k in got))
+        for ref in (plain, auto):
+            for k, want in ref.items():
+                e = (got[k] - want).abs()
+                atol = 2e-5 * want.abs().max().item()
+                ok &= bool(torch.isfinite(got[k]).all()) and bool(
+                    (e <= 1e-4 * want.abs() + atol).all())
+                worst = max(worst, (e.max() / want.abs().max().clamp_min(
+                    1e-30)).item())
+        print(f"check eb_likelihood_bwd B={B} C={C} filters={filters} "
+              f"{plan.design}: {int(blocked.sum())} floored under g > 0, "
+              f"max err / max|grad| {worst!r} (rtol 1e-4, atol 2e-5 of the "
+              f"largest entry; vs plain and autograd), bit-equal {same} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"eb_likelihood_bwd disagrees at B={B} "
+                                 f"C={C} (bit-equal {same})")
+        bwd_errs.append(worst)
 
+    B, C = TRAIN_BATCH, 512
+    p = eb_params_for(C, (3, 3, 3, 3), seed=100)
+    z = torch.randn(B, C, device="cuda") * 4
+    g = torch.randn(B, C, device="cuda")
+    plan = eb_kernel.check_params(p, z)
+    K, w = plan.n_coeffs, plan.widths
+    with torch.inference_mode():
+        nbytes = 2 * B * C * 4 + C * K * 4
+        flops = B * C * (2 * k3_chain_flops(w) + 10)  # two chains, sign, floor
+        fwd = lambda: eb_kernel.likelihood(p, z)
+        ms = median_ms(fwd)
+        dev_ms = device_ms(fwd, ("eb_likelihood_kernel",))
+        plain_ms = median_ms(lambda: eb_kernel.likelihood_plain(p, z))
+    bound_ms, bound_by = bound(nbytes, flops, "float32")
+    results["eb_likelihood"] = dict(
+        max_abs_err=errs[0], design=plan.design, warps=plan.threads // 32,
+        ms=ms, device_ms=dev_ms,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        bound_share=bound_share(bound_ms, dev_ms or ms), library_ms=None)
+    print(f"time eb_likelihood B={B} C={C} fp32 {plan.design}, "
+          f"{plan.threads // 32} warps a block: kernel {ms!r} "
+          f"ms (device {dev_ms!r} ms), plain {plain_ms!r} ms, bound "
+          f"{bound_ms!r} ms ({bound_by}: {nbytes} bytes, {flops} flop)",
+          flush=True)
+
+    # the backward: the wrapper's launch, its plain version, and the eager
+    # backward it replaces
+    bwd = lambda: eb_kernel._launch_bwd(p, z, g, plan, True, True)
+    eager = lambda: k3_eager_backward(p, z, g, plan, True, True)
+    bytes_bwd = 3 * B * C * 4 + 2 * C * K * 4
+    flops_bwd = B * C * k3_bwd_flops(w)
+    b_ms = median_ms(bwd)
+    b_dev = device_ms(bwd, ("eb_likelihood_bwd_kernel",))
+    b_plain = median_ms(lambda: eb_kernel.likelihood_backward_plain(p, z, g))
+    e_ms = median_ms(eager)
+    e_kernels = device_kernel_count(eager)
+    e_dev = device_ms(eager)
+    b_bound, b_by = bound(bytes_bwd, flops_bwd, "float32")
+    results["eb_likelihood_bwd"] = dict(
+        max_abs_err=bwd_abs[0], max_err_over_max=bwd_errs[0],
+        design=plan.design, warps=plan.bwd_threads // 32, ms=b_ms,
+        device_ms=b_dev, plain_ms=b_plain, bound_ms=b_bound, bound_by=b_by,
+        bound_share=bound_share(b_bound, b_dev or b_ms), library_ms=None,
+        eager_backward_ms=e_ms, eager_backward_device_ms=e_dev,
+        eager_backward_device_kernels=e_kernels)
+    print(f"time eb_likelihood_bwd B={B} C={C} fp32 {plan.design}, "
+          f"{plan.bwd_threads // 32} warps a block: kernel "
+          f"{b_ms!r} ms (device {b_dev!r} ms), plain {b_plain!r} ms, eager "
+          f"backward {e_ms!r} ms ({e_kernels} device kernels, device "
+          f"{e_dev!r} ms), bound {b_bound!r} ms ({b_by}: {bytes_bwd} bytes, "
+          f"{flops_bwd} flop)", flush=True)
+    return results
+
+
+def k3_eager_backward(params: dict, z, g, plan, want_z: bool,
+                      want_params: bool):
+    """The backward K3 had before its backward kernel (the port's form of
+    the JAX `_bwd`): recompute the reference chain with lower_bound under
+    autograd and differentiate it, for the inputs that need a gradient.
+    Takes and returns what `eb_kernel._launch_bwd` does."""
+    import torch
+
+    from lossyless_tpu_torch.coding import eb_kernel
+
+    names = [k for _, k in eb_kernel.param_slots(params)]
+    with torch.enable_grad():
+        tz = z.detach().requires_grad_(want_z)
+        tp = {k: t.detach().requires_grad_(want_params and k in names)
+              for k, t in params.items()}
+        inputs = ([tz] if want_z else []) + (
+            [tp[k] for k in names] if want_params else [])
+        grads = iter(torch.autograd.grad(eb_kernel._reference(tp, tz),
+                                         inputs, g))
+    dz = next(grads) if want_z else None
+    return dz, ({k: next(grads) for k in names} if want_params else None)
+
+
+def device_kernel_count(fn, reps: int = 5) -> float:
+    """Device kernels (and copies) one `fn()` launches, from a
+    torch.profiler trace of `reps` calls after a warm-up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / reps
+
+
+def check_k3_k4() -> dict:
+    """Phase 3b: K3 and K4 vs their plain versions, then timings."""
+    import torch
+
+    from lossyless_tpu_torch.nn import flash_attn as fa
+
+    results = check_k3()
+    with torch.inference_mode():
         # K4: bf16, atol 2e-2 plus one bf16 ulp of the value (two roundings
         # of sums taken in another order can each flip an ulp)
         lib = fa._get_mlp_lib()
@@ -1423,7 +1630,8 @@ def train_path(card: str):
     want = {"fused_attention": (L - 1) * TRAIN_STEPS,
             "fused_attention_cls": TRAIN_STEPS,
             "fused_mlp_block": (L - 1) * TRAIN_STEPS,
-            "eb_likelihood": TRAIN_STEPS, **NO_K5}
+            "eb_likelihood": TRAIN_STEPS, "eb_likelihood_bwd": TRAIN_STEPS,
+            **NO_K5}
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
     logs = {k: float(v) for k, v in last.items()}
@@ -1445,6 +1653,8 @@ def train_path(card: str):
                                log=lambda _: None, device=DEVICE),
         card, steps=PROFILE_STEPS, batch=TRAIN_BATCH)
     print(json.dumps({"training_profile": prof}), flush=True)
+    print(f"device kernels a training step (clip_hub, phase 5 trace): "
+          f"{prof['device_kernels_per_step']!r}", flush=True)
     train_ab(cfg, batches[:AB_STEPS])
     return state, launches
 
@@ -1565,7 +1775,8 @@ def slice_path(card: str) -> dict:
     launches = read_launches()
     per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
     want = {"fused_attention": L - 1, "fused_attention_cls": 1,
-            "eb_likelihood": 1, "fused_mlp_block": 0, **NO_K5}
+            "eb_likelihood": 1, "eb_likelihood_bwd": 1, "fused_mlp_block": 0,
+            **NO_K5}
     if per_step != want:
         raise AssertionError(f"launches per step {per_step}, expected {want}")
     keys = ("loss", "rate", "H_q_S", "H_q_ZlS", "distortion")
@@ -1609,7 +1820,8 @@ def slice_path(card: str) -> dict:
                 "fused_attention_packed", "headbatched":
                 "fused_attention_headbatched"}[name]
         wanted = {k: 0 for k in got} | {
-            attn: L - 1, "fused_attention_cls": 1, "eb_likelihood": 1}
+            attn: L - 1, "fused_attention_cls": 1, "eb_likelihood": 1,
+            "eb_likelihood_bwd": 1}
         if got != wanted:
             raise AssertionError(f"{name}: launches per step {got}, "
                                  f"expected {wanted}")
@@ -1718,6 +1930,8 @@ def slice_path(card: str) -> dict:
                                log=lambda _: None, device=DEVICE),
         card, steps=PROFILE_STEPS, batch=TRAIN_BATCH)
     print(json.dumps({"slice_training_profile": prof}), flush=True)
+    print(f"device kernels a training step (clip_bottleneck_pretrain, phase "
+          f"8d trace): {prof['device_kernels_per_step']!r}", flush=True)
     under_knob = {"fused_attention_packed": runs["packed"][
         "launches_per_step"]["fused_attention_packed"],
         "fused_attention_headbatched": runs["headbatched"][
@@ -1738,7 +1952,8 @@ KERNEL_GROUPS = {"attention K5a/K5b": ("packed_attention",
                  "attention K1/K2": ("attention_kernel", "attention_tile",
                                      "k5_onepass"),
                  "mlp K4": ("mlp_block_kernel",),
-                 "likelihood K3": ("eb_likelihood_kernel",),
+                 "likelihood K3": ("eb_likelihood_kernel",
+                                   "eb_likelihood_bwd_kernel"),
                  "matmul": ("gemm", "xmma", "cutlass", "nvjet", "cublas"),
                  "copies": ("memcpy", "memset")}
 
@@ -1760,6 +1975,7 @@ def device_profile(fn, card: str, **fields) -> dict:
                if e.device_type == torch.autograd.DeviceType.CUDA]
     by_name = {e.key: e.self_device_time_total / 1e3 for e in kernels}
     busy_ms = sum(by_name.values())
+    n_kernels = sum(e.count for e in kernels)   # kernels and copies
     by_group = dict.fromkeys([*KERNEL_GROUPS, "other"], 0.0)
     for name, ms in by_name.items():
         group = next((g for g, keys in KERNEL_GROUPS.items()
@@ -1772,6 +1988,9 @@ def device_profile(fn, card: str, **fields) -> dict:
     return dict(
         card=card, **fields, wall_ms=wall_ms,
         device_busy_ms=busy_ms if busy_ms else "not measured",
+        device_kernels=n_kernels,
+        device_kernels_per_step=n_kernels / fields["steps"]
+        if "steps" in fields else None,
         device_idle_share=1 - busy_ms / wall_ms if busy_ms else
         "not measured", by_group_ms=by_group,
         top_kernels_ms=[[name[:80], ms] for name, ms in top],
@@ -1892,21 +2111,23 @@ def main() -> int:
         del state
         slice_launches, under_knob = slice_path(card)
     missing = [k for k in ("fused_attention", "fused_attention_cls",
-                           "eb_likelihood", *NO_K5) if not slice_launches[k]]
+                           "eb_likelihood", "eb_likelihood_bwd", *NO_K5)
+               if not slice_launches[k]]
     if missing:
         raise AssertionError(f"the slice path launched no {missing}")
 
     attention_cu = "lossyless_tpu_torch/nn/csrc/attention.cu"
+    eb_cu = "lossyless_tpu_torch/coding/csrc/eb_likelihood.cu"
     sources = {"fused_attention": attention_cu,
                "fused_attention_cls": attention_cu,
-               "eb_likelihood":
-                   "lossyless_tpu_torch/coding/csrc/eb_likelihood.cu",
+               "eb_likelihood": eb_cu, "eb_likelihood_bwd": eb_cu,
                "fused_mlp_block": "lossyless_tpu_torch/nn/csrc/mlp_block.cu",
                "fused_attention_packed": attention_cu,
                "fused_attention_headbatched": attention_cu}
     replaces = {"fused_attention": "lossyless_tpu/nn/flash_attn.py:211",
                 "fused_attention_cls": "lossyless_tpu/nn/flash_attn.py:349",
                 "eb_likelihood": "lossyless_tpu/coding/pallas_eb.py:117",
+                "eb_likelihood_bwd": "lossyless_tpu/coding/pallas_eb.py:153",
                 "fused_mlp_block": "lossyless_tpu/nn/flash_attn.py:433",
                 "fused_attention_packed": "lossyless_tpu/nn/flash_attn.py:146",
                 "fused_attention_headbatched":
@@ -1940,6 +2161,11 @@ def main() -> int:
                             if k5_kernel(fn, name)}
         elif name == "fused_mlp_block":   # both designs' kernels
             row["ptxas"] = ptxas["mlp_block"]
+        else:   # K3's forward or backward kernels, every design
+            bwd = name == "eb_likelihood_bwd"
+            row["ptxas"] = {fn: info for fn, info in
+                            ptxas["eb_likelihood"].items()
+                            if ("eb_likelihood_bwd_kernel" in fn) == bwd}
         kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

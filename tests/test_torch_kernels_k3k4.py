@@ -4,8 +4,9 @@ half-block) against the JAX Pallas kernels.
 The JAX side runs its Pallas kernels in interpret mode on the CPU, as
 tests/test_pallas_eb.py and tests/test_flash_attn.py do. The port's
 wrappers route CPU tensors to their plain versions (the CUDA kernels'
-arithmetic in plain torch), so this holds that arithmetic, and the
-backward that recomputes through it, to the TPU kernels.
+arithmetic in plain torch), so this holds that arithmetic, and K3's
+analytic backward (`likelihood_backward_plain`, tested further in
+tests/test_torch_eb_k3.py), to the TPU kernels.
 
 Tolerances, with their reasons:
 * K3 values rtol 1e-5 / atol 1e-7 and gradients rtol 1e-4 / atol 1e-6
@@ -118,13 +119,24 @@ def test_k3_floor_keeps_the_recover_gradient():
 
 
 def test_k3_packing_matches_the_tpu_kernels_weights():
+    """The kernels read the parameters where they lie, through a table of
+    pointers (`param_slots`: slot 3 l + 0/1/2 = matrix/bias/factor of
+    layer l) in the order of JAX's `pack_weights`: the slots' tensors,
+    flattened per channel and concatenated, are JAX's packed weights."""
     p = _eb_params(6, (3, 3, 3, 3), seed=3)
     packed, dims = pallas_eb.pack_weights(
         {k: jnp.asarray(v) for k, v in p.items()})
+    slots = eb_kernel.param_slots(_torch(p))
+    assert len(slots) == len(packed)
+    for slot, name in slots:
+        assert name == f"{('matrix', 'bias', 'factor')[slot % 3]}{slot // 3}"
+    assert [s for s, _ in slots] == sorted(s for s, _ in slots)
+    got = np.concatenate([p[name].reshape(6, -1) for _, name in slots],
+                         axis=1)
     want = np.concatenate([np.asarray(w) for w in packed], axis=1)
-    got = eb_kernel.pack_coefficients(_torch(p)).numpy()
     np.testing.assert_array_equal(got, want)
     assert eb_kernel.widths(_torch(p)) == (1,) + tuple(d for d, _ in dims)
+    assert eb_kernel.n_coeffs(eb_kernel.widths(_torch(p))) == want.shape[1]
 
 
 def test_k3_refuses_a_device_it_has_no_kernel_for():
