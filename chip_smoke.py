@@ -14,6 +14,7 @@ non-zero without printing a result:
    (`K1_CHECKS`, `K2_CHECKS`): the slice shapes (ViT-B/32: N=50, 12 heads
    of 64, bf16, batch 512 and the main path's 256), N = 1, 16, 17, 64
    and 65, h = 1, d = 16, 32, 48, 56, 80, 96, 112 and 128, B = 1 and 7,
+   the CLIP presets' 96 px shape (N = 10 at B = 128 and 256),
    odd shapes in fp32 and bf16 (d = 20, 33, 40; N = 5, 7, 9, 33, 37, 130,
    197), an input whose data pointer is not 16-byte aligned (a view at a
    storage offset of one element: the element path), K2 at B = 1 and 7 in
@@ -32,7 +33,10 @@ non-zero without printing a result:
    yardstick only), the bound and the share of the bound reached, and
    K1's designs side by side on the same inputs (the tile, the one-pass
    tile, the row code: both clocks, each checked against the plain
-   version);
+   version); at N = 10, B = 128 and 256 (phase 11's attention), K1 and
+   K2 timed the same way and K1 held to the float64 attention on the
+   TMA/wgmma tile (asserted), the check counted on independent draws
+   pooled up to the slice check's 19,660,800 outputs (`FLOAT64_OUTPUTS`);
 3b. K3 (entropy-bottleneck likelihood) at the training shape (128, 512) and
    at odd shapes in fp32 (`K3_CHECKS`), to rtol 1e-5 / atol 1e-7, each on
    the design `k3_plan` picks (asserted: the fixed chain for (3,3,3,3) and
@@ -124,11 +128,30 @@ non-zero without printing a result:
    equal to the host dequantize to 1e-5, and the side symbols and the
    main symbols given K1's side latent within 1% of K1's; a
    torch.profiler trace of 3 steps (with the device kernels a step);
+9. the deployment CLI in subprocesses (`python -m
+   lossyless_tpu_torch.hub.cli` through a launcher that points
+   `load_reference.REFERENCE_HUB` at a temporary directory holding a
+   seeded rate file in the published layout): `compress` of a .npz of
+   2 x 256 raw uint8 96x96 images with `--device-preprocess 96 96`,
+   `info`, `decompress`; the decoded features equal the in-process
+   dequantize path to 1e-5, the printed rate equals info's file bits an
+   image (payload + 32 bits of framing a record);
+10. the bench in subprocesses (`python -m lossyless_tpu_torch.bench`,
+   default mode and `--host-fed`, `BENCH_N_BATCHES=4`): every key of its
+   JSON line, 0 < device_mfu < 1; the lines printed as a record, no
+   speed bound;
+11. the three-stage pipeline: `main(preset("clip_bottleneck_linear_eval"))`
+   with K3 on, at full width on 4,096 synthetic 96 px images, 2
+   featurizer and 2 predictor epochs (`PIPELINE_REDUCED`): the three
+   stage sentinels and results CSVs, a finite `test/pred/acc`, K1 11 and
+   K2 1 a tower forward, K3 and its backward launched; a second `main`
+   skips every stage (no step, no launch); a featurizer stage killed
+   after its first `save_last` resumes at that step;
 7. the `kernels` JSON line (K1-K4, K3's backward, K5a, K5b; with
-   `device_ms` and `bound_share`, K1/K2 also at batch 256, K1's design,
-   its float64 readings and its designs side by side, and the registers
-   and spills of every kernel) and, last, `{"ok": true, "device":
-   {...}}`.
+   `device_ms` and `bound_share`, K1/K2 also at batch 256 and at N = 10,
+   K1's design, its float64 readings and its designs side by side, the
+   launches on phase 11's path, and the registers and spills of every
+   kernel) and, last, `{"ok": true, "device": {...}}`.
 
 It needs a CUDA card and the repository around it: with no card, or run
 from a directory that holds only this file, it fails.
@@ -287,6 +310,9 @@ K1_CHECKS = [
     (2, 40, 2, 80, "bfloat16", 2e-2, {}),
     (2, 50, 2, 112, "bfloat16", 2e-2, {}),
     (1, 50, 12, 64, "bfloat16", 2e-2, {}),
+    # the CLIP presets' 96 px images: 3x3 patches + the class token
+    (128, 10, 12, 64, "bfloat16", 2e-2, {}),
+    (256, 10, 12, 64, "bfloat16", 2e-2, {}),
 ]
 K2_CHECKS = [
     (512, 50, 12, 64, "bfloat16", 2e-2, {}),
@@ -304,7 +330,10 @@ K2_CHECKS = [
     (2, 7, 3, 20, "float32", 1e-5, {}),           # 5 chunks a row
     (3, 9, 2, 33, "bfloat16", 2e-2, {}),          # element loads
     (3, 50, 12, 64, "bfloat16", 2e-2, {"unaligned": True}),
+    (128, 10, 12, 64, "bfloat16", 2e-2, {}),      # the 96 px presets
+    (256, 10, 12, 64, "bfloat16", 2e-2, {}),
 ]
+PIPELINE_N, PIPELINE_BATCHES = 10, (128, 256)   # phase 11's attention
 
 
 def _randn(g, shape, dtype, unaligned=False):
@@ -533,7 +562,60 @@ def check_kernels():
                     results[name] = dict(max_abs_err=errs[0], **row)
                 else:
                     results[name][f"at_b{B}"] = row
+            # the pipeline's shape (phase 11): N = 10 at its batches, K1 on
+            # the TMA/wgmma tile and held to the float64 attention
+            for B in PIPELINE_BATCHES:
+                h, d = SLICE["heads"], SLICE["d"]
+                row = time_attention(name, make, kernel, plain, B,
+                                     PIPELINE_N, h, d)
+                if name == "fused_attention":
+                    row.update(k1_float64_check(B, PIPELINE_N, h, d))
+                results[name][f"at_n{PIPELINE_N}_b{B}"] = row
     return results
+
+
+# outputs of the float64 check at the slice shape (B=512, N=50): a check at
+# a smaller shape pools independent draws up to this many outputs, so its
+# share of differing outputs is counted on as large a sample (a single
+# draw at B=128, N=10 holds ~60-100 of them, too few to read a 1.5x ratio
+# on: scripts/k1_float64_spread.py, PERF.md §6)
+FLOAT64_OUTPUTS = 512 * 50 * 768
+
+
+def k1_float64_check(B, N, h, d) -> dict:
+    """K1 at (B, N, h, d) bf16: the design its plan picks (asserted: the
+    TMA/wgmma tile) and `float64_check`, which must pass, on draws of
+    `k1_inputs` (seeds 100, 101, ...) pooled up to `FLOAT64_OUTPUTS`
+    outputs; each draw's own reading is printed as a record."""
+    import math
+
+    import torch
+
+    from lossyless_tpu_torch.nn import flash_attn as fa
+
+    design = fa.k1_plan(B, N, h, d, torch.bfloat16).design
+    if design != "wgmma":
+        raise AssertionError(f"K1 at B={B} N={N}: plan {design}, expected "
+                             f"wgmma")
+    draws = math.ceil(FLOAT64_OUTPUTS / (B * N * h * d))
+    got, plain, ref, per_draw = [], [], [], []
+    for i in range(draws):
+        (qkv,) = k1_inputs(B, N, h, d, torch.bfloat16, seed=100 + i)
+        got.append(fa.fused_attention(qkv, h))
+        plain.append(fa.attention_plain(qkv, h))
+        ref.append(attention_float64(qkv, h))
+        one = float64_check(got[-1], plain[-1], ref[-1])
+        per_draw.append({k: one[k] for k in ("share_kernel", "share_plain",
+                                             "ok")})
+    check = float64_check(torch.cat(got), torch.cat(plain), torch.cat(ref))
+    print(f"check fused_attention B={B} N={N} vs float64 over {draws} "
+          f"draws: {check} {'ok' if check['ok'] else 'FAIL'}; each draw "
+          f"(a record): {per_draw}", flush=True)
+    if not check["ok"]:
+        raise AssertionError(f"K1 at B={B} N={N} is farther from the "
+                             f"float64 attention than its bound: {check}")
+    return dict(design=design, float64=check, float64_draws=draws,
+                float64_per_draw=per_draw)
 
 
 def k1_float64_and_designs(lib, B, N, h, d) -> dict:
@@ -2077,6 +2159,321 @@ def ptxas_report(log: str) -> dict:
     return report
 
 
+ROOT = Path(__file__).resolve().parent
+
+# ---------------------------------------------------------------------------
+# Phase 9: the CLI, in subprocesses, on the card
+# ---------------------------------------------------------------------------
+
+CLI_IMAGES = 2 * BATCH
+# points the CLI's `--beta` names at a directory: the published rate files
+# are not in the checkout, and nothing is written under its `reference/`
+CLI_LAUNCHER = ("import sys; from pathlib import Path; "
+                "from lossyless_tpu_torch.hub import load_reference as r; "
+                "r.REFERENCE_HUB = Path(sys.argv[1]); "
+                "from lossyless_tpu_torch.hub.cli import main; "
+                "sys.exit(main(sys.argv[2:]))")
+
+
+def write_rate_file(path: Path):
+    """A factorized rate in the published `factorized_rate.pt` layout (the
+    keys `hub/load_reference.py` reads), from phase 4's seeded
+    parameters and affine."""
+    import torch
+
+    from lossyless_tpu_torch.coding import entropy_bottleneck as eb
+
+    rng = np.random.default_rng(0)
+    params = eb.init_params(eb.EBConfig(512),
+                            torch.Generator().manual_seed(0))
+    sd = {"entropy_bottleneck." + (k if k == "quantiles" else f"_{k}"): v
+          for k, v in params.items()}
+    sd["scaling"] = torch.from_numpy(
+        rng.normal(1.5, 0.2, 512).astype(np.float32))
+    sd["biasing"] = torch.from_numpy(
+        rng.normal(0.0, 0.1, 512).astype(np.float32))
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(sd, path)
+
+
+def run_cli(hub: Path, *args) -> str:
+    """`python -m lossyless_tpu_torch.hub.cli *args` with `--beta` names
+    resolving under `hub`; its last printed line."""
+    out = subprocess.run([sys.executable, "-c", CLI_LAUNCHER, str(hub),
+                          *map(str, args)], capture_output=True, text=True,
+                         timeout=600, cwd=ROOT)
+    if out.returncode:
+        raise AssertionError(f"cli {args[0]} exited {out.returncode}: "
+                             f"{out.stderr[-3000:]}")
+    return out.stdout.strip().splitlines()[-1]
+
+
+def cli_path(card: str):
+    """Phase 9: compress a .npz of raw 96 px images with resize and
+    normalize on the card, then info, then decompress; the decoded
+    features against the in-process dequantize path, the printed rate
+    against info's bits."""
+    import re
+
+    from lossyless_tpu_torch.hub.compressor import load_pretrained
+    from lossyless_tpu_torch.hub.load_reference import BETA_DIRS
+
+    rng = np.random.default_rng(31)
+    x = rng.integers(0, 256, (CLI_IMAGES, *RAW_HW, 3), dtype=np.uint8)
+    y = np.arange(CLI_IMAGES)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        hub = tmp / "hub"
+        rate_file = hub / BETA_DIRS["b005"] / "factorized_rate.pt"
+        write_rate_file(rate_file)
+        np.savez(tmp / "in.npz", x=x, y=y)
+        data, labels, z_file = tmp / "ds.bin", tmp / "y.npy", tmp / "z.npz"
+        t0 = time.perf_counter()
+        compress = run_cli(hub, "compress", tmp / "in.npz", data, "--labels",
+                           labels, "--device-preprocess", *RAW_HW,
+                           "--batch-size", BATCH, "--device", DEVICE)
+        t_compress = time.perf_counter() - t0
+        info = run_cli(hub, "info", data)
+        decompress = run_cli(hub, "decompress", data, z_file, "--labels",
+                             labels, "--device", DEVICE)
+        z = np.load(z_file)
+        z_hat, y_dec = z["z"], z["y"]
+        comp = load_pretrained(rate_file, raw_input_hw=RAW_HW, device=DEVICE)
+        features = np.concatenate([comp(x[i:i + BATCH])
+                                   for i in range(0, CLI_IMAGES, BATCH)])
+    m = re.fullmatch(r"Rate: ([\d.]+) bits/img \| Encoding: ([\d.]+) "
+                     r"img/sec", compress)
+    mi = re.search(r"(\d+) images, ([\d.]+) payload bits/img, ([\d.]+) "
+                   r"file bits/img", info)
+    if not (m and mi):
+        raise AssertionError(f"unexpected CLI lines {compress!r} {info!r}")
+    err = float(np.abs(z_hat - features).max())
+    n, payload, file_bits = int(mi.group(1)), float(mi.group(2)), \
+        float(mi.group(3))
+    # compress prints the file's bits an image (JAX's definition); the
+    # framing adds a 32-bit length a record and a 32-bit count
+    framing = file_bits - payload
+    ok = (n == CLI_IMAGES and m.group(1) == mi.group(3)
+          and abs(framing - 32 * (1 + 1 / n)) < 0.01
+          and z_hat.shape == (CLI_IMAGES, 512) and np.isfinite(z_hat).all()
+          and np.array_equal(y_dec, y) and err <= 1e-5)
+    print(json.dumps({"cli_path": dict(
+        card=card, images=CLI_IMAGES, raw_hw=list(RAW_HW), compress=compress,
+        info=info, decompress=decompress, wall_s_compress=t_compress,
+        payload_bits_per_img=payload, file_bits_per_img=file_bits,
+        decode_vs_dequantize_max_abs_err=err, ok=ok)}), flush=True)
+    if not ok:
+        raise AssertionError(f"CLI round trip: {compress!r} {info!r} "
+                             f"err {err}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the bench, in subprocesses, at a reduced window
+# ---------------------------------------------------------------------------
+
+BENCH_WINDOW = 4          # BENCH_N_BATCHES: 4 x 512 images a window
+BENCH_KEYS = ("value", "value_spread", "runs", "input", "bits_per_img",
+              "rate_is_synthetic", "decode_img_per_sec", "flops_per_img",
+              "device_mfu", "vs_baseline")
+
+
+def bench_path(card: str) -> dict:
+    """Phase 10: `python -m lossyless_tpu_torch.bench` in its default mode
+    and `--host-fed`; every key of its JSON line, 0 < device_mfu < 1. The
+    lines are a record with no speed bound."""
+    import os
+
+    env = dict(os.environ, BENCH_N_BATCHES=str(BENCH_WINDOW))
+    records = {}
+    for mode, extra in (("device_resident", []), ("host_fed",
+                                                  ["--host-fed"])):
+        out = subprocess.run([sys.executable, "-m",
+                              "lossyless_tpu_torch.bench", *extra],
+                             env=env, capture_output=True, text=True,
+                             timeout=600, cwd=ROOT)
+        if out.returncode:
+            raise AssertionError(f"bench {mode} exited {out.returncode}: "
+                                 f"{out.stderr[-3000:]}")
+        lines = out.stdout.strip().splitlines()
+        rec = json.loads(lines[-1])
+        want = BENCH_KEYS + (("device_capacity_img_per_sec",
+                              "whole_run_img_per_sec",
+                              "device_capacity_whole_run_img_per_sec")
+                             if mode == "device_resident" else ())
+        missing = [k for k in want if k not in rec]
+        if missing or rec["rate_is_synthetic"] is not True or not \
+                0 < rec["device_mfu"] < 1 or {"vs_north_star",
+                                              "transfer_bound_tunnel"} & \
+                set(rec):
+            raise AssertionError(f"bench {mode}: missing {missing} in {rec}")
+        records[mode] = dict(card=lines[-2], record=rec)
+        print(json.dumps({f"bench_{mode}": records[mode]}), flush=True)
+    return records
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the three-stage pipeline on clip_bottleneck_linear_eval
+# ---------------------------------------------------------------------------
+
+PIPELINE_OVERRIDES = ["rate.eb_use_pallas=True",
+                      "data_feat.kwargs.synthetic=True",
+                      "data_feat.kwargs.synthetic_n=4096",
+                      "data_feat.kwargs.is_augment=False",
+                      "data_feat.n_epochs=2", "predictor.n_epochs=2"]
+PIPELINE_REDUCED = {
+    "images": "4,096 seeded synthetic STL10-shaped images (96 px, 10 "
+              "classes; train/validation carved 90/10, test 4,096) in "
+              "place of the STL10 files, which are not in the checkout",
+    "featurizer_epochs": "2 of 10", "predictor_epochs": "2 of 20",
+    "augmentation": "off (is_augment=False): not ported, ROADMAP queue 1 "
+                    "order 4",
+    "widths": "none cut: ViT-B/32 768 wide, 12 layers, 12 heads"}
+RESUME_IMAGES = 1024
+
+
+class CountForwards:
+    """Counts the tower's forwards (each launches K1 11 and K2 once)."""
+
+    def __enter__(self):
+        from lossyless_tpu_torch.nn.vit import VisionTransformer
+
+        self.n = 0
+        self.saved = VisionTransformer.forward
+
+        def forward(module, x):
+            self.n += 1
+            return self.saved(module, x)
+
+        VisionTransformer.forward = forward
+        return self
+
+    def __exit__(self, *exc):
+        from lossyless_tpu_torch.nn.vit import VisionTransformer
+
+        VisionTransformer.forward = self.saved
+
+
+class CountTrainSteps:
+    def __enter__(self):
+        from lossyless_tpu_torch.pipeline import run
+
+        self.n = 0
+        self.saved = run.train_step
+
+        def step(*a, **k):
+            self.n += 1
+            return self.saved(*a, **k)
+
+        run.train_step = step
+        return self
+
+    def __exit__(self, *exc):
+        from lossyless_tpu_torch.pipeline import run
+
+        run.train_step = self.saved
+
+
+def pipeline_path(card: str) -> dict:
+    """Phase 11: `main(preset("clip_bottleneck_linear_eval"))` at full
+    width (featurizer with validation and checkpoints, communication,
+    predictor), a second `main` that skips every stage, and a featurizer
+    stage killed after its first `save_last` that resumes there. Returns
+    the first `main`'s launch counts."""
+    from lossyless_tpu_torch.pipeline import config, run
+    from lossyless_tpu_torch.train.checkpoints import CheckpointManager
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = config.apply_overrides(
+            config.preset("clip_bottleneck_linear_eval"),
+            PIPELINE_OVERRIDES + [f"out_dir={tmp}/out",
+                                  f"ckpt_dir={tmp}/ckpt"])
+        reset_launches()
+        with CountForwards() as fw, CountTrainSteps() as ts:
+            t0 = time.perf_counter()
+            metrics = run.main(cfg, device=DEVICE)
+            sync()
+            wall = time.perf_counter() - t0
+        launches = read_launches()
+        want = {**dict.fromkeys(launches, 0), "fused_attention": 11 * fw.n,
+                "fused_attention_cls": fw.n}
+        got = {k: v for k, v in launches.items()
+               if not k.startswith("eb_likelihood")}
+        if got != {k: want[k] for k in got} or fw.n == 0 or ts.n == 0 or \
+                launches["eb_likelihood"] < 1 or \
+                launches["eb_likelihood_bwd"] < 1:
+            raise AssertionError(f"pipeline launches {launches} over "
+                                 f"{fw.n} tower forwards, {ts.n} steps")
+        stage_dir = Path(cfg.stage_dir)
+        files = sorted(p.name for p in stage_dir.iterdir())
+        need = [f"{s}_end.txt" for s in ("featurizer", "communication",
+                                          "predictor")] + \
+            [f"results_{s}.csv" for s in ("featurizer", "communication",
+                                          "predictor")]
+        acc = float(metrics["test/pred/acc"])
+        if [f for f in need if f not in files] or not np.isfinite(acc):
+            raise AssertionError(f"pipeline files {files}, acc {acc}")
+
+        # a second main on the same directories skips every stage
+        reset_launches()
+        with CountTrainSteps() as ts2:
+            t0 = time.perf_counter()
+            again = run.main(cfg, device=DEVICE)
+            wall_again = time.perf_counter() - t0
+        relaunched = read_launches()
+        if again or ts2.n or any(relaunched.values()):
+            raise AssertionError(f"second main ran {again}, {ts2.n} steps, "
+                                 f"launches {relaunched}")
+
+        # a featurizer stage killed after its first save_last resumes there
+        cfg_r = config.apply_precision(config.apply_overrides(
+            cfg, [f"data_feat.kwargs.synthetic_n={RESUME_IMAGES}",
+                  f"out_dir={tmp}/resume_out", f"ckpt_dir={tmp}/resume"]))
+
+        class Killed(Exception):
+            pass
+
+        real_save = CheckpointManager.save_last
+
+        def save_then_die(self, state, step):
+            real_save(self, state, step)
+            raise Killed
+
+        first, second = [], []
+        CheckpointManager.save_last = save_then_die
+        try:
+            run.run_featurizer_stage(copy.deepcopy(cfg_r), device=DEVICE,
+                                     on_step=lambda s, *_: first.append(s),
+                                     log=lambda _: None)
+            raise AssertionError("the featurizer stage was not killed")
+        except Killed:
+            pass
+        finally:
+            CheckpointManager.save_last = real_save
+        state, *_ = run.run_featurizer_stage(
+            copy.deepcopy(cfg_r), device=DEVICE,
+            on_step=lambda s, *_: second.append(s), log=lambda _: None)
+        spe = len(first)
+        resumed = (spe > 0 and second == list(range(spe, 2 * spe))
+                   and state.step == 2 * spe)
+    keep = {k: v for k, v in metrics.items() if isinstance(v, float)}
+    print(json.dumps({"pipeline_path": dict(
+        card=card, preset="clip_bottleneck_linear_eval",
+        overrides=PIPELINE_OVERRIDES, reduced=PIPELINE_REDUCED,
+        wall_s=wall, tower_forwards=fw.n, train_steps=ts.n,
+        launches=launches, launches_per_tower_forward={
+            k: launches[k] / fw.n for k in ("fused_attention",
+                                            "fused_attention_cls")},
+        stage_files=files, metrics=keep, test_pred_acc=acc,
+        second_main=dict(ran=again, wall_s=wall_again, train_steps=ts2.n,
+                         launches=relaunched),
+        resume=dict(images=RESUME_IMAGES, steps_first_run=first,
+                    steps_after_restart=second, ok=resumed))}), flush=True)
+    if not resumed:
+        raise AssertionError(f"resume: first run steps {first}, restart "
+                             f"steps {second}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2115,6 +2512,9 @@ def main() -> int:
                if not slice_launches[k]]
     if missing:
         raise AssertionError(f"the slice path launched no {missing}")
+    cli_path(card)
+    bench_path(card)
+    pipeline_launches = pipeline_path(card)
 
     attention_cu = "lossyless_tpu_torch/nn/csrc/attention.cu"
     eb_cu = "lossyless_tpu_torch/coding/csrc/eb_likelihood.cu"
@@ -2138,7 +2538,8 @@ def main() -> int:
             # K5a/K5b: the slice path's run (8b under their knob, 8c)
             counts = dict(
                 launches=slice_launches[name],
-                launches_per_training_step_under_knob=under_knob[name])
+                launches_per_training_step_under_knob=under_knob[name],
+                launches_on_pipeline_path=pipeline_launches[name])
         else:
             # K1/K2 on the encode path, K3/K4 on the training path (K1/K2
             # run there too: launches_per_training_step)
@@ -2149,7 +2550,8 @@ def main() -> int:
                 launches_per_encode_batch=encode_launches[name] / N_BATCHES,
                 launches_per_training_step=train_launches[name]
                 / TRAIN_STEPS,
-                launches_on_slice_path=slice_launches[name])
+                launches_on_slice_path=slice_launches[name],
+                launches_on_pipeline_path=pipeline_launches[name])
         row = dict(name=name, route="cuda", source=sources[name],
                    replaces=replaces[name], **counts, **timings[name])
         # registers and spills of the kernel's instantiations

@@ -9,8 +9,9 @@ computes the combined objective
 and the trainer (`train/state.py`) splits the parameters into optimizer
 groups by path. Ported so far: the deterministic/Gaussian encoder on the
 CLIP tower, the factorized and hyperprior rates and the lossy_Z
-distortion (the hub compressor's and the CLIP bottleneck's recipes). The
-online probe and the two-view contrastive branches wait for ROADMAP
+distortion (the hub compressor's and the CLIP bottleneck's recipes), the
+lossless pass-through rate and the online probe on the detached z
+(`OnlineEvaluator`). The two-view contrastive branches wait for ROADMAP
 queue 1 item 6.
 
 Two differences of form from JAX, with the same updates:
@@ -37,7 +38,8 @@ from ..core.annealer import Annealer
 from ..nn.registry import get_architecture
 from ..nn.mlp import params_from_flax as mlp_params_from_flax
 from ..nn.vit import params_from_flax
-from .distortions import DistortionConfig, make_distortion_estimator
+from .distortions import (DistortionConfig, make_distortion_estimator,
+                          prediction_loss)
 from .distributions import from_suff_param, n_suff_params
 from .rates import LOG2, RateConfig, make_rate_estimator
 
@@ -96,6 +98,36 @@ class CondEncoder(nn.Module):
         return from_suff_param(self.cfg.family, self.mapper(x).float())
 
 
+class OnlineEvaluator(nn.Module):
+    """Probe on the detached z. Unlabeled samples (target -1) are masked
+    out of the classification loss and accuracy; an all-unlabeled batch
+    gives loss 0."""
+
+    def __init__(self, cfg: OnlineEvalConfig, z_dim: int, target_shape,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.cfg = cfg
+        self.model = get_architecture(cfg.arch, z_dim, target_shape,
+                                      generator=generator,
+                                      **cfg.arch_kwargs)
+
+    def forward(self, z, y, *, training: bool = False):
+        y_hat = self.model(z.detach(), training=training)
+        if self.cfg.is_classification:
+            valid = y >= 0
+            denom = valid.sum().clamp(min=1).float()
+            per = prediction_loss(y_hat, y.clamp(min=0), True)
+            loss = torch.where(valid, per, 0.0).sum() / denom
+            hit = (y_hat.argmax(-1) == y).float()
+            acc = torch.where(valid, hit, 0.0).sum() / denom
+            logs = {"online_loss": loss, "online_acc": acc,
+                    "online_err": 1.0 - acc}
+        else:
+            loss = prediction_loss(y_hat, y, False).mean()
+            logs = {"online_loss": loss}
+        return loss, logs
+
+
 class LearnableCompressor(nn.Module):
     """Encoder p(Z|X), rate estimator and distortion estimator.
 
@@ -110,9 +142,6 @@ class LearnableCompressor(nn.Module):
                  generator: torch.Generator | None = None):
         super().__init__()
         c = self.cfg = cfg
-        if c.online.is_online:
-            raise NotImplementedError(
-                "the online probe is not ported yet (ROADMAP queue 1 item 6)")
         self.frozen = tuple(frozen)
         generator = generator or torch.Generator().manual_seed(0)
         self.p_ZlX = CondEncoder(c.encoder, c.in_shape)
@@ -123,6 +152,9 @@ class LearnableCompressor(nn.Module):
                                                   generator)
         self.distortion_estimator = make_distortion_estimator(
             c.distortion, c.encoder.z_dim, c.aux_shape)
+        if c.online.is_online:
+            self.online_evaluator = OnlineEvaluator(
+                c.online, c.encoder.z_dim, c.target_shape, generator)
         # careful: this "beta" is 1/beta from the paper
         final_beta = c.loss.beta * c.loss.factor_beta_rate
         self.beta_annealer = Annealer(
@@ -190,6 +222,13 @@ class LearnableCompressor(nn.Module):
         logs.update(d_logs)
         logs.update(zmin=z_hat.min(), zmax=z_hat.max(), zmean=z_hat.mean())
 
+        # online probe (own optimizer group; its input is detached)
+        if c.online.is_online and targets is not None:
+            online_loss, online_logs = self.online_evaluator(
+                z_hat, targets, training=training)
+            loss = loss + online_loss
+            logs.update(online_logs)
+
         # coder aux loss (quantile optimizer group)
         if hasattr(self.rate_estimator, "aux_loss"):
             aux = self.rate_estimator.aux_loss()
@@ -240,11 +279,15 @@ def compressor_params_from_flax(tree) -> dict:
 
     The tower goes through `nn.vit.params_from_flax`; the rate estimator's
     subtrees (`affine`, `entropy_bottleneck`, and the hyperprior's
-    `side_encoder` / `z_encoder` MLPs) map by their path joined with dots.
+    `side_encoder` / `z_encoder` MLPs) and the online probe's map by their
+    path joined with dots.
     Values come back as fp32 tensors.
     """
     out = {f"p_ZlX.mapper.{k}": v
            for k, v in params_from_flax(tree["p_ZlX"]["mapper"]).items()}
     out.update(mlp_params_from_flax(tree["rate_estimator"],
                                     "rate_estimator."))
+    if "online_evaluator" in tree:
+        out.update(mlp_params_from_flax(tree["online_evaluator"],
+                                        "online_evaluator."))
     return out

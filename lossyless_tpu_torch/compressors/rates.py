@@ -2,8 +2,9 @@
 
 Counterpart of `lossyless_tpu/compressors/rates.py`: `RateConfig` (all of
 it), `EntropyBottleneckModule`, `_AffineZ`, `HRateFactorizedPrior`,
-`HRateHyperprior`, `make_rate_estimator`, and the host coders
-`FactorizedCoder` and `HyperpriorCoder`. Each estimator's
+`HRateHyperprior`, `Lossless` with `lossless_bits`,
+`make_rate_estimator`, and the host coders `FactorizedCoder` and
+`HyperpriorCoder`. Each estimator's
 `forward(z, p_zlx, *, training, ...)` returns `(z_hat, rates_in_nats,
 logs)`; likelihoods are fp32.
 
@@ -11,13 +12,14 @@ Training noise is U(-0.5, 0.5), drawn from the caller's `torch.Generator`
 or passed in as `noise` (the parity tests hand both frameworks the same
 draws). The hyperprior takes two draws, the side bottleneck's and then the
 Gaussian conditional's (JAX splits the rate's key into these two), so its
-`noise` is the pair. The other modes (`lossless`, `MI`, `H_spatial`) are
-not ported yet (ROADMAP queue 1 item 5).
+`noise` is the pair. The other modes (`MI`, `H_spatial`) are not ported
+yet (ROADMAP queue 1 item 5).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import io
 
 import numpy as np
 import torch
@@ -222,13 +224,36 @@ class HRateHyperprior(nn.Module):
         return self.entropy_bottleneck.aux_loss()
 
 
+class Lossless(nn.Module):
+    """Lossless float coding baseline: z passes through. The rate term is a
+    gradient-connected zero, as in JAX; the gzip'd bits are computed on
+    the host by `lossless_bits` during evaluation."""
+
+    def __init__(self, z_dim: int):
+        super().__init__()
+        self.z_dim = z_dim
+
+    def forward(self, z, p_zlx=None, *, training: bool, noise=None,
+                generator=None, step: int = 0, detach_rate: bool = False):
+        return z, z.mean(-1) * 0.0, {}
+
+
+def lossless_bits(z_np: np.ndarray) -> float:
+    """gzip'd bits a sample of the raw float representation."""
+    with io.BytesIO() as f:
+        np.savez_compressed(f, np.asarray(z_np))
+        return f.getbuffer().nbytes * 8 / z_np.shape[0]
+
+
 def make_rate_estimator(z_dim: int, cfg: RateConfig,
                         generator: torch.Generator | None = None):
     if cfg.mode == "H_factorized":
         return HRateFactorizedPrior(z_dim, cfg, generator)
     if cfg.mode == "H_hyper":
         return HRateHyperprior(z_dim, cfg, generator)
-    if cfg.mode in ("lossless", "MI", "H_spatial"):
+    if cfg.mode == "lossless":
+        return Lossless(z_dim)
+    if cfg.mode in ("MI", "H_spatial"):
         raise NotImplementedError(
             f"rate mode {cfg.mode!r} is not ported yet (ROADMAP queue 1 "
             f"item 5)")

@@ -2,8 +2,10 @@
 
 Counterpart of `lossyless_tpu/nn/registry.py`: maps a mode string + kwargs
 to a module taking (in_shape, out_shape). Image shapes are channels-last
-(H, W, C). Only the CLIP ViT tower is ported so far; the other
-architectures wait for ROADMAP queue 1 item 7.
+(H, W, C). Ported: the CLIP ViT tower and the `mlp`, `linear` and
+`identity` heads (`nn/mlp.py`); the other architectures wait for ROADMAP
+queue 1 item 7. `generator` seeds the heads' init (torch needs it at
+construction; the tower takes it through `init_weights`).
 
 The JAX config vocabulary is translated, so a JAX preset or override
 string works unchanged: `mlp_impl` "pallas" -> "kernel", "xla" -> "ops";
@@ -15,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from .mlp import FlattenLinear, FlattenMLP, Identity
 from .vit import VisionTransformer
 
 _MLP_IMPL = {"pallas": "kernel", "xla": "ops", "kernel": "kernel",
@@ -36,11 +39,19 @@ def _translate(kwargs: dict) -> dict:
     return kwargs
 
 
-def get_architecture(mode: str, in_shape, out_shape, **kwargs):
+def get_architecture(mode: str, in_shape, out_shape, generator=None,
+                     **kwargs):
     """Instantiate an architecture module.
 
     `in_shape`: int or tuple (H, W, C); `out_shape`: int or tuple.
     """
+    if mode == "mlp":
+        return FlattenMLP(in_shape, out_shape, generator=generator, **kwargs)
+    if mode == "linear":
+        return FlattenLinear(in_shape, out_shape, generator=generator,
+                             **kwargs)
+    if mode == "identity":
+        return Identity()
     if mode in ("clip", "clip_vit"):
         # the requested output dim and the dataset's resolution: the tower
         # patchifies at any square size (pos-embedding sized accordingly)
@@ -54,8 +65,7 @@ def get_architecture(mode: str, in_shape, out_shape, **kwargs):
         # flax's default compute dtype for the tower is bf16
         kwargs.setdefault("dtype", torch.bfloat16)
         return VisionTransformer(out_dim=out_shape, **kwargs)
-    if mode in ("mlp", "linear", "identity", "cnn", "balle", "resnet",
-                "clip_rn50", "simclr", "swav"):
+    if mode in ("cnn", "balle", "resnet", "clip_rn50", "simclr", "swav"):
         raise NotImplementedError(
             f"architecture {mode!r} is not ported yet (ROADMAP queue 1 "
             f"item 7)")

@@ -301,19 +301,22 @@ def clip_preprocess(x: torch.Tensor, size: int = 224) -> torch.Tensor:
     return (x - mean) / std
 
 
-def pil_clip_preprocess(images, size: int = 224) -> np.ndarray:
+def pil_clip_preprocess(images, size: int = 224,
+                        draft: bool | None = None) -> np.ndarray:
     """Host-side CLIP preprocess, the reference transform verbatim.
 
     PIL bicubic resize of the short side to `size`, center crop, /255,
     CLIP-normalize — exactly `clip.load`'s `_transform`. Accepts an iterable
     of HWC uint8 arrays or PIL Images (mixed sizes fine); returns a
-    (B, size, size, 3) float32 batch.
+    (B, size, size, 3) float32 batch. `draft` (default:
+    `data.loader.jpeg_draft_enabled()`) decodes JPEGs at a reduced DCT
+    scale.
     """
     from PIL import Image
 
     from ..data.loader import decode_map, jpeg_draft_enabled
 
-    draft = jpeg_draft_enabled()
+    draft = jpeg_draft_enabled() if draft is None else draft
 
     def _one(im):
         pil = im if isinstance(im, Image.Image) else Image.fromarray(im)

@@ -1,11 +1,14 @@
 """Experiment configuration: dataclass tree + dotted overrides + presets.
 
 Counterpart of `lossyless_tpu/pipeline/config.py`: `DataConfig`,
-`TrainerConfig`, `ExperimentConfig` (with `PredictorConfig`, as a dataclass
-only), `apply_overrides` (the `a.b.c=value` override syntax, literal-eval
-coercion), `apply_precision` and the presets that train on the port,
-`clip_bottleneck_pretrain` (the hyperprior rate) and `clip_hub` (the
-factorized rate). The other presets wait for ROADMAP queue 1 item 10.
+`TrainerConfig`, `ExperimentConfig`, `apply_overrides` (the `a.b.c=value`
+override syntax, literal-eval coercion), `apply_precision` and the presets
+that run on the port: the CLIP recipes `clip_bottleneck_pretrain` (the
+hyperprior rate), `clip_hub` (the factorized rate), `clip_lossyZ` (the
+hyperprior bottleneck with the online probe) and its evaluation presets
+`clip_bottleneck_{linear,mlp}_eval` and `clip_raw_{linear,mlp}_eval` (the
+lossless rate, featurizer at init). The other presets wait for ROADMAP
+queue 1 item 10.
 """
 
 from __future__ import annotations
@@ -22,19 +25,7 @@ from ..compressors.compressor import (CompressorConfig, EncoderConfig,
 from ..compressors.distortions import DistortionConfig
 from ..compressors.rates import RateConfig
 from ..train.state import OptimConfig
-
-
-@dataclasses.dataclass
-class PredictorConfig:
-    arch: str = "mlp"
-    arch_kwargs: dict = dataclasses.field(
-        default_factory=lambda: dict(hid_dim=2048, n_hid_layers=2,
-                                     norm_layer="batchnorm"))
-    is_classification: bool = True
-    lr: float = 3e-4
-    n_epochs: int = 20
-    batch_size: int = 256
-    is_on_the_fly: bool = False
+from .predictor import PredictorConfig
 
 
 @dataclasses.dataclass
@@ -330,11 +321,64 @@ def _preset_impl(name: str) -> ExperimentConfig:
         cfg.rate = RateConfig(mode="H_factorized", eb_filters=(3, 3, 3, 3),
                               is_endToEnd=False)
         return cfg
+    if name in ("clip_lossyZ", "clip_bottleneck"):
+        # bottleneck_clip_lossyZ: frozen CLIP tower, hyperprior rate on the
+        # 512-d embeddings, lossy_Z distortion, beta 5e-2, the online probe
+        return ExperimentConfig(
+            experiment="clip_lossyZ",
+            data_feat=DataConfig(name="stl10", batch_size=128, n_epochs=10,
+                                 kwargs=dict(additional_target="target")),
+            encoder=EncoderConfig(arch="clip", z_dim=512),
+            rate=RateConfig(mode="H_hyper", is_endToEnd=False),
+            distortion=DistortionConfig(mode="lossy_Z"),
+            online=OnlineEvalConfig(is_online=True,
+                                    arch_kwargs=dict(hid_dim=512)),
+            loss=LossConfig(beta=0.05),
+            frozen=("p_ZlX",),
+            optimizer_feat=OptimConfig(mode="adamw", lr=1e-3,
+                                       weight_decay=3e-8,
+                                       scheduler="unifmultistep",
+                                       decay_factor=1000., total_steps=0),
+            optimizer_coder=OptimConfig(mode="adamw", lr=3e-4,
+                                        weight_decay=1e-6,
+                                        scheduler="unifmultistep",
+                                        decay_factor=1000., total_steps=0),
+        )
+    if name in ("clip_bottleneck_linear_eval",):
+        # bin/clip/clip_bottleneck_linear_eval.sh: a linear probe on the
+        # frozen compressed features (data_pred.name picks the dataset)
+        cfg = preset("clip_lossyZ")
+        cfg.experiment = "clip_bottleneck_linear_eval"
+        cfg.predictor = PredictorConfig(arch="linear", arch_kwargs={},
+                                        n_epochs=20)
+        return cfg
+    if name in ("clip_bottleneck_mlp_eval",):
+        cfg = preset("clip_bottleneck_linear_eval")
+        cfg.experiment = "clip_bottleneck_mlp_eval"
+        cfg.predictor = PredictorConfig()  # the default 2048-wide MLP probe
+        return cfg
+    if name in ("clip_raw_linear_eval",):
+        # bin/clip/clip_raw_linear_eval.sh: raw frozen CLIP features, the
+        # lossless rate, featurizer kept at init (n_epochs=0)
+        cfg = preset("clip_bottleneck_linear_eval")
+        cfg.experiment = "clip_raw_linear_eval"
+        cfg.rate = RateConfig(mode="lossless")
+        cfg.data_feat = dataclasses.replace(cfg.data_feat, n_epochs=0)
+        return cfg
+    if name in ("clip_raw_mlp_eval",):
+        cfg = preset("clip_raw_linear_eval")
+        cfg.experiment = "clip_raw_mlp_eval"
+        cfg.predictor = PredictorConfig()
+        return cfg
     raise NotImplementedError(
         f"preset {name!r} is not ported yet (ROADMAP queue 1 item 10)")
 
 
 def available_presets() -> list[str]:
-    """The presets this package has; each trains through
-    `pipeline.run.run_featurizer` and codes through `run_communication`."""
-    return ["clip_bottleneck_pretrain", "clip_hub"]
+    """The presets this package has: `clip_hub` and
+    `clip_bottleneck_pretrain` train through `pipeline.run.run_featurizer`
+    and code through `run_communication`; the others run the three stages
+    through `pipeline.run.main`."""
+    return ["clip_lossyZ", "clip_bottleneck_pretrain", "clip_hub",
+            "clip_bottleneck_linear_eval", "clip_bottleneck_mlp_eval",
+            "clip_raw_linear_eval", "clip_raw_mlp_eval"]

@@ -11,7 +11,8 @@ differentiated once and the parameters are split into groups by path:
   updates with `optax.set_to_zero`).
 
 Schedules are plain functions of the update count that return what the
-optax schedule returns at that count. The optimizers are torch's, set up to
+optax schedule returns at that count; a plateau group's lr is also scaled
+by its host controller (`ReduceLROnPlateau`), as JAX scales the update. The optimizers are torch's, set up to
 follow optax: adamw with decoupled decay, adam and sgd (momentum 0.9) with
 torch-style coupled L2. `train_step` updates the state in place (the model
 parameters and optimizer moments) and returns it with the step's logs.
@@ -56,12 +57,10 @@ def _cosine(lr: float, decay_steps: int) -> Callable[[int], float]:
 
 
 def _make_schedule(cfg: OptimConfig) -> Callable[[int], float]:
-    """The learning rate as a function of the update count."""
-    if cfg.scheduler == "plateau":
-        raise NotImplementedError(
-            "the plateau scheduler is not ported yet (ROADMAP queue 1 "
-            "item 8)")
-    if cfg.scheduler == "none" or cfg.total_steps <= 0:
+    """The learning rate as a function of the update count. "plateau" is
+    a constant lr times the host controller's scale (`ReduceLROnPlateau`,
+    `TrainState.lr_scales`), not a step schedule."""
+    if cfg.scheduler in ("none", "plateau") or cfg.total_steps <= 0:
         # an unbound schedule (total_steps <= 0): constant lr
         return lambda count: cfg.lr
     if cfg.scheduler == "expdecay":
@@ -113,6 +112,59 @@ def bind_schedule_steps(cfg: OptimConfig, total_steps: int,
     return cfg
 
 
+@dataclasses.dataclass
+class ReduceLROnPlateau:
+    """Host-side plateau controller, torch ReduceLROnPlateau semantics
+    (mode min/max, threshold_mode=rel, no cooldown). Feed one monitored
+    value an epoch to `step()`; it returns the current lr scale (1.0 until
+    the first reduction). The scale itself lives in the train state
+    (`TrainState.lr_scales`) and its checkpoints, so a resumed run keeps
+    its reduced lr; the patience counter restarts with the process."""
+
+    factor: float = 0.2
+    patience: int = 10
+    threshold: float = 1e-4
+    min_scale: float = 0.0
+    mode: str = "min"
+    best: float = dataclasses.field(default=None, init=False)  # type: ignore
+    num_bad: int = dataclasses.field(default=0, init=False)
+    scale: float = dataclasses.field(default=1.0, init=False)
+
+    def _is_better(self, metric: float) -> bool:
+        if self.best is None:
+            return True
+        if self.mode == "min":
+            return metric < self.best * (1.0 - self.threshold)
+        return metric > self.best * (1.0 + self.threshold)
+
+    def step(self, metric: float) -> float:
+        if math.isfinite(metric) and self._is_better(metric):
+            self.best = metric
+            self.num_bad = 0
+        else:
+            self.num_bad += 1
+        if self.num_bad > self.patience:
+            self.scale = max(self.scale * self.factor, self.min_scale)
+            self.num_bad = 0
+        return self.scale
+
+
+def get_plateau_scale(state: "TrainState", label: str) -> float | None:
+    """The lr scale of one group, or None when its scheduler is not
+    plateau (re-seeds the host controller after a restore)."""
+    return state.lr_scales.get(label)
+
+
+def set_plateau_scale(state: "TrainState", scale: float,
+                      label: str | None = None) -> "TrainState":
+    """Set the lr scale of one plateau group (all of them without
+    `label`); groups of another scheduler are untouched."""
+    for lbl in state.lr_scales:
+        if label is None or lbl == label:
+            state.lr_scales[lbl] = float(scale)
+    return state
+
+
 def make_optimizer(cfg: OptimConfig, params) -> torch.optim.Optimizer:
     """The torch optimizer of one group; its lr is set from the schedule
     before every update (`train_step`)."""
@@ -149,6 +201,25 @@ class TrainState:
     # label -> (optimizer, schedule); frozen params are in none of them
     optimizers: dict
     step: int = 0
+    # label -> the plateau controller's lr scale, for the groups whose
+    # scheduler is plateau (JAX keeps it in the optimizer state)
+    lr_scales: dict = dataclasses.field(default_factory=dict)
+
+    def state_dict(self) -> dict:
+        """What a checkpoint holds: the model's and the optimizers' state,
+        the step and the plateau scales."""
+        return {"model": self.model.state_dict(),
+                "optimizers": {label: opt.state_dict() for label, (opt, _)
+                               in self.optimizers.items()},
+                "step": self.step, "lr_scales": dict(self.lr_scales)}
+
+    def load_state_dict(self, sd: dict) -> "TrainState":
+        self.model.load_state_dict(sd["model"])
+        for label, (opt, _) in self.optimizers.items():
+            opt.load_state_dict(sd["optimizers"][label])
+        self.step = int(sd["step"])
+        self.lr_scales = dict(sd["lr_scales"])
+        return self
 
     @classmethod
     def create(cls, model, main: OptimConfig,
@@ -166,7 +237,9 @@ class TrainState:
         optimizers = {label: (make_optimizer(cfgs[label], ps),
                               _make_schedule(cfgs[label]))
                       for label, ps in groups.items() if ps}
-        return cls(model=model, optimizers=optimizers)
+        lr_scales = {label: 1.0 for label in optimizers
+                     if cfgs[label].scheduler == "plateau"}
+        return cls(model=model, optimizers=optimizers, lr_scales=lr_scales)
 
 
 def train_step(state: TrainState, batch, generator=None, noise=None):
@@ -177,8 +250,8 @@ def train_step(state: TrainState, batch, generator=None, noise=None):
     loss, logs = state.model.step(x, y, aux, training=True, step=state.step,
                                   generator=generator, noise=noise)
     loss.backward()
-    for opt, schedule in state.optimizers.values():
-        lr = schedule(state.step)
+    for label, (opt, schedule) in state.optimizers.items():
+        lr = schedule(state.step) * state.lr_scales.get(label, 1.0)
         for group in opt.param_groups:
             group["lr"] = lr
             for p in group["params"]:

@@ -40,8 +40,9 @@ def test_the_scan_covers_the_port():
     assert len(names) >= 15
 
 
-# the modules of the training path (slice 2) and of the hyperprior path
-# with its communication stage (slice 3)
+# the modules of the training path (slice 2), of the hyperprior path with
+# its communication stage (slice 3) and of the CLI, bench and pipeline
+# (slice 9)
 NEW_MODULES = [
     "lossyless_tpu_torch.nn.flash_attn",
     "lossyless_tpu_torch.coding.rans",
@@ -62,6 +63,15 @@ NEW_MODULES = [
     "lossyless_tpu_torch.pipeline.config",
     "lossyless_tpu_torch.pipeline.run",
     "lossyless_tpu_torch.hub.save_hub",
+    # slice 9: the CLI, the bench and the three-stage pipeline
+    "lossyless_tpu_torch.analysis.linear_eval",
+    "lossyless_tpu_torch.data.balancing",
+    "lossyless_tpu_torch.data.features",
+    "lossyless_tpu_torch.data.images",
+    "lossyless_tpu_torch.data.loader",
+    "lossyless_tpu_torch.pipeline.predictor",
+    "lossyless_tpu_torch.hub.cli",
+    "lossyless_tpu_torch.bench",
 ]
 
 
@@ -72,6 +82,22 @@ def test_the_training_path_imports_with_jax_blocked():
     block = "; ".join(f"sys.modules[{m!r}] = None" for m in FORBIDDEN)
     code = (f"import sys; {block}; import importlib; "
             f"[importlib.import_module(m) for m in {NEW_MODULES!r}]; "
+            f"print('ok')")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_the_entry_points_import_without_sklearn_and_pil():
+    """sklearn (the CLI's `eval`) and PIL (folder inputs, `--folder-fed`)
+    are imported where they are used: the CLI, the bench and the pipeline
+    import without them, JAX blocked too."""
+    hidden = FORBIDDEN + ("sklearn", "PIL")
+    block = "; ".join(f"sys.modules[{m!r}] = None" for m in hidden)
+    mods = ["lossyless_tpu_torch.hub.cli", "lossyless_tpu_torch.bench",
+            "lossyless_tpu_torch.pipeline.run"]
+    code = (f"import sys; {block}; import importlib; "
+            f"[importlib.import_module(m) for m in {mods!r}]; "
             f"print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)

@@ -95,8 +95,13 @@ def test_schedules_match_optax(kw):
 
 
 def test_plateau_and_binding():
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        tstate._make_schedule(tstate.OptimConfig(scheduler="plateau"))
+    # plateau is host-driven: a constant lr (times the controller's scale)
+    for kw in (dict(), dict(total_steps=100)):
+        sched = tstate._make_schedule(tstate.OptimConfig(
+            scheduler="plateau", lr=0.3, **kw))
+        assert [sched(c) for c in (0, 50, 99)] == [0.3] * 3
+        assert jstate._make_schedule(jstate.OptimConfig(
+            scheduler="plateau", lr=0.3, **kw)) == 0.3
     for kw in (dict(scheduler="unifmultistep", total_steps=0),
                dict(scheduler="none", total_steps=0),
                dict(scheduler="cosine_restart", total_steps=0)):
@@ -317,8 +322,9 @@ def test_config_presets_and_overrides_match_jax():
         jd, td = dataclasses.asdict(j), dataclasses.asdict(t)
         assert jd == td, name
         assert t.long_name == j.long_name
-    assert tconfig.available_presets() == ["clip_bottleneck_pretrain",
-                                           "clip_hub"]
+    assert tconfig.available_presets() == [
+        n for n in jconfig.available_presets()
+        if n.startswith("clip_")]
 
 
 # ---------------------------------------------------------------------------
