@@ -37,8 +37,9 @@ non-zero without printing a result:
    K2 timed the same way and K1 held to the float64 attention on the
    TMA/wgmma tile (asserted), the check counted on independent draws
    pooled up to the slice check's 19,660,800 outputs (`FLOAT64_OUTPUTS`);
-3b. K3 (entropy-bottleneck likelihood) at the training shape (128, 512) and
-   at odd shapes in fp32 (`K3_CHECKS`), to rtol 1e-5 / atol 1e-7, each on
+3b. K3 (entropy-bottleneck likelihood) at the training shape (128, 512),
+   at odd shapes in fp32 and at the banana path's (1024, 2) and (1024, 1)
+   with filters (3, 3, 3) (`K3_CHECKS`), to rtol 1e-5 / atol 1e-7, each on
    the design `k3_plan` picks (asserted: the fixed chain for (3,3,3,3) and
    (3,3,3), else the generic one); its backward kernel at the same shapes
    and the side latent's (128, 102) (`K3_BWD_CHECKS`), through the
@@ -48,7 +49,8 @@ non-zero without printing a result:
    g = +1e9 and -1e9 (no gradient may pass the first), two calls equal bit
    for bit; both kernels' times beside their plain versions' and the
    eager backward's (autograd through the reference chain: its time and
-   its device kernels); K4 (fused MLP
+   its device kernels), and at the banana shapes with their bounds; K4
+   (fused MLP
    half-block) at every `K4_CHECKS` case in bf16, to atol 2e-2 plus one
    bf16 ulp of the value: the training shape (128 x 50 tokens, width 768),
    a ragged last row tile (129 x 50), x and fc_w at a 16-byte storage
@@ -147,11 +149,29 @@ non-zero without printing a result:
    K2 1 a tower forward, K3 and its backward launched; a second `main`
    skips every stage (no step, no launch); a featurizer stage killed
    after its first `save_last` resumes at that step;
+12. the banana experiments (`BANANA_REDUCED` lists the cuts): `main(
+   preset("banana_viz_VIC"))` at full width (batch 1024, MLPs 1024 wide
+   with 2 hidden layers, BatchNorm, QuickGELU, z = 2, fp32) through the
+   fused epoch (batches drawn on the card), 2 epochs of 200 steps: plain,
+   then with K3 (`rate.eb_use_pallas=True`) on the full 1,024,000-sample
+   host dataset, the launch counts read around that run (K3 and its
+   backward launched, nothing else), whose first 3 steps' loss, rate and
+   distortion must equal the plain run's to rtol 1e-2, all runs under one
+   matmul precision (recorded, and checked unchanged after every run);
+   then host-fed (`trainer.use_fused_epochs=False`); ms a step of fused
+   and host-fed epochs on one state in turns; one fused epoch under
+   torch.profiler (idle share, device kernels a step); `banana_viz_BINCE`
+   (2048 x 2048 logits) under K3 for 2 epochs of 150 steps (finite loss
+   and `I_q_zm`); `banana_viz_VAE` and `banana_viz_VIC_trnslt`; the
+   experiment CLI's `-m loss.beta=0.05,0.2` sweep of `banana_RD` in a
+   subprocess (two jobs). Every run writes the three stages' metrics
+   (`test/feat/*`, `test/comm/n_bits`, `test/pred/*`), all finite;
 7. the `kernels` JSON line (K1-K4, K3's backward, K5a, K5b; with
    `device_ms` and `bound_share`, K1/K2 also at batch 256 and at N = 10,
-   K1's design, its float64 readings and its designs side by side, the
-   launches on phase 11's path, and the registers and spills of every
-   kernel) and, last, `{"ok": true, "device": {...}}`.
+   K3 also at the banana shapes, K1's design, its float64 readings and
+   its designs side by side, the launches on phase 11's and phase 12's
+   paths, and the registers and spills of every kernel) and, last,
+   `{"ok": true, "device": {...}}`.
 
 It needs a CUDA card and the repository around it: with no card, or run
 from a directory that holds only this file, it fails.
@@ -160,6 +180,8 @@ from a directory that holds only this file, it fails.
 from __future__ import annotations
 
 import copy
+import dataclasses
+import itertools
 import json
 import subprocess
 import sys
@@ -226,6 +248,19 @@ def bound(bytes_moved: float, flops: float, dtype: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def device_events(prof) -> list:
+    """The device kernels and copies of a torch.profiler trace, by name.
+    User-annotated ranges (`Optimizer.step#AdamW.step` and other
+    `record_function` spans) are left out: their device time spans the
+    kernels inside them, which are counted on their own."""
+    import torch
+
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith("Optimizer.")]
+
+
 def _traces(fn, match, reps: int) -> list[dict]:
     """Three torch.profiler traces of `reps` calls of `fn` after a
     warm-up: per trace, the device time per call (ms) of each CUDA kernel
@@ -244,9 +279,8 @@ def _traces(fn, match, reps: int) -> list[dict]:
                 fn()
             torch.cuda.synchronize()
         traces.append({e.key: e.self_device_time_total / reps / 1e3
-                       for e in prof.key_averages()
-                       if e.device_type == torch.autograd.DeviceType.CUDA
-                       and e.self_device_time_total
+                       for e in device_events(prof)
+                       if e.self_device_time_total
                        and (match is None or any(m in e.key for m in match))})
     return traces
 
@@ -1296,7 +1330,11 @@ def op_path_mlp(x, lns, lnb, fcw, fcb, prw, prb):
 # the fixed and the generic chains, one element; the backward also at the
 # side latent of clip_bottleneck_pretrain
 K3_CHECKS = [(TRAIN_BATCH, 512, (3, 3, 3, 3)), (37, 13, (3, 3, 3)),
-             (5, 130, (2, 4)), (1, 1, (3, 3, 3, 3))]
+             (5, 130, (2, 4)), (1, 1, (3, 3, 3, 3)),
+             # the banana path's z: banana_viz_VIC (z = 2), _BINCE (z = 1);
+             # one 32-channel group with 30 or 31 channels empty
+             (1024, 2, (3, 3, 3)), (1024, 1, (3, 3, 3))]
+BANANA_K3 = K3_CHECKS[-2:]
 K3_BWD_CHECKS = K3_CHECKS + [(TRAIN_BATCH, 102, (3, 3, 3, 3))]
 
 
@@ -1463,6 +1501,14 @@ def check_k3() -> dict:
           f"{bound_ms!r} ms ({bound_by}: {nbytes} bytes, {flops} flop)",
           flush=True)
 
+    # the banana path's shapes: both kernels' times and bounds
+    results["eb_likelihood"]["banana_shapes"] = {}
+    results["eb_likelihood_bwd"] = {"banana_shapes": {}}
+    for i, (Bb, Cb, fb) in enumerate(BANANA_K3):
+        fwd_t, bwd_t = time_k3_at(Bb, Cb, fb, seed=200 + i)
+        results["eb_likelihood"]["banana_shapes"][f"{Bb}x{Cb}"] = fwd_t
+        results["eb_likelihood_bwd"]["banana_shapes"][f"{Bb}x{Cb}"] = bwd_t
+
     # the backward: the wrapper's launch, its plain version, and the eager
     # backward it replaces
     bwd = lambda: eb_kernel._launch_bwd(p, z, g, plan, True, True)
@@ -1476,7 +1522,7 @@ def check_k3() -> dict:
     e_kernels = device_kernel_count(eager)
     e_dev = device_ms(eager)
     b_bound, b_by = bound(bytes_bwd, flops_bwd, "float32")
-    results["eb_likelihood_bwd"] = dict(
+    results["eb_likelihood_bwd"].update(
         max_abs_err=bwd_abs[0], max_err_over_max=bwd_errs[0],
         design=plan.design, warps=plan.bwd_threads // 32, ms=b_ms,
         device_ms=b_dev, plain_ms=b_plain, bound_ms=b_bound, bound_by=b_by,
@@ -1490,6 +1536,42 @@ def check_k3() -> dict:
           f"{e_dev!r} ms), bound {b_bound!r} ms ({b_by}: {bytes_bwd} bytes, "
           f"{flops_bwd} flop)", flush=True)
     return results
+
+
+def time_k3_at(B: int, C: int, filters, seed: int) -> tuple[dict, dict]:
+    """K3's forward and backward kernels at (B, C): CUDA-event and device
+    ms, their plain versions' ms, bounds."""
+    import torch
+
+    from lossyless_tpu_torch.coding import eb_kernel
+
+    p = eb_params_for(C, filters, seed=seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    z = torch.randn(B, C, generator=gen, device="cuda") * 4
+    g = torch.randn(B, C, generator=gen, device="cuda")
+    plan = eb_kernel.check_params(p, z)
+    K, w = plan.n_coeffs, plan.widths
+    with torch.inference_mode():
+        fwd = lambda: eb_kernel.likelihood(p, z)  # noqa: E731
+        f_ms, f_dev = median_ms(fwd), device_ms(fwd, ("eb_likelihood_kernel",))
+        f_plain = median_ms(lambda: eb_kernel.likelihood_plain(p, z))
+    f_bound, f_by = bound(2 * B * C * 4 + C * K * 4,
+                          B * C * (2 * k3_chain_flops(w) + 10), "float32")
+    bwd = lambda: eb_kernel._launch_bwd(p, z, g, plan, True, True)  # noqa
+    b_ms = median_ms(bwd)
+    b_dev = device_ms(bwd, ("eb_likelihood_bwd_kernel",))
+    b_plain = median_ms(lambda: eb_kernel.likelihood_backward_plain(p, z, g))
+    b_bound, b_by = bound(3 * B * C * 4 + 2 * C * K * 4,
+                          B * C * k3_bwd_flops(w), "float32")
+    rows = []
+    for ms, dev, plain_ms, bnd, by in ((f_ms, f_dev, f_plain, f_bound, f_by),
+                                       (b_ms, b_dev, b_plain, b_bound, b_by)):
+        rows.append(dict(design=plan.design, ms=ms, device_ms=dev,
+                         plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                         bound_share=bound_share(bnd, dev or ms)))
+    print(f"time eb_likelihood B={B} C={C} {filters} {plan.design}: "
+          f"forward {rows[0]}, backward {rows[1]}", flush=True)
+    return rows[0], rows[1]
 
 
 def k3_eager_backward(params: dict, z, g, plan, want_z: bool,
@@ -1529,8 +1611,7 @@ def device_kernel_count(fn, reps: int = 5) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / reps
+    return sum(e.count for e in device_events(prof)) / reps
 
 
 def check_k3_k4() -> dict:
@@ -2053,8 +2134,7 @@ def device_profile(fn, card: str, **fields) -> dict:
         fn()
         sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = device_events(prof)
     by_name = {e.key: e.self_device_time_total / 1e3 for e in kernels}
     busy_ms = sum(by_name.values())
     n_kernels = sum(e.count for e in kernels)   # kernels and copies
@@ -2474,6 +2554,313 @@ def pipeline_path(card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the banana experiments
+# ---------------------------------------------------------------------------
+
+# banana_viz_VIC's recipe is 100 epochs of 1000 steps: the K3 run (the
+# main path of phase 12) takes 2 of 200 (trainer.limit_train_batches) on
+# the full 1,024,000-sample host dataset, and 1 of the probe's 20 epochs
+BANANA_OVERRIDES = ["data_feat.n_epochs=2", "trainer.limit_train_batches=0.2",
+                    "predictor.n_epochs=1", "trainer.log_every=50",
+                    "rate.eb_use_pallas=True"]
+# the plain and host-fed runs: the same 2 epochs of 200 steps (the same
+# schedules) as whole epochs of 204,800 samples
+SHORT_VIC = ["data_feat.kwargs.length=204800", "data_feat.n_epochs=2",
+             "predictor.n_epochs=1", "trainer.log_every=50"]
+BANANA_AB_STEPS = 3       # the logs held to the plain run, rtol 1e-2
+TURN_STEPS = 100          # a turn of the fused vs host-fed A/B
+PROFILE_STEPS_BANANA = 50
+# banana_viz_BINCE (2048 x 2048 logits): 2 epochs of 150 steps
+BINCE_OVERRIDES = ["data_feat.kwargs.length=153600", "data_feat.n_epochs=2",
+                   "predictor.n_epochs=1", "trainer.log_every=50",
+                   "rate.eb_use_pallas=True"]
+# the other presets, and the CLI's sweep: 102,400 samples (100 steps an
+# epoch), the same widths
+SHORT_OVERRIDES = ["data_feat.kwargs.length=102400", "data_feat.n_epochs=1",
+                   "predictor.n_epochs=1", "rate.eb_use_pallas=True"]
+BANANA_REDUCED = {
+    "featurizer_steps": "2 epochs of 200 steps of the recipe's 100 of "
+                        "1000 (the K3 run: limit_train_batches 0.2 of the "
+                        "full 1,024,000 samples; plain and host-fed runs: "
+                        "204,800 samples)",
+    "predictor_epochs": "1 of 20 (on 1,024,000 samples for the K3 run)",
+    "banana_viz_BINCE": "2 epochs of 150 steps (153,600 samples)",
+    "banana_viz_VAE, banana_viz_VIC_trnslt, the CLI's banana_RD sweep":
+        "102,400 samples (1 epoch of 100 steps; the CLI's --dev: 2 of 10)",
+    "widths": "none cut: batch 1024, MLPs 1024 wide with 2 hidden layers, "
+              "BatchNorm, QuickGELU, z = 2 (BINCE 1), fp32",
+    "data": "the featurizer's batches are drawn on the card (the fused "
+            "epoch); the host dataset feeds the probe and the host-fed run"}
+
+
+class CaptureEpochs:
+    """Wraps `run.make_generative_epoch`: each fused epoch's stacked logs,
+    its wall time (ending in a synchronize) and its steps."""
+
+    def __enter__(self):
+        from lossyless_tpu_torch.pipeline import run
+
+        self.logs, self.seconds, self.steps = [], [], 0
+        self.saved = run.make_generative_epoch
+
+        def make(sample_fn, n_steps):
+            epoch = self.saved(sample_fn, n_steps)
+
+            def timed(state, seed):
+                sync()
+                t0 = time.perf_counter()
+                state, logs = epoch(state, seed)
+                sync()
+                self.seconds.append(time.perf_counter() - t0)
+                self.logs.append(logs)
+                self.steps += n_steps
+                return state, logs
+            return timed
+
+        run.make_generative_epoch = make
+        return self
+
+    def __exit__(self, *exc):
+        from lossyless_tpu_torch.pipeline import run
+
+        run.make_generative_epoch = self.saved
+
+
+class TimeHostEpochs:
+    """Wraps `run.run_featurizer` (one call an epoch on the host-fed path):
+    each epoch's wall time, ending in a synchronize, and its steps."""
+
+    def __enter__(self):
+        from lossyless_tpu_torch.pipeline import run
+
+        self.seconds, self.steps = [], 0
+        self.saved = run.run_featurizer
+
+        def timed(cfg, batches, *a, **k):
+            sync()
+            t0 = time.perf_counter()
+            before = k["state"].step
+            state = self.saved(cfg, batches, *a, **k)
+            sync()
+            self.seconds.append(time.perf_counter() - t0)
+            self.steps += state.step - before
+            return state
+
+        run.run_featurizer = timed
+        return self
+
+    def __exit__(self, *exc):
+        from lossyless_tpu_torch.pipeline import run
+
+        run.run_featurizer = self.saved
+
+
+def matmul_precision() -> dict:
+    import torch
+
+    return dict(allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+                float32_matmul_precision=torch.get_float32_matmul_precision())
+
+
+def banana_main(cfg, precision: dict, **capture) -> dict:
+    """`main(cfg)` on the card with its epochs timed; the metrics, the wall
+    time, ms a step (the last epoch's) and the fused epochs' logs."""
+    from lossyless_tpu_torch.pipeline import run
+
+    with CaptureEpochs() as fused, TimeHostEpochs() as host:
+        t0 = time.perf_counter()
+        metrics = run.main(cfg, device=DEVICE)
+        sync()
+        wall = time.perf_counter() - t0
+    if matmul_precision() != precision:
+        raise AssertionError(f"the matmul precision moved from {precision} "
+                             f"to {matmul_precision()}")
+    timer = fused if fused.steps else host
+    per_epoch = timer.steps // max(1, len(timer.seconds))
+    keep = {k: v for k, v in metrics.items() if isinstance(v, float)}
+    bad = [k for k in ("test/feat/loss", "test/comm/n_bits",
+                       "test/pred/loss") if not np.isfinite(keep.get(k,
+                                                                    np.nan))]
+    if bad:
+        raise AssertionError(f"banana main: {bad} not finite in {keep}")
+    return dict(wall_s=wall, steps=timer.steps,
+                fused=bool(fused.steps), epoch_s=timer.seconds,
+                ms_per_step=timer.seconds[-1] * 1e3 / per_epoch,
+                metrics=keep, logs=fused.logs)
+
+
+def first_steps(logs: list, n: int) -> list:
+    keys = ("loss", "rate", "distortion")
+    return [{k: float(logs[0][k][i]) for k in keys} for i in range(n)]
+
+
+def banana_state(cfg):
+    """A fresh train state of `cfg` on the card and its host dataset (the
+    sampler draws on the card: the length is moot for the fused epoch)."""
+    from lossyless_tpu_torch.pipeline import config, run
+
+    cfg = config.apply_precision(copy.deepcopy(cfg))
+    ds = run.instantiate_datamodule(cfg, cfg.data_feat)
+    return cfg, ds, run.build_state(cfg, 2 * TURN_STEPS, TURN_STEPS,
+                                    device=DEVICE)
+
+
+def profile_fused_epoch(cfg, card: str) -> dict:
+    """One fused epoch of `cfg` under torch.profiler: idle share, device
+    kernels a step."""
+    from lossyless_tpu_torch.train.state import make_generative_epoch
+
+    cfg, ds, state = banana_state(cfg)
+    epoch = make_generative_epoch(ds.device_sampler(
+        cfg.data_feat.batch_size), PROFILE_STEPS_BANANA)
+    epoch(state, 0)       # set-up outside the trace
+    return device_profile(lambda: epoch(state, 1), card,
+                          steps=PROFILE_STEPS_BANANA,
+                          batch=cfg.data_feat.batch_size)
+
+
+def fused_vs_host_fed(cfg) -> dict:
+    """ms a step of a fused epoch and of the host-fed loop on one state, in
+    turns (fused, host-fed, host-fed, fused), TURN_STEPS steps a turn."""
+    from lossyless_tpu_torch.pipeline import run
+    from lossyless_tpu_torch.train.loggers import NoLogger
+    from lossyless_tpu_torch.train.state import make_generative_epoch
+
+    cfg, ds, state = banana_state(cfg)
+    bsz = cfg.data_feat.batch_size
+    fused = make_generative_epoch(ds.device_sampler(bsz), TURN_STEPS)
+
+    def host(turn):
+        batches = itertools.islice(ds.batches(bsz, seed=turn), TURN_STEPS)
+        run.run_featurizer(cfg, batches, state=state, device=DEVICE,
+                           log=lambda _: None, logger=NoLogger())
+
+    turns = {"fused": [], "host_fed": []}
+    for turn, name in enumerate(("fused", "host_fed", "host_fed", "fused")):
+        sync()
+        t0 = time.perf_counter()
+        if name == "fused":
+            fused(state, turn)
+        else:
+            host(turn)
+        sync()
+        turns[name].append((time.perf_counter() - t0) * 1e3 / TURN_STEPS)
+    return dict(steps_a_turn=TURN_STEPS, order=["fused", "host_fed",
+                                                "host_fed", "fused"],
+                ms_per_step=turns)
+
+
+def banana_path(card: str) -> dict:
+    """Phase 12: `main(preset("banana_viz_VIC"))` at full width through
+    the fused epoch, plain and with K3 (`rate.eb_use_pallas=True`: the
+    launches are counted on that run), the first steps' logs of the two
+    held to rtol 1e-2; the K3 run host-fed (`trainer.use_fused_epochs=
+    False`) beside it; a profiled fused epoch; `banana_viz_BINCE` under
+    K3; `banana_viz_VAE` and `banana_viz_VIC_trnslt`; the experiment CLI's
+    `-m` sweep of `banana_RD` in a subprocess. Returns the K3 run's
+    launch counts."""
+    from lossyless_tpu_torch.pipeline import config
+
+    t_phase = time.perf_counter()
+    precision = matmul_precision()
+    out = dict(card=card, matmul_precision=precision,
+               overrides=BANANA_OVERRIDES, reduced=BANANA_REDUCED)
+
+    def record(key, value):
+        """Keep a part's result and print it as it completes."""
+        out[key] = value
+        print(json.dumps({f"banana_path_{key}": value}), flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        def cfg_of(name, overrides, tag):
+            return config.apply_overrides(config.preset(name), overrides + [
+                f"out_dir={tmp}/{tag}/out", f"ckpt_dir={tmp}/{tag}/ckpt"])
+
+        reset_launches()
+        plain = banana_main(cfg_of("banana_viz_VIC", SHORT_VIC, "plain"),
+                            precision)
+        plain_launches = read_launches()
+        if any(plain_launches.values()):
+            raise AssertionError(f"the plain banana run launched "
+                                 f"{plain_launches}")
+
+        # the main path: K3 and its backward, nothing else
+        k3_cfg = cfg_of("banana_viz_VIC", BANANA_OVERRIDES, "k3")
+        reset_launches()
+        kernels = banana_main(k3_cfg, precision)
+        launches = read_launches()
+        others = {k: v for k, v in launches.items()
+                  if not k.startswith("eb_likelihood") and v}
+        if launches["eb_likelihood"] < 1 or \
+                launches["eb_likelihood_bwd"] < 1 or others:
+            raise AssertionError(f"banana path launches {launches}")
+        a = first_steps(kernels.pop("logs"), BANANA_AB_STEPS)
+        b = first_steps(plain.pop("logs"), BANANA_AB_STEPS)
+        worst = max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-12)
+                    for x, y in zip(a, b) for k in x)
+        record("plain", plain)
+        record("kernels", kernels)
+        record("launches", launches)
+        record("kernels_vs_plain", dict(steps=BANANA_AB_STEPS, kernels=a,
+                                        plain=b, max_rel_diff=worst,
+                                        tolerance=1e-2))
+        if not worst <= 1e-2:
+            raise AssertionError(f"banana K3 vs plain logs differ by {worst}")
+
+        host = banana_main(cfg_of("banana_viz_VIC", SHORT_VIC + [
+            "rate.eb_use_pallas=True", "trainer.use_fused_epochs=False"],
+            "host"), precision)
+        host.pop("logs")
+        record("host_fed", host)
+        short_k3 = cfg_of("banana_viz_VIC", SHORT_VIC
+                          + ["rate.eb_use_pallas=True"], "turns")
+        record("fused_vs_host_fed", fused_vs_host_fed(short_k3))
+        record("profile", profile_fused_epoch(short_k3, card))
+
+        reset_launches()
+        bince = banana_main(cfg_of("banana_viz_BINCE", BINCE_OVERRIDES,
+                                   "bince"), precision)
+        logs = bince.pop("logs")
+        i_q_zm = np.concatenate([lg["I_q_zm"] for lg in logs])
+        bince.update(launches=read_launches(),
+                     I_q_zm_first_last=[float(i_q_zm[0]),
+                                        float(i_q_zm[-1])],
+                     loss_last=float(logs[-1]["loss"][-1]))
+        if not (np.isfinite(i_q_zm).all() and np.isfinite(
+                bince["loss_last"]) and bince["launches"]["eb_likelihood"]):
+            raise AssertionError(f"banana_viz_BINCE: {bince}")
+        record("bince", bince)
+
+        for name in ("banana_viz_VAE", "banana_viz_VIC_trnslt"):
+            run_ = banana_main(cfg_of(name, SHORT_OVERRIDES, name),
+                               precision)
+            run_.pop("logs")
+            record(name, run_)
+
+        t0 = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "lossyless_tpu_torch.cli", "banana_RD",
+             "-m", "--dev", *SHORT_OVERRIDES, f"out_dir={tmp}/cli/out",
+             f"ckpt_dir={tmp}/cli/ckpt", "loss.beta=0.05,0.2"],
+            capture_output=True, text=True, timeout=600, cwd=ROOT)
+        if cli.returncode:
+            raise AssertionError(f"the experiment CLI exited "
+                                 f"{cli.returncode}: {cli.stderr[-3000:]}")
+        jobs = [json.loads(line) for line in cli.stdout.splitlines()
+                if line.startswith('{"job"')]
+        if [j["job"] for j in jobs] != [0, 1] or not all(
+                np.isfinite(j["metrics"]["test/pred/loss"]) for j in jobs):
+            raise AssertionError(f"the CLI sweep printed {cli.stdout[-2000:]}")
+        record("cli_sweep", dict(wall_s=time.perf_counter() - t0,
+                                 jobs=jobs))
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"banana_path": {k: out[k] for k in (
+        "card", "matmul_precision", "launches", "kernels_vs_plain",
+        "fused_vs_host_fed", "wall_s")}}), flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2515,6 +2902,7 @@ def main() -> int:
     cli_path(card)
     bench_path(card)
     pipeline_launches = pipeline_path(card)
+    banana_launches = banana_path(card)
 
     attention_cu = "lossyless_tpu_torch/nn/csrc/attention.cu"
     eb_cu = "lossyless_tpu_torch/coding/csrc/eb_likelihood.cu"
@@ -2539,7 +2927,8 @@ def main() -> int:
             counts = dict(
                 launches=slice_launches[name],
                 launches_per_training_step_under_knob=under_knob[name],
-                launches_on_pipeline_path=pipeline_launches[name])
+                launches_on_pipeline_path=pipeline_launches[name],
+                launches_on_banana_path=banana_launches[name])
         else:
             # K1/K2 on the encode path, K3/K4 on the training path (K1/K2
             # run there too: launches_per_training_step)
@@ -2551,7 +2940,8 @@ def main() -> int:
                 launches_per_training_step=train_launches[name]
                 / TRAIN_STEPS,
                 launches_on_slice_path=slice_launches[name],
-                launches_on_pipeline_path=pipeline_launches[name])
+                launches_on_pipeline_path=pipeline_launches[name],
+                launches_on_banana_path=banana_launches[name])
         row = dict(name=name, route="cuda", source=sources[name],
                    replaces=replaces[name], **counts, **timings[name])
         # registers and spills of the kernel's instantiations

@@ -4,15 +4,24 @@ Counterpart of `lossyless_tpu/compressors/compressor.py`. One `step`
 computes the combined objective
 
     loss = lambda * distortion + beta_t * rate   (annealed-beta trick)
-         + coder quantile aux loss
+         + online probe loss on the detached z + coder quantile aux loss
 
 and the trainer (`train/state.py`) splits the parameters into optimizer
-groups by path. Ported so far: the deterministic/Gaussian encoder on the
-CLIP tower, the factorized and hyperprior rates and the lossy_Z
-distortion (the hub compressor's and the CLIP bottleneck's recipes), the
-lossless pass-through rate and the online probe on the detached z
-(`OnlineEvaluator`). The two-view contrastive branches wait for ROADMAP
-queue 1 item 6.
+groups by path. The encoder is the CLIP tower or an MLP; the rate any of
+the ported estimators; the distortion direct, contrastive or lossy Z.
+
+Contrastive recipes encode two views (x and its positive, `aux_target`).
+The default two-pass form encodes the positive after the anchor, with the
+same modules: a BatchNorm of the encoder updates its running statistics
+on the anchor's batch, then on the positive's, as flax does in one apply.
+`concat_views` runs one 2B-batch forward instead (joint BatchNorm
+statistics). Only the anchor's rates enter the loss.
+
+Every random draw of a step can be passed in, as the parity tests pass
+JAX's: `noise` (the rate's U(-0.5, 0.5) draws) and `eps` (the standard
+normals of a Gaussian encoder's sample); in a two-view step each is the
+pair (anchor's, positive's). Without them training draws from
+`generator`.
 
 Two differences of form from JAX, with the same updates:
 
@@ -35,9 +44,9 @@ import torch
 from torch import nn
 
 from ..core.annealer import Annealer
-from ..nn.registry import get_architecture
 from ..nn.mlp import params_from_flax as mlp_params_from_flax
-from ..nn.vit import params_from_flax
+from ..nn.registry import get_architecture
+from ..nn.vit import VisionTransformer, params_from_flax
 from .distortions import (DistortionConfig, make_distortion_estimator,
                           prediction_loss)
 from .distributions import from_suff_param, n_suff_params
@@ -94,8 +103,11 @@ class CondEncoder(nn.Module):
             cfg.arch, shape, cfg.z_dim * n_suff_params(cfg.family),
             **cfg.arch_kwargs)
 
-    def forward(self, x):
-        return from_suff_param(self.cfg.family, self.mapper(x).float())
+    def forward(self, x, *, training: bool = False):
+        # the tower has no batch statistics and takes no `training`
+        suff = self.mapper(x) if isinstance(self.mapper, VisionTransformer) \
+            else self.mapper(x, training=training)
+        return from_suff_param(self.cfg.family, suff.float())
 
 
 class OnlineEvaluator(nn.Module):
@@ -151,7 +163,7 @@ class LearnableCompressor(nn.Module):
         self.rate_estimator = make_rate_estimator(c.encoder.z_dim, c.rate,
                                                   generator)
         self.distortion_estimator = make_distortion_estimator(
-            c.distortion, c.encoder.z_dim, c.aux_shape)
+            c.distortion, c.encoder.z_dim, c.aux_shape, generator)
         if c.online.is_online:
             self.online_evaluator = OnlineEvaluator(
                 c.online, c.encoder.z_dim, c.target_shape, generator)
@@ -162,11 +174,19 @@ class LearnableCompressor(nn.Module):
             n_steps_anneal=max(1, c.loss.n_steps_anneal),
             mode=c.loss.beta_anneal)
 
-    def _p_zlx(self, x):
+    def _p_zlx(self, x, training: bool = False):
         if "p_ZlX" in self.frozen:
             with torch.no_grad():
-                return self.p_ZlX(x)
-        return self.p_ZlX(x)
+                return self.p_ZlX(x, training=training)
+        return self.p_ZlX(x, training=training)
+
+    @staticmethod
+    def _sample(p_zlx, generator, eps):
+        """z from p(Z|x): the given normals, else a draw from `generator`,
+        else the mean."""
+        if eps is not None or generator is not None:
+            return p_zlx.rsample(generator, eps)
+        return p_zlx.mean
 
     # -- inference ----------------------------------------------------------
 
@@ -178,44 +198,78 @@ class LearnableCompressor(nn.Module):
     def features(self, x, *, training: bool = False, generator=None,
                  noise=None):
         """x -> z_hat (with `generator`, z is sampled and noised)."""
-        p_zlx = self._p_zlx(x)
-        z = p_zlx.rsample(generator) if generator is not None else p_zlx.mean
+        p_zlx = self._p_zlx(x, training)
+        z = self._sample(p_zlx, generator, None)
         z_hat, _, _ = self.rate_estimator(z, p_zlx, training=training,
                                           generator=generator, noise=noise)
         return z_hat
+
+    @torch.no_grad()
+    def reconstruct(self, x, *, generator=None):
+        """x -> the decoder's reconstruction (direct distortion only)."""
+        z_hat = self.features(x, training=False, generator=generator)
+        return self.distortion_estimator.reconstruct(z_hat)
 
     # -- training objective -------------------------------------------------
 
     def step(self, x, targets, aux_target, *, training: bool, step: int,
              generator: torch.Generator | None = None,
-             noise: torch.Tensor | None = None, is_rate_only: bool = False):
+             noise=None, eps=None, is_rate_only: bool = False):
         """One RD step. Returns (loss, logs).
 
-        In training the rate's U(-0.5, 0.5) noise is `noise` when given
-        (the parity tests pass JAX's draws; the hyperprior's is the pair of
-        its side and main draws), else drawn from `generator`.
+        `noise` and `eps` are the step's draws (the module docstring); a
+        two-view step takes each as the pair (anchor's, positive's), and
+        `concat_views` concatenates each pair into the 2B batch's.
         """
         c = self.cfg
-        if c.distortion.mode == "contrastive":
-            raise NotImplementedError(
-                "the two-view contrastive step is not ported yet (ROADMAP "
-                "queue 1 item 6)")
-        p_zlx = self._p_zlx(x)
-        z = p_zlx.rsample(generator) if generator is not None else p_zlx.mean
+        is_two_view = (c.distortion.mode == "contrastive"
+                       and not c.distortion.is_already_featurized)
+        fuse_views = is_two_view and c.distortion.concat_views
+        if is_two_view:
+            if not all(d is None or isinstance(d, (tuple, list))
+                       for d in (noise, eps)):
+                raise ValueError("a two-view step takes noise and eps as "
+                                 "(anchor's, positive's) pairs")
+            noise, noise_pos = noise if noise is not None else (None, None)
+            eps, eps_pos = eps if eps is not None else (None, None)
+        enc_in = x
+        if fuse_views:
+            enc_in = torch.cat([x, aux_target])
+            noise, eps = _cat_draws(noise, noise_pos), _cat_draws(eps,
+                                                                  eps_pos)
+
+        p_zlx = self._p_zlx(enc_in, training)
+        z = self._sample(p_zlx, generator, eps)
         # the rate trains without backprop into the encoder, always or for
         # the first warmup_steps
         detach_rate = not c.rate.is_endToEnd or step < c.rate.warmup_steps
         z_hat, rates, r_logs = self.rate_estimator(
             z, p_zlx, training=training, noise=noise, generator=generator,
             step=step, detach_rate=detach_rate)
+        if fuse_views:
+            # the positive's rates are dropped, as in the two-pass form
+            b = x.shape[0]
+            z_hat, z_pos_hat, rates = z_hat[:b], z_hat[b:], rates[:b]
 
         if is_rate_only:
             r_logs = dict(r_logs)
             r_logs["rate"] = rates.mean() / LOG2
             return rates.mean(), r_logs
 
+        if fuse_views:
+            dist_target = z_pos_hat
+        elif is_two_view:
+            # the positive view through the same encoder and rate
+            p_pos = self._p_zlx(aux_target, training)
+            z_pos = self._sample(p_pos, generator, eps_pos)
+            dist_target, _, _ = self.rate_estimator(
+                z_pos, p_pos, training=training, noise=noise_pos,
+                generator=generator, step=step)
+        else:
+            dist_target = aux_target
+
         distortions, d_logs = self.distortion_estimator(
-            z_hat, aux_target, p_zlx, training=training)
+            z_hat, dist_target, p_zlx, training=training)
 
         loss, logs = self._rd_loss(rates, distortions, step)
         logs.update(r_logs)
@@ -269,25 +323,55 @@ class LearnableCompressor(nn.Module):
         return loss, logs
 
     def forward(self, x, targets, aux_target, *, training: bool = False,
-                step: int = 0, generator=None, noise=None):
+                step: int = 0, generator=None, noise=None, eps=None):
         return self.step(x, targets, aux_target, training=training,
-                         step=step, generator=generator, noise=noise)
+                         step=step, generator=generator, noise=noise,
+                         eps=eps)
 
 
-def compressor_params_from_flax(tree) -> dict:
-    """JAX `LearnableCompressor` param tree (numpy arrays) -> state dict.
+def _cat_draws(a, b):
+    """The anchor's and the positive's draws as one 2B batch's (tensors,
+    or tuples of them, such as the hyperprior's noise pair)."""
+    if a is None or b is None:
+        if a is not None or b is not None:
+            raise ValueError("pass both views' draws or neither")
+        return None
+    if isinstance(a, torch.Tensor):
+        return torch.cat([a, b])
+    return tuple(_cat_draws(u, v) for u, v in zip(a, b, strict=True))
 
-    The tower goes through `nn.vit.params_from_flax`; the rate estimator's
-    subtrees (`affine`, `entropy_bottleneck`, and the hyperprior's
-    `side_encoder` / `z_encoder` MLPs) and the online probe's map by their
-    path joined with dots.
-    Values come back as fp32 tensors.
+
+def compressor_params_from_flax(tree, batch_stats=None) -> dict:
+    """JAX `LearnableCompressor` variables (numpy arrays) -> state dict.
+
+    `tree` is the `params` collection; `batch_stats`, when given, is merged
+    into it (flax's running `mean` / `var` are the BatchNorm buffers). The
+    encoder's mapper goes through `nn.vit.params_from_flax` when it is the
+    CLIP tower, else (the MLP family) its path joined with dots, as every
+    other subtree does: the rate estimator (`affine`,
+    `entropy_bottleneck`, the hyperprior's MLPs), the distortion
+    estimator (the direct decoder `q_YlZ`, the contrastive `projector` and
+    `logit_scale`) and the online probe. Values come back as fp32 tensors.
     """
-    out = {f"p_ZlX.mapper.{k}": v
-           for k, v in params_from_flax(tree["p_ZlX"]["mapper"]).items()}
-    out.update(mlp_params_from_flax(tree["rate_estimator"],
-                                    "rate_estimator."))
-    if "online_evaluator" in tree:
-        out.update(mlp_params_from_flax(tree["online_evaluator"],
-                                        "online_evaluator."))
+    tree = _merge_stats(tree, batch_stats or {})
+    mapper = tree["p_ZlX"]["mapper"]
+    if any(k.startswith(("MLP_", "Dense_")) for k in mapper):
+        out = mlp_params_from_flax(mapper, "p_ZlX.mapper.")
+    else:
+        out = {f"p_ZlX.mapper.{k}": v
+               for k, v in params_from_flax(mapper).items()}
+    for name in ("rate_estimator", "distortion_estimator",
+                 "online_evaluator"):
+        if name in tree:
+            out.update(mlp_params_from_flax(tree[name], f"{name}."))
+    return out
+
+
+def _merge_stats(params: dict, stats: dict) -> dict:
+    """flax params with the batch_stats collection merged in, path by
+    path."""
+    out = dict(params)
+    for k, v in stats.items():
+        out[k] = _merge_stats(out.get(k, {}), v) if isinstance(v, dict) \
+            else v
     return out

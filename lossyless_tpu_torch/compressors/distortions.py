@@ -1,19 +1,32 @@
-"""Distortion estimators: the lossy-Z distortion of the hub compressor.
+"""Distortion estimators: direct reconstruction, contrastive, lossy Z.
 
-Counterpart of `lossyless_tpu/compressors/distortions.py`: all of
-`DistortionConfig`, `prediction_loss`, `LossyZDistortion` (the p-norm of
-`z_hat - p_zlx.mean`, for frozen pretrained encoders) and
-`make_distortion_estimator`. The direct and contrastive distortions are not
-ported yet (ROADMAP queue 1 item 6).
+Counterpart of `lossyless_tpu/compressors/distortions.py`:
+
+* `DirectDistortion`: the variational bound -log q(Y|Z) through a decoder
+  (`q_YlZ`, the registry's `mlp` unless `arch` names another) in the
+  `distribution` and `feature` data modes; the `image` mode, with its CNN
+  decoder, is not ported yet (ROADMAP queue 1 item 7);
+* `ContrastiveDistortion`: InfoNCE over the global batch of both views'
+  representations, with the projector MLP, the learned temperature and
+  the effective-batch-size reweighting;
+* `LossyZDistortion`: the p-norm of `z_hat - p_zlx.mean`, for frozen
+  pretrained encoders;
+* `DistortionConfig`, `prediction_loss`, `make_distortion_estimator`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..nn.mlp import MLP
+from ..nn.registry import get_architecture
+
+LOG2 = 0.6931471805599453
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +83,98 @@ def prediction_loss(y_hat, y, is_classification=True,
     return agg[agg_over_tasks](per_task, dim=-1)
 
 
+class DirectDistortion(nn.Module):
+    """Variational reconstruction bound -log q(Y|Z): the prediction loss
+    of the decoder's output."""
+
+    def __init__(self, z_dim: int, y_shape, cfg: DistortionConfig =
+                 DistortionConfig(), generator: torch.Generator | None = None):
+        super().__init__()
+        if cfg.data_mode == "image":
+            raise NotImplementedError(
+                "the direct distortion's image mode (the CNN decoder) is not "
+                "ported yet (ROADMAP queue 1 item 7)")
+        self.cfg = cfg
+        self.q_YlZ = get_architecture(cfg.arch or "mlp", z_dim, y_shape,
+                                      generator=generator, **cfg.arch_kwargs)
+
+    def forward(self, z_hat, aux_target, p_zlx=None, *,
+                training: bool = False):
+        y_hat = self.q_YlZ(z_hat, training=training)
+        neg_log = prediction_loss(y_hat, aux_target,
+                                  self.cfg.is_classification)
+        return neg_log, {"H_q_TlZ": neg_log.mean() / LOG2}
+
+    def reconstruct(self, z_hat):
+        """The decoder's output."""
+        return self.q_YlZ(z_hat, training=False)
+
+
+class ContrastiveDistortion(nn.Module):
+    """InfoNCE (BINCE) distortion over the global batch.
+
+    `z_hat` and `z_pos_hat` are the two views' representations (the
+    compressor encodes the second view). The positive of row i is row
+    i + B (mod 2B); every other row of both views is a negative. The
+    temperature is 1 / min(exp(logit_scale), 1 / temperature), written
+    with `torch.minimum` so that the bound splits the gradient in half as
+    `jnp.clip` does; the self-similarity is masked with -inf after the
+    division, so the mask never reaches the temperature's gradient."""
+
+    def __init__(self, z_dim: int, cfg: DistortionConfig = DistortionConfig(
+            mode="contrastive"), generator: torch.Generator | None = None):
+        super().__init__()
+        self.cfg = cfg
+        if cfg.is_project:
+            self.projector = MLP(z_dim, cfg.project_dim,
+                                 hid_dim=cfg.project_dim, n_hid_layers=1,
+                                 generator=generator)
+        if cfg.is_train_temperature:
+            self.logit_scale = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
+
+    def forward(self, z_hat, z_pos_hat, p_zlx=None, *,
+                training: bool = False):
+        c = self.cfg
+        batch_size = z_hat.shape[0]
+        zs = torch.cat([z_hat, z_pos_hat]).float()
+        if c.is_project:
+            zs = self.projector(zs, training=training)
+        if c.is_cosine:
+            # eps inside the square root: a zero row (a dead-ReLU
+            # projector's output) gets a finite, zero gradient
+            zs = zs / torch.sqrt((zs * zs).sum(-1, keepdim=True) + 1e-12)
+
+        n = 2 * batch_size
+        logits = zs @ zs.T
+        pos_idx = (torch.arange(n, device=zs.device) + batch_size) % n
+        n_classes = n - 1
+        if c.effective_batch_size is not None:
+            effective_n_classes = 2 * c.effective_batch_size - 1
+            to_mult = (effective_n_classes - 1) / (n_classes - 1)
+            # log(to_mult) added to the negatives == taken off the positive
+            logits = logits - math.log(to_mult) * F.one_hot(pos_idx, n).float()
+        else:
+            effective_n_classes = n_classes
+
+        if c.is_train_temperature:
+            bound = torch.full_like(self.logit_scale, 1.0 / c.temperature)
+            temperature = 1.0 / torch.minimum(self.logit_scale.exp(), bound)
+        else:
+            temperature = c.temperature
+        logits = logits / temperature
+        self_mask = torch.eye(n, dtype=torch.bool, device=zs.device)
+        logits = logits.masked_fill(self_mask, -math.inf)
+
+        logp = F.log_softmax(logits, dim=-1)
+        hat_H_mlz = -logp.gather(-1, pos_idx[:, None])[:, 0]
+        hat_H_m = math.log(effective_n_classes)
+        logs = {"I_q_zm": (hat_H_m - hat_H_mlz.mean()) / LOG2,
+                "hat_H_m": hat_H_m / LOG2,
+                "n_negatives": float(n_classes)}
+        # the two views' losses averaged a sample
+        return (hat_H_mlz[:batch_size] + hat_H_mlz[batch_size:]) / 2, logs
+
+
 class LossyZDistortion(nn.Module):
     """Lp distance between z_hat and the encoder mean."""
 
@@ -86,11 +191,13 @@ class LossyZDistortion(nn.Module):
         return dist, {}
 
 
-def make_distortion_estimator(cfg: DistortionConfig, z_dim: int, y_shape):
+def make_distortion_estimator(cfg: DistortionConfig, z_dim: int, y_shape,
+                              generator: torch.Generator | None = None):
+    """`generator` seeds the decoder's or the projector's init."""
+    if cfg.mode == "direct":
+        return DirectDistortion(z_dim, y_shape, cfg, generator)
+    if cfg.mode == "contrastive":
+        return ContrastiveDistortion(z_dim, cfg, generator)
     if cfg.mode == "lossy_Z":
         return LossyZDistortion(cfg)
-    if cfg.mode in ("direct", "contrastive"):
-        raise NotImplementedError(
-            f"distortion mode {cfg.mode!r} is not ported yet (ROADMAP queue "
-            f"1 item 6)")
     raise ValueError(f"unknown distortion mode={cfg.mode}")

@@ -2,8 +2,11 @@
 
 Counterpart of `lossyless_tpu/compressors/distributions.py`: the
 `Deterministic` (delta) and `DiagGaussian` families built from the
-encoder's sufficient-statistics output. Sampling takes an explicit
-`torch.Generator`; `detach` stops gradients through every parameter.
+encoder's sufficient-statistics output, and the KL helpers
+`kl_unit_gaussian` / `kl_divergence`. Sampling takes an explicit
+`torch.Generator`, or the standard normal draws themselves (`eps`, as the
+parity tests pass JAX's); `detach` stops gradients through every
+parameter.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ class Deterministic:
 
     n_param = 1
 
-    def rsample(self, generator: torch.Generator | None = None):
+    def rsample(self, generator: torch.Generator | None = None, eps=None):
         return self.loc
 
     @property
@@ -50,9 +53,10 @@ class DiagGaussian:
 
     n_param = 2
 
-    def rsample(self, generator: torch.Generator | None = None):
-        eps = torch.randn(self.loc.shape, generator=generator,
-                          dtype=self.loc.dtype, device=self.loc.device)
+    def rsample(self, generator: torch.Generator | None = None, eps=None):
+        if eps is None:
+            eps = torch.randn(self.loc.shape, generator=generator,
+                              dtype=self.loc.dtype, device=self.loc.device)
         return self.loc + self.scale * eps
 
     @property
@@ -89,3 +93,24 @@ def detach(dist):
     return dataclasses.replace(dist, **{
         f.name: getattr(dist, f.name).detach()
         for f in dataclasses.fields(dist)})
+
+
+def kl_unit_gaussian(p: DiagGaussian) -> torch.Tensor:
+    """KL[p || N(0, I)] a sample (summed over the event dim)."""
+    var = p.scale ** 2
+    return (0.5 * (var + p.loc ** 2 - 1.0 - torch.log(var))).sum(-1)
+
+
+def kl_divergence(p, q_loc, q_scale, z_samples=None):
+    """KL[p || N(q_loc, q_scale)] a sample: analytic for a Gaussian p; for
+    a deterministic p the single-sample cross-entropy -log q(z) (H[p] = 0)
+    at `z_samples`, else at p's atom."""
+    if isinstance(p, DiagGaussian):
+        var_p, var_q = p.scale ** 2, q_scale ** 2
+        kl = 0.5 * (torch.log(var_q / var_p)
+                    + (var_p + (p.loc - q_loc) ** 2) / var_q - 1.0)
+        return kl.sum(-1)
+    z = z_samples if z_samples is not None else p.rsample()
+    var_q = torch.as_tensor(q_scale, dtype=z.dtype, device=z.device) ** 2
+    lp = -0.5 * ((z - q_loc) ** 2 / var_q + torch.log(2 * math.pi * var_q))
+    return -lp.sum(-1)

@@ -2,7 +2,7 @@
 
 Counterpart of `lossyless_tpu/compressors/rates.py`: `RateConfig` (all of
 it), `EntropyBottleneckModule`, `_AffineZ`, `HRateFactorizedPrior`,
-`HRateHyperprior`, `Lossless` with `lossless_bits`,
+`HRateHyperprior`, `Lossless` with `lossless_bits`, `MIRate`,
 `make_rate_estimator`, and the host coders `FactorizedCoder` and
 `HyperpriorCoder`. Each estimator's
 `forward(z, p_zlx, *, training, ...)` returns `(z_hat, rates_in_nats,
@@ -12,14 +12,15 @@ Training noise is U(-0.5, 0.5), drawn from the caller's `torch.Generator`
 or passed in as `noise` (the parity tests hand both frameworks the same
 draws). The hyperprior takes two draws, the side bottleneck's and then the
 Gaussian conditional's (JAX splits the rate's key into these two), so its
-`noise` is the pair. The other modes (`MI`, `H_spatial`) are not ported
-yet (ROADMAP queue 1 item 5).
+`noise` is the pair. `MI` draws nothing. `H_spatial` is not ported yet
+(ROADMAP queue 1 item 5).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import io
+import math
 
 import numpy as np
 import torch
@@ -31,6 +32,7 @@ from ..coding import gaussian_conditional as gc
 from ..coding.rans import RansCodec
 from ..core.math import lower_bound
 from ..nn.mlp import MLP
+from .distributions import DiagGaussian, detach, kl_unit_gaussian
 
 LOG2 = 0.6931471805599453
 
@@ -238,6 +240,33 @@ class Lossless(nn.Module):
         return z, z.mean(-1) * 0.0, {}
 
 
+class MIRate(nn.Module):
+    """Upper bound of I[Z, X]: KL[p(Z|x) || N(0, I)] for a Gaussian
+    encoder, the cross-entropy -log N(z; 0, I) for a deterministic one. z
+    passes through; nothing is drawn."""
+
+    def __init__(self, z_dim: int):
+        super().__init__()
+        self.z_dim = z_dim
+
+    def forward(self, z, p_zlx, *, training: bool, noise=None,
+                generator=None, step: int = 0, detach_rate: bool = False):
+        """With `detach_rate` the rates and their logs see a detached z and
+        p(Z|x)."""
+        z_rate, p_rate = (z.detach(), detach(p_zlx)) if detach_rate \
+            else (z, p_zlx)
+        if isinstance(p_rate, DiagGaussian):
+            kl = kl_unit_gaussian(p_rate)
+            h_zlx = p_rate.entropy()
+        else:
+            kl = 0.5 * (z_rate ** 2 + math.log(2 * math.pi)).sum(-1)
+            h_zlx = torch.zeros(z.shape[0], device=z.device)
+        logs = {"I_q_ZX": _nats_to_bits_mean(kl),
+                "H_ZlX": _nats_to_bits_mean(h_zlx)}
+        logs["H_q_Z"] = logs["I_q_ZX"] + logs["H_ZlX"]
+        return z, kl, logs
+
+
 def lossless_bits(z_np: np.ndarray) -> float:
     """gzip'd bits a sample of the raw float representation."""
     with io.BytesIO() as f:
@@ -253,7 +282,9 @@ def make_rate_estimator(z_dim: int, cfg: RateConfig,
         return HRateHyperprior(z_dim, cfg, generator)
     if cfg.mode == "lossless":
         return Lossless(z_dim)
-    if cfg.mode in ("MI", "H_spatial"):
+    if cfg.mode == "MI":
+        return MIRate(z_dim)
+    if cfg.mode == "H_spatial":
         raise NotImplementedError(
             f"rate mode {cfg.mode!r} is not ported yet (ROADMAP queue 1 "
             f"item 5)")

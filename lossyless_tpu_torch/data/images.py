@@ -257,7 +257,10 @@ class ImageDataset:
 
 
 def get_datamodule(name: str, **kwargs):
-    """Dataset registry for the image sets."""
+    """Dataset registry: the banana source and the image sets."""
+    if name == "banana":
+        from .banana import BananaDataset
+        return BananaDataset(**kwargs)
     if name == "stl10_unlabeled":
         # the featurizer trains on the unlabeled images (targets -1), the
         # evaluation splits stay labeled

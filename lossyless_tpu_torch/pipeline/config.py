@@ -3,12 +3,14 @@
 Counterpart of `lossyless_tpu/pipeline/config.py`: `DataConfig`,
 `TrainerConfig`, `ExperimentConfig`, `apply_overrides` (the `a.b.c=value`
 override syntax, literal-eval coercion), `apply_precision` and the presets
-that run on the port: the CLIP recipes `clip_bottleneck_pretrain` (the
+that run on the port: the banana experiments `banana_viz_VIC`,
+`banana_viz_VAE`, `banana_viz_BINCE`, `banana_viz_VIC_trnslt` and
+`banana_RD` (fp32), the CLIP recipes `clip_bottleneck_pretrain` (the
 hyperprior rate), `clip_hub` (the factorized rate), `clip_lossyZ` (the
 hyperprior bottleneck with the online probe) and its evaluation presets
 `clip_bottleneck_{linear,mlp}_eval` and `clip_raw_{linear,mlp}_eval` (the
 lossless rate, featurizer at init). The other presets wait for ROADMAP
-queue 1 item 10.
+queue 1 item 10 (the image ones for order 7's ResNet).
 """
 
 from __future__ import annotations
@@ -46,8 +48,8 @@ class TrainerConfig:
     monitor_mode: str = "min"
     limit_train_batches: float = 1.0   # dev-mode caps (config/mode/dev.yaml)
     limit_eval_batches: float = 1.0
-    # kept for config compatibility with the JAX package; the port's loop
-    # (pipeline/run.py) runs one step per batch
+    # train each epoch on batches drawn on the device when the dataset has
+    # a device sampler (train/state.py::make_generative_epoch)
     use_fused_epochs: bool = True
     # devices for training: only 1 is ported (multi-GPU: ROADMAP queue 1)
     n_devices: int = 1
@@ -286,6 +288,67 @@ def preset(name: str) -> ExperimentConfig:
 
 
 def _preset_impl(name: str) -> ExperimentConfig:
+    if name in ("banana_viz_VIC", "banana_vic"):
+        # bin/banana/banana_viz_VIC.sh + config/data/base_banana.yaml: 100
+        # epochs x 1000 steps of batch 1024 (length=1024000), lr 3e-4 with
+        # exponential decay /1000 (featurizer) and /100 (coder)
+        return ExperimentConfig(
+            experiment="banana_viz_VIC",
+            data_feat=DataConfig(name="banana", batch_size=1024, n_epochs=100,
+                                 kwargs=dict(additional_target="representative",
+                                             length=1024000)),
+            optimizer_feat=OptimConfig(lr=3e-4, scheduler="expdecay",
+                                       decay_factor=1000., total_steps=0),
+            optimizer_coder=OptimConfig(lr=3e-4, scheduler="expdecay",
+                                        decay_factor=100., total_steps=0),
+            encoder=EncoderConfig(
+                arch="mlp", z_dim=2, family="deterministic",
+                arch_kwargs=dict(hid_dim=1024, n_hid_layers=2,
+                                 norm_layer="batchnorm",
+                                 activation="quickgelu")),
+            rate=RateConfig(mode="H_factorized"),
+            distortion=DistortionConfig(
+                mode="direct", data_mode="distribution",
+                is_classification=False,
+                arch_kwargs=dict(hid_dim=1024, n_hid_layers=2,
+                                 norm_layer="batchnorm",
+                                 activation="quickgelu")),
+            online=OnlineEvalConfig(is_online=True, is_classification=False,
+                                    arch_kwargs=dict(hid_dim=512)),
+            loss=LossConfig(beta=0.07, beta_anneal="constant"),
+            predictor=PredictorConfig(is_classification=False),
+        )
+    if name in ("banana_viz_VAE", "banana_vae"):
+        # the script pins distortion.factor_beta=1 over VAE.yaml's 0.5
+        # (bin/banana/banana_viz_VIC.sh:21)
+        cfg = preset("banana_viz_VIC")
+        cfg.experiment = "banana_viz_VAE"
+        cfg.data_feat.kwargs["additional_target"] = "input"
+        return cfg
+    if name in ("banana_viz_BINCE", "banana_bince"):
+        # bin/banana/banana_viz_BINCE.sh: the contrastive distortion with a
+        # 1-d latent, the contrastive defaults (trainable temperature 0.01,
+        # cosine logits), no effective-batch-size reweighting, beta 0.6
+        cfg = preset("banana_viz_VIC")
+        cfg.experiment = "banana_viz_BINCE"
+        cfg.data_feat.kwargs["additional_target"] = "equiv_x"
+        cfg.encoder = dataclasses.replace(cfg.encoder, z_dim=1)
+        cfg.distortion = DistortionConfig(mode="contrastive", project_dim=1,
+                                          effective_batch_size=None)
+        cfg.loss = dataclasses.replace(cfg.loss, beta=0.6)
+        return cfg
+    if name in ("banana_viz_VIC_trnslt",):
+        # bin/banana/banana_viz_VIC_trnslt.sh: translation equivalence
+        cfg = preset("banana_viz_VIC")
+        cfg.experiment = "banana_viz_VIC_trnslt"
+        cfg.data_feat.kwargs["equivalence"] = "y_translation"
+        return cfg
+    if name in ("banana_RD",):
+        # bin/banana/banana_RD.sh: the beta-sweep base over the rotated
+        # banana (sweep loss.beta with the CLI's -m)
+        cfg = preset("banana_viz_VIC")
+        cfg.experiment = "banana_RD"
+        return cfg
     if name in ("clip_bottleneck_pretrain",):
         # bin/clip/clip_bottleneck_pretrain.sh: pretrain the CLIP
         # bottleneck on COCO — featurizer=bottleneck_clip_lossyZ (frozen
@@ -375,10 +438,12 @@ def _preset_impl(name: str) -> ExperimentConfig:
 
 
 def available_presets() -> list[str]:
-    """The presets this package has: `clip_hub` and
-    `clip_bottleneck_pretrain` train through `pipeline.run.run_featurizer`
-    and code through `run_communication`; the others run the three stages
-    through `pipeline.run.main`."""
-    return ["clip_lossyZ", "clip_bottleneck_pretrain", "clip_hub",
+    """The presets this package has, in the JAX package's order:
+    `clip_hub` and `clip_bottleneck_pretrain` train through
+    `pipeline.run.run_featurizer` and code through `run_communication`;
+    the others run the three stages through `pipeline.run.main`."""
+    return ["banana_viz_VIC", "banana_viz_VAE", "banana_viz_BINCE",
+            "banana_viz_VIC_trnslt", "banana_RD",
+            "clip_lossyZ", "clip_bottleneck_pretrain", "clip_hub",
             "clip_bottleneck_linear_eval", "clip_bottleneck_mlp_eval",
             "clip_raw_linear_eval", "clip_raw_mlp_eval"]

@@ -9,16 +9,21 @@ Counterpart of `lossyless_tpu/pipeline/run.py`:
   comes from a `torch.Generator` on the device seeded with i, as the JAX
   loop keys step i with `jax.random.key(i)`.
 * `run_featurizer_stage(cfg)`: JAX's `run_featurizer(cfg)`, the
-  datamodule-driven stage built on that loop: one `run_featurizer` an
-  epoch over the epoch's batches, then validation, the `last` and `best`
-  checkpoints (`CheckpointManager`; a run resumes from `last`), the
-  plateau controllers, the best weights restored and exported
+  datamodule-driven stage built on that loop: an epoch is one
+  `run_featurizer` over the epoch's host batches or, when
+  `trainer.use_fused_epochs` is set and the dataset has a
+  `device_sampler` (the banana source), one `make_generative_epoch` of
+  batches drawn on the device, its generators keyed by `trainer.seed +
+  epoch`; then validation, the `last` and `best` checkpoints
+  (`CheckpointManager`; a run resumes from `last`), the plateau
+  controllers, the best weights restored and exported
   (`best_featurizer`), and the test split's metrics with `encoder_time`
   in `results_featurizer.csv`.
 * `run_communication`: real entropy coding of a measurement set with the
-  trained rate (`H_factorized`, `H_hyper`) or the gzip'd size of the raw
-  features (`lossless`): `n_bits` and the per-image times, written to
-  `results_communication.csv` with the stage sentinel.
+  trained rate (`H_factorized`, `H_hyper`), the gzip'd size of the raw
+  features (`lossless`), or for `MI` the rate the estimator bounds (no
+  coder: `is_real_coding` 0): `n_bits` and the per-image times, written
+  to `results_communication.csv` with the stage sentinel.
 * `run_predictor`: featurize the predictor's datasets through the frozen
   compressor, fit the probe (`pipeline/predictor.py`), evaluate it on the
   test split: `results_predictor.csv`.
@@ -47,6 +52,7 @@ from ..compressors.rates import (FactorizedCoder, HyperpriorCoder,
                                  lossless_bits)
 from ..core.device import resolve_device
 from ..data.balancing import get_balancing_weights
+from ..data.banana import BananaDataset
 from ..data.images import get_datamodule
 from ..train.checkpoints import (CheckpointManager, is_stage_done,
                                  load_weights, mark_stage_done,
@@ -55,7 +61,8 @@ from ..train.loggers import get_logger
 from ..train.metrics import MetricAccumulator, namespaced, write_results_csv
 from ..train.state import (ReduceLROnPlateau, TrainState,
                            bind_schedule_steps, eval_step, get_plateau_scale,
-                           set_plateau_scale, train_step)
+                           make_generative_epoch, set_plateau_scale,
+                           train_step)
 from .config import ExperimentConfig, apply_precision
 from .predictor import PredictorTrainer, featurize_dataset
 
@@ -160,6 +167,13 @@ def _step_generator(device, seed: int) -> torch.Generator:
 def instantiate_datamodule(cfg: ExperimentConfig, data_cfg, split="train"):
     """Build the dataset and write its shapes into `cfg`."""
     kwargs = dict(data_cfg.kwargs)
+    if data_cfg.name == "banana":
+        ds = BananaDataset(**kwargs)
+        cfg.in_shape = (2,)
+        cfg.target_shape = 1
+        at = kwargs.get("additional_target", "representative")
+        cfg.aux_shape = 1 if at == "target" else 2
+        return ds
     ds = get_datamodule(data_cfg.name, split=split, **kwargs)
     cfg.in_shape = ds.spec.shape
     cfg.target_shape = ds.spec.n_classes
@@ -173,8 +187,15 @@ def instantiate_datamodule(cfg: ExperimentConfig, data_cfg, split="train"):
 
 def _eval_dataset(cfg: ExperimentConfig, data_cfg, split: str):
     """An evaluation split ("validation" for model selection, "test" for
-    the final metrics), in the evaluation view (no augmentation)."""
+    the final metrics), in the evaluation view (no augmentation). The
+    banana source's splits are fresh samples: at most 20,480 of them, seeded
+    `trainer.seed` + 1 (validation) or + 2 (test)."""
     kwargs = dict(data_cfg.kwargs)
+    if data_cfg.name == "banana":
+        kwargs["length"] = min(kwargs.get("length", 20480), 20480)
+        kwargs["seed"] = cfg.trainer.seed + (1 if split == "validation"
+                                             else 2)
+        return BananaDataset(**kwargs)
     kwargs.setdefault("is_augment", False)
     return get_datamodule(data_cfg.name, split=split, **kwargs)
 
@@ -188,7 +209,10 @@ def _test_dataset(cfg: ExperimentConfig, data_cfg):
 
 
 def _all_batches(ds, bsz: int, seed: int):
-    """All samples: full batches and the ragged tail."""
+    """All samples: full batches and the ragged tail (a generative source
+    has no tail to keep)."""
+    if isinstance(ds, BananaDataset):
+        return ds.batches(bsz, n_epochs=1, seed=seed)
     return ds.batches(bsz, n_epochs=1, seed=seed, drop_last=False)
 
 
@@ -288,6 +312,12 @@ def run_featurizer_stage(cfg: ExperimentConfig, device=None,
                          if cfg.trainer.monitor.startswith("train_")
                          else None)
 
+    # the fused path: batches drawn on the device, one readback an epoch
+    epoch_fn = None
+    if cfg.trainer.use_fused_epochs and hasattr(train_ds, "device_sampler"):
+        epoch_fn = make_generative_epoch(train_ds.device_sampler(bsz),
+                                         steps_per_epoch)
+
     for epoch in range(state.step // steps_per_epoch, n_epochs):
         train_vals = []
 
@@ -297,11 +327,16 @@ def run_featurizer_stage(cfg: ExperimentConfig, device=None,
             if on_step is not None:
                 on_step(step, st, logs)
 
-        epoch_batches = itertools.islice(
-            train_ds.batches(bsz, n_epochs=1, seed=cfg.trainer.seed + epoch),
-            steps_per_epoch)
-        run_featurizer(cfg, epoch_batches, device=device, state=state,
-                       on_step=step_hook, log=log, logger=logger)
+        if epoch_fn is not None:
+            _fused_epoch(cfg, epoch_fn, state, epoch, steps_per_epoch,
+                         step_hook, logger)
+        else:
+            epoch_batches = itertools.islice(
+                train_ds.batches(bsz, n_epochs=1,
+                                 seed=cfg.trainer.seed + epoch),
+                steps_per_epoch)
+            run_featurizer(cfg, epoch_batches, device=device, state=state,
+                           on_step=step_hook, log=log, logger=logger)
 
         # epoch-end validation and checkpoints
         acc = MetricAccumulator()
@@ -350,6 +385,26 @@ def run_featurizer_stage(cfg: ExperimentConfig, device=None,
     return state, train_ds, test_ds, metrics
 
 
+def _fused_epoch(cfg: ExperimentConfig, epoch_fn, state: TrainState,
+                 epoch: int, steps_per_epoch: int, step_hook: Callable,
+                 logger):
+    """One epoch of `make_generative_epoch`, keyed by `trainer.seed +
+    epoch`. The logs come back stacked: `step_hook` sees each step's row
+    afterwards (with the epoch's final state), and the logger one row of
+    window means every `trainer.log_every` steps, as JAX logs its fused
+    epochs."""
+    first = state.step
+    _, logs = epoch_fn(state, cfg.trainer.seed + epoch)
+    for i in range(steps_per_epoch):
+        step_hook(first + i, state, {k: v[i] for k, v in logs.items()})
+    if cfg.trainer.log_every:
+        le = max(1, int(cfg.trainer.log_every))
+        for s in range(0, steps_per_epoch, le):
+            chunk = {k: float(np.mean(v[s:s + le])) for k, v in logs.items()}
+            logger.log(first + min(s + le, steps_per_epoch),
+                       namespaced(chunk, "train", "feat"))
+
+
 @torch.no_grad()
 def run_communication(cfg: ExperimentConfig, state: TrainState,
                       batches: Iterable, device=None) -> dict:
@@ -368,6 +423,17 @@ def run_communication(cfg: ExperimentConfig, state: TrainState,
             raise ValueError("no batches to code")
         return _finish_communication(
             cfg, {"n_bits": lossless_bits(np.concatenate(zs))})
+    if cfg.rate.mode == "MI":
+        # no coder: the rate the estimator bounds, from rate-only steps
+        acc = MetricAccumulator()
+        for i, b in enumerate(batches):
+            b = _batch_to(b, device)
+            _, logs = eval_step(state, b, _step_generator(device, 3000 + i),
+                                is_rate_only=True)
+            acc.update(logs, weight=len(b[0]))
+        return _finish_communication(cfg, {
+            "rate": acc.means().get("rate", math.nan),
+            "is_real_coding": 0.0})
     if cfg.rate.mode == "H_factorized":
         coder = FactorizedCoder.from_module(model.rate_estimator)
     elif cfg.rate.mode == "H_hyper":
@@ -424,7 +490,8 @@ def _predictor_datasets(cfg: ExperimentConfig, train_ds, val_ds):
     else on `data_feat`. Pre-featurization freezes one view a sample, the
     evaluation view unless the probe runs on the fly."""
     if cfg.data_pred is None:
-        if not cfg.predictor.is_on_the_fly:
+        if not cfg.predictor.is_on_the_fly and cfg.data_feat.name != \
+                "banana":
             kwargs = dict(cfg.data_feat.kwargs)
             kwargs.setdefault("is_augment", False)
             pred_train = instantiate_datamodule(
@@ -435,7 +502,8 @@ def _predictor_datasets(cfg: ExperimentConfig, train_ds, val_ds):
 
     scratch = copy.copy(cfg)
     kwargs = dict(cfg.data_pred.kwargs)
-    kwargs.setdefault("is_augment", cfg.predictor.is_on_the_fly)
+    if cfg.data_pred.name != "banana":
+        kwargs.setdefault("is_augment", cfg.predictor.is_on_the_fly)
     data_cfg = dataclasses.replace(cfg.data_pred, kwargs=kwargs)
     pred_train = instantiate_datamodule(scratch, data_cfg)
     pred_val = _test_dataset(scratch, data_cfg)

@@ -15,7 +15,9 @@ optax schedule returns at that count; a plateau group's lr is also scaled
 by its host controller (`ReduceLROnPlateau`), as JAX scales the update. The optimizers are torch's, set up to
 follow optax: adamw with decoupled decay, adam and sgd (momentum 0.9) with
 torch-style coupled L2. `train_step` updates the state in place (the model
-parameters and optimizer moments) and returns it with the step's logs.
+parameters and optimizer moments) and returns it with the step's logs;
+`make_generative_epoch` runs an epoch of them on batches drawn on the
+device.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import itertools
 import math
 from typing import Callable
 
+import numpy as np
 import torch
 
 
@@ -242,13 +245,16 @@ class TrainState:
         return cls(model=model, optimizers=optimizers, lr_scales=lr_scales)
 
 
-def train_step(state: TrainState, batch, generator=None, noise=None):
-    """One fused RD + coder update, in place. Returns (state, logs)."""
+def train_step(state: TrainState, batch, generator=None, noise=None,
+               eps=None):
+    """One fused RD + coder update, in place. Returns (state, logs).
+    `noise` / `eps` are the step's draws (`LearnableCompressor.step`),
+    else they come from `generator`."""
     x, y, aux = batch
     for opt, _ in state.optimizers.values():
         opt.zero_grad(set_to_none=True)
     loss, logs = state.model.step(x, y, aux, training=True, step=state.step,
-                                  generator=generator, noise=noise)
+                                  generator=generator, noise=noise, eps=eps)
     loss.backward()
     for label, (opt, schedule) in state.optimizers.items():
         lr = schedule(state.step) * state.lr_scales.get(label, 1.0)
@@ -263,6 +269,49 @@ def train_step(state: TrainState, batch, generator=None, noise=None):
     state.step += 1
     return state, {k: v.detach() if isinstance(v, torch.Tensor) else v
                    for k, v in logs.items()}
+
+
+def epoch_generators(seed: int, device) -> tuple[torch.Generator,
+                                                   torch.Generator]:
+    """(data, step) generators on `device` for the epoch keyed by `seed`:
+    two distinct streams, both functions of the seed alone."""
+    data_seed, step_seed = np.random.SeedSequence(seed).generate_state(
+        2, np.uint64)
+    return (torch.Generator(device).manual_seed(int(data_seed)),
+            torch.Generator(device).manual_seed(int(step_seed)))
+
+
+def make_generative_epoch(sample_fn, n_steps: int):
+    """`epoch(state, seed) -> (state, logs)`: `n_steps` updates, each on a
+    batch that `sample_fn(generator)` draws on the device (for example
+    `BananaDataset.device_sampler`), with nothing copied from the host and
+    no wait on the device inside the epoch.
+
+    The batches and the steps' own draws come from two generators seeded
+    from `seed` (`epoch_generators`; the pipeline passes `trainer.seed +
+    epoch`, as JAX keys the epoch), so an epoch's draws do not depend on
+    the epochs before it and a resumed run draws what an unbroken one
+    does. Each log comes back as a numpy array of shape (n_steps,), read
+    from the device once an epoch. The steps are eager `train_step`s in a
+    Python loop."""
+
+    def epoch(state: TrainState, seed: int):
+        device = next(state.model.parameters()).device
+        g_data, g_step = epoch_generators(seed, device)
+        tensor_logs, host_logs = {}, {}
+        for _ in range(n_steps):
+            state, logs = train_step(state, sample_fn(g_data), g_step)
+            for k, v in logs.items():
+                (tensor_logs if isinstance(v, torch.Tensor)
+                 else host_logs).setdefault(k, []).append(v)
+        out = {k: np.asarray(v, np.float32) for k, v in host_logs.items()}
+        if tensor_logs:
+            stacked = torch.stack([torch.stack(v).float().reshape(n_steps)
+                                   for v in tensor_logs.values()])
+            out.update(zip(tensor_logs, stacked.cpu().numpy()))
+        return state, out
+
+    return epoch
 
 
 @torch.no_grad()

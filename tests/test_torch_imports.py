@@ -72,6 +72,9 @@ NEW_MODULES = [
     "lossyless_tpu_torch.pipeline.predictor",
     "lossyless_tpu_torch.hub.cli",
     "lossyless_tpu_torch.bench",
+    # slice 10: the banana experiments and the experiment CLI
+    "lossyless_tpu_torch.data.banana",
+    "lossyless_tpu_torch.cli",
 ]
 
 

@@ -102,7 +102,7 @@ def test_augmentation_raises_and_names_the_queue():
     with pytest.raises(NotImplementedError, match="queue 1 order 4"):
         next(ds.batches(4))
     with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        timages.get_datamodule("banana")
+        timages.get_datamodule("imagenet")
 
 
 def test_missing_files_raise_rather_than_synthesize(tmp_path):
@@ -140,7 +140,7 @@ class Toy(torch.nn.Module):
         self.w = torch.nn.Parameter(torch.full((3,), value))
 
     def step(self, x, y, aux, *, training, step, generator=None,
-             noise=None):
+             noise=None, eps=None):
         return (self.w * x).sum(), {}
 
 

@@ -231,12 +231,13 @@ def test_detached_rate_is_one_likelihood_with_live_z_hat():
 def test_unported_modes_raise_and_name_the_queue():
     with pytest.raises(NotImplementedError, match="queue 1 item 5"):
         trates.make_rate_estimator(4, trates.RateConfig(mode="H_spatial"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    # the image data mode needs the CNN decoder
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
         tdist.make_distortion_estimator(tdist.DistortionConfig(), 4, 2)
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
         registry.get_architecture("resnet", (32, 32, 3), 8)
     with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        tconfig.preset("banana_viz_VIC")
+        tconfig.preset("mnist_vic")
 
 
 @pytest.mark.parametrize("p_norm", [1.0, 2.0])
@@ -324,7 +325,7 @@ def test_config_presets_and_overrides_match_jax():
         assert t.long_name == j.long_name
     assert tconfig.available_presets() == [
         n for n in jconfig.available_presets()
-        if n.startswith("clip_")]
+        if n.startswith(("banana", "clip_"))]
 
 
 # ---------------------------------------------------------------------------
