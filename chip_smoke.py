@@ -38,8 +38,9 @@ non-zero without printing a result:
    TMA/wgmma tile (asserted), the check counted on independent draws
    pooled up to the slice check's 19,660,800 outputs (`FLOAT64_OUTPUTS`);
 3b. K3 (entropy-bottleneck likelihood) at the training shape (128, 512),
-   at odd shapes in fp32 and at the banana path's (1024, 2) and (1024, 1)
-   with filters (3, 3, 3) (`K3_CHECKS`), to rtol 1e-5 / atol 1e-7, each on
+   at odd shapes in fp32, at the banana path's (1024, 2) and (1024, 1)
+   with filters (3, 3, 3) and at the image path's side latent (256, 25)
+   (`K3_CHECKS`), to rtol 1e-5 / atol 1e-7, each on
    the design `k3_plan` picks (asserted: the fixed chain for (3,3,3,3) and
    (3,3,3), else the generic one); its backward kernel at the same shapes
    and the side latent's (128, 102) (`K3_BWD_CHECKS`), through the
@@ -49,7 +50,10 @@ non-zero without printing a result:
    g = +1e9 and -1e9 (no gradient may pass the first), two calls equal bit
    for bit; both kernels' times beside their plain versions' and the
    eager backward's (autograd through the reference chain: its time and
-   its device kernels), and at the banana shapes with their bounds; K4
+   its device kernels), and at the banana and image shapes with their
+   bounds; the backward at the |x| tie (one channel, widths (1, 1),
+   matrix0 = -30, bias0 = 1, z = 0: d(-log lik) / d matrix0 = JAX's
+   1.8398e-5, rtol 1e-4, and the plain backward's, rtol 1e-5); K4
    (fused MLP
    half-block) at every `K4_CHECKS` case in bf16, to atol 2e-2 plus one
    bf16 ulp of the value: the training shape (128 x 50 tokens, width 768),
@@ -146,7 +150,9 @@ non-zero without printing a result:
    with K3 on, at full width on 4,096 synthetic 96 px images, 2
    featurizer and 2 predictor epochs (`PIPELINE_REDUCED`): the three
    stage sentinels and results CSVs, a finite `test/pred/acc`, K1 11 and
-   K2 1 a tower forward, K3 and its backward launched; a second `main`
+   K2 1 a tower forward, K3 and its backward launched, the training steps
+   counted on the fused epoch (the image datasets' device sampler, since
+   slice 11) and on the host-fed loop; a second `main`
    skips every stage (no step, no launch); a featurizer stage killed
    after its first `save_last` resumes at that step;
 12. the banana experiments (`BANANA_REDUCED` lists the cuts): `main(
@@ -166,10 +172,26 @@ non-zero without printing a result:
    experiment CLI's `-m loss.beta=0.05,0.2` sweep of `banana_RD` in a
    subprocess (two jobs). Every run writes the three stages' metrics
    (`test/feat/*`, `test/comm/n_bits`, `test/pred/*`), all finite;
+13. the augmented-MNIST image path (`IMAGE_REDUCED` lists the cuts):
+   `main(preset("mnist_vic"))` at full width (ResNet-18 with the 3x3 stem
+   at 32 x 32 x 1, z = 128, `H_hyper` with its 25-channel side latent on
+   K3, the CNN decoder at hid_dim 32, batch 256, bf16) through the fused
+   epoch, the batches drawn and augmented (rotation, x/y translation,
+   scale, shear) on the card, 2 epochs of 105 steps on 30,000 seeded
+   synthetic images, the launch counts read around that run (K3 and its
+   backward launched, nothing else); the same featurizer on the plain
+   likelihood, whose first 3 steps' loss, rate and distortion the
+   kernels' must equal to rtol 1e-2; ms a step of fused epochs and the
+   host-fed loop on one state in turns; a fused epoch under
+   torch.profiler (idle share, device kernels a step, device ms by group:
+   convolutions, matmuls, K3, other); `mnist_stag_step1` ->
+   `mnist_stag_step2` at a small depth, step 2 reading step 1's export
+   through `encoder.pretrained_path`, its frozen encoder's parameters
+   equal to that export bit for bit;
 7. the `kernels` JSON line (K1-K4, K3's backward, K5a, K5b; with
    `device_ms` and `bound_share`, K1/K2 also at batch 256 and at N = 10,
    K3 also at the banana shapes, K1's design, its float64 readings and
-   its designs side by side, the launches on phase 11's and phase 12's
+   its designs side by side, the launches on phase 11's, 12's and 13's
    paths, and the registers and spills of every kernel) and, last,
    `{"ok": true, "device": {...}}`.
 
@@ -1333,8 +1355,15 @@ K3_CHECKS = [(TRAIN_BATCH, 512, (3, 3, 3, 3)), (37, 13, (3, 3, 3)),
              (5, 130, (2, 4)), (1, 1, (3, 3, 3, 3)),
              # the banana path's z: banana_viz_VIC (z = 2), _BINCE (z = 1);
              # one 32-channel group with 30 or 31 channels empty
-             (1024, 2, (3, 3, 3)), (1024, 1, (3, 3, 3))]
-BANANA_K3 = K3_CHECKS[-2:]
+             (1024, 2, (3, 3, 3)), (1024, 1, (3, 3, 3)),
+             # the image path's side latent: z = 128 -> 25 channels at
+             # batch 256, one 32-channel group
+             (256, 25, (3, 3, 3, 3))]
+BANANA_K3 = K3_CHECKS[-3:-1]
+IMAGE_K3 = K3_CHECKS[-1:]
+# the |x| tie (ROADMAP queue 3 item 7): one channel, widths (1, 1),
+# matrix0 = -30, bias0 = 1, z = 0; JAX's d(-log lik) / d matrix0
+K3_TIE_GRAD = 1.8398e-5
 K3_BWD_CHECKS = K3_CHECKS + [(TRAIN_BATCH, 102, (3, 3, 3, 3))]
 
 
@@ -1509,6 +1538,15 @@ def check_k3() -> dict:
         results["eb_likelihood"]["banana_shapes"][f"{Bb}x{Cb}"] = fwd_t
         results["eb_likelihood_bwd"]["banana_shapes"][f"{Bb}x{Cb}"] = bwd_t
 
+    # the image path's side latent
+    for i, (Bi, Ci, fi) in enumerate(IMAGE_K3):
+        fwd_t, bwd_t = time_k3_at(Bi, Ci, fi, seed=300 + i)
+        results["eb_likelihood"]["image_shape"] = dict(
+            fwd_t, shape=f"{Bi}x{Ci}")
+        results["eb_likelihood_bwd"]["image_shape"] = dict(
+            bwd_t, shape=f"{Bi}x{Ci}")
+    results["eb_likelihood_bwd"]["tie"] = check_k3_tie()
+
     # the backward: the wrapper's launch, its plain version, and the eager
     # backward it replaces
     bwd = lambda: eb_kernel._launch_bwd(p, z, g, plan, True, True)
@@ -1536,6 +1574,35 @@ def check_k3() -> dict:
           f"{e_dev!r} ms), bound {b_bound!r} ms ({b_by}: {bytes_bwd} bytes, "
           f"{flops_bwd} flop)", flush=True)
     return results
+
+
+def check_k3_tie() -> dict:
+    """The backward kernel at the |x| tie: the chain rounds z - 0.5 and
+    z + 0.5 to one logit, so D = 0 while the sigmoids' slopes are not 0;
+    d|D| = +1 there, as JAX's, gives d(-log lik) / d matrix0 = 1.8398e-5
+    (rtol 1e-4: the constant's digits), equal to the plain backward's."""
+    import torch
+
+    from lossyless_tpu_torch.coding import eb_kernel
+
+    p = {"matrix0": torch.full((1, 1, 1), -30.0, device="cuda"),
+         "bias0": torch.ones((1, 1, 1), device="cuda")}
+    z = torch.zeros(1, 1, device="cuda")
+    tp = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+    lik = eb_kernel.likelihood(tp, z)
+    (got,) = torch.autograd.grad(-torch.log(lik).sum(), tp["matrix0"])
+    _, plain = eb_kernel.likelihood_backward_plain(
+        p, z, -1.0 / eb_kernel.likelihood_plain(p, z))
+    got, plain = float(got), float(plain["matrix0"])
+    ok = abs(got - K3_TIE_GRAD) <= 1e-4 * K3_TIE_GRAD and \
+        abs(got - plain) <= 1e-5 * abs(plain)
+    print(f"check eb_likelihood_bwd at the |x| tie: d/d matrix0 {got!r}, "
+          f"plain {plain!r}, JAX {K3_TIE_GRAD} {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise AssertionError(f"K3's backward at the tie gives {got}, the "
+                             f"plain {plain}, JAX {K3_TIE_GRAD}")
+    return dict(d_matrix0=got, plain=plain, jax=K3_TIE_GRAD)
 
 
 def time_k3_at(B: int, C: int, filters, seed: int) -> tuple[dict, dict]:
@@ -2117,6 +2184,10 @@ KERNEL_GROUPS = {"attention K5a/K5b": ("packed_attention",
                  "mlp K4": ("mlp_block_kernel",),
                  "likelihood K3": ("eb_likelihood_kernel",
                                    "eb_likelihood_bwd_kernel"),
+                 # cuDNN's convolutions (forward, data and weight
+                 # gradients) before the matmuls: both may be xmma/cutlass
+                 "convolution": ("conv", "fprop", "dgrad", "wgrad",
+                                 "implicit_gemm", "cudnn", "winograd"),
                  "matmul": ("gemm", "xmma", "cutlass", "nvjet", "cublas"),
                  "copies": ("memcpy", "memset")}
 
@@ -2405,8 +2476,8 @@ PIPELINE_REDUCED = {
               "classes; train/validation carved 90/10, test 4,096) in "
               "place of the STL10 files, which are not in the checkout",
     "featurizer_epochs": "2 of 10", "predictor_epochs": "2 of 20",
-    "augmentation": "off (is_augment=False): not ported, ROADMAP queue 1 "
-                    "order 4",
+    "augmentation": "off (is_augment=False): STL10's augmentations wait "
+                    "for ROADMAP queue 1 order 4's STL10 half",
     "widths": "none cut: ViT-B/32 768 wide, 12 layers, 12 heads"}
 RESUME_IMAGES = 1024
 
@@ -2434,23 +2505,28 @@ class CountForwards:
 
 
 class CountTrainSteps:
+    """Counts training steps on both paths: the host-fed loop
+    (`run.train_step`) and the fused epoch (`state.train_step`)."""
+
     def __enter__(self):
         from lossyless_tpu_torch.pipeline import run
+        from lossyless_tpu_torch.train import state
 
         self.n = 0
-        self.saved = run.train_step
+        self.saved = state.train_step
 
         def step(*a, **k):
             self.n += 1
             return self.saved(*a, **k)
 
-        run.train_step = step
+        run.train_step = state.train_step = step
         return self
 
     def __exit__(self, *exc):
         from lossyless_tpu_torch.pipeline import run
+        from lossyless_tpu_torch.train import state
 
-        run.train_step = self.saved
+        run.train_step = state.train_step = self.saved
 
 
 def pipeline_path(card: str) -> dict:
@@ -2663,9 +2739,13 @@ def matmul_precision() -> dict:
                 float32_matmul_precision=torch.get_float32_matmul_precision())
 
 
-def banana_main(cfg, precision: dict, **capture) -> dict:
-    """`main(cfg)` on the card with its epochs timed; the metrics, the wall
-    time, ms a step (the last epoch's) and the fused epochs' logs."""
+MAIN_KEYS = ("test/feat/loss", "test/comm/n_bits", "test/pred/loss")
+
+
+def timed_main(cfg, precision: dict, need=MAIN_KEYS) -> dict:
+    """`main(cfg)` on the card with its epochs timed; the metrics (those
+    of `need` finite), the wall time, ms a step (the last epoch's) and
+    the fused epochs' logs."""
     from lossyless_tpu_torch.pipeline import run
 
     with CaptureEpochs() as fused, TimeHostEpochs() as host:
@@ -2679,11 +2759,10 @@ def banana_main(cfg, precision: dict, **capture) -> dict:
     timer = fused if fused.steps else host
     per_epoch = timer.steps // max(1, len(timer.seconds))
     keep = {k: v for k, v in metrics.items() if isinstance(v, float)}
-    bad = [k for k in ("test/feat/loss", "test/comm/n_bits",
-                       "test/pred/loss") if not np.isfinite(keep.get(k,
-                                                                    np.nan))]
+    bad = [k for k in need if not np.isfinite(keep.get(k, np.nan))]
     if bad:
-        raise AssertionError(f"banana main: {bad} not finite in {keep}")
+        raise AssertionError(f"{cfg.experiment} main: {bad} not finite in "
+                             f"{keep}")
     return dict(wall_s=wall, steps=timer.steps,
                 fused=bool(fused.steps), epoch_s=timer.seconds,
                 ms_per_step=timer.seconds[-1] * 1e3 / per_epoch,
@@ -2695,44 +2774,45 @@ def first_steps(logs: list, n: int) -> list:
     return [{k: float(logs[0][k][i]) for k in keys} for i in range(n)]
 
 
-def banana_state(cfg):
-    """A fresh train state of `cfg` on the card and its host dataset (the
-    sampler draws on the card: the length is moot for the fused epoch)."""
+def banana_state(cfg, steps: int = TURN_STEPS):
+    """A fresh train state of `cfg` on the card (schedules bound to two
+    epochs of `steps`) and its host dataset (the sampler draws on the
+    card: the length is moot for the fused epoch)."""
     from lossyless_tpu_torch.pipeline import config, run
 
     cfg = config.apply_precision(copy.deepcopy(cfg))
     ds = run.instantiate_datamodule(cfg, cfg.data_feat)
-    return cfg, ds, run.build_state(cfg, 2 * TURN_STEPS, TURN_STEPS,
+    return cfg, ds, run.build_state(cfg, 2 * steps, steps,
                                     device=DEVICE)
 
 
-def profile_fused_epoch(cfg, card: str) -> dict:
-    """One fused epoch of `cfg` under torch.profiler: idle share, device
-    kernels a step."""
+def profile_fused_epoch(cfg, card: str,
+                        steps: int = PROFILE_STEPS_BANANA) -> dict:
+    """One fused epoch of `steps` of `cfg` under torch.profiler: idle
+    share, device kernels a step, device ms by kernel group."""
     from lossyless_tpu_torch.train.state import make_generative_epoch
 
     cfg, ds, state = banana_state(cfg)
     epoch = make_generative_epoch(ds.device_sampler(
-        cfg.data_feat.batch_size), PROFILE_STEPS_BANANA)
+        cfg.data_feat.batch_size), steps)
     epoch(state, 0)       # set-up outside the trace
-    return device_profile(lambda: epoch(state, 1), card,
-                          steps=PROFILE_STEPS_BANANA,
+    return device_profile(lambda: epoch(state, 1), card, steps=steps,
                           batch=cfg.data_feat.batch_size)
 
 
-def fused_vs_host_fed(cfg) -> dict:
+def fused_vs_host_fed(cfg, steps: int = TURN_STEPS) -> dict:
     """ms a step of a fused epoch and of the host-fed loop on one state, in
-    turns (fused, host-fed, host-fed, fused), TURN_STEPS steps a turn."""
+    turns (fused, host-fed, host-fed, fused), `steps` steps a turn."""
     from lossyless_tpu_torch.pipeline import run
     from lossyless_tpu_torch.train.loggers import NoLogger
     from lossyless_tpu_torch.train.state import make_generative_epoch
 
-    cfg, ds, state = banana_state(cfg)
+    cfg, ds, state = banana_state(cfg, steps)
     bsz = cfg.data_feat.batch_size
-    fused = make_generative_epoch(ds.device_sampler(bsz), TURN_STEPS)
+    fused = make_generative_epoch(ds.device_sampler(bsz), steps)
 
     def host(turn):
-        batches = itertools.islice(ds.batches(bsz, seed=turn), TURN_STEPS)
+        batches = itertools.islice(ds.batches(bsz, seed=turn), steps)
         run.run_featurizer(cfg, batches, state=state, device=DEVICE,
                            log=lambda _: None, logger=NoLogger())
 
@@ -2745,8 +2825,8 @@ def fused_vs_host_fed(cfg) -> dict:
         else:
             host(turn)
         sync()
-        turns[name].append((time.perf_counter() - t0) * 1e3 / TURN_STEPS)
-    return dict(steps_a_turn=TURN_STEPS, order=["fused", "host_fed",
+        turns[name].append((time.perf_counter() - t0) * 1e3 / steps)
+    return dict(steps_a_turn=steps, order=["fused", "host_fed",
                                                 "host_fed", "fused"],
                 ms_per_step=turns)
 
@@ -2778,7 +2858,7 @@ def banana_path(card: str) -> dict:
                 f"out_dir={tmp}/{tag}/out", f"ckpt_dir={tmp}/{tag}/ckpt"])
 
         reset_launches()
-        plain = banana_main(cfg_of("banana_viz_VIC", SHORT_VIC, "plain"),
+        plain = timed_main(cfg_of("banana_viz_VIC", SHORT_VIC, "plain"),
                             precision)
         plain_launches = read_launches()
         if any(plain_launches.values()):
@@ -2788,7 +2868,7 @@ def banana_path(card: str) -> dict:
         # the main path: K3 and its backward, nothing else
         k3_cfg = cfg_of("banana_viz_VIC", BANANA_OVERRIDES, "k3")
         reset_launches()
-        kernels = banana_main(k3_cfg, precision)
+        kernels = timed_main(k3_cfg, precision)
         launches = read_launches()
         others = {k: v for k, v in launches.items()
                   if not k.startswith("eb_likelihood") and v}
@@ -2808,7 +2888,7 @@ def banana_path(card: str) -> dict:
         if not worst <= 1e-2:
             raise AssertionError(f"banana K3 vs plain logs differ by {worst}")
 
-        host = banana_main(cfg_of("banana_viz_VIC", SHORT_VIC + [
+        host = timed_main(cfg_of("banana_viz_VIC", SHORT_VIC + [
             "rate.eb_use_pallas=True", "trainer.use_fused_epochs=False"],
             "host"), precision)
         host.pop("logs")
@@ -2819,7 +2899,7 @@ def banana_path(card: str) -> dict:
         record("profile", profile_fused_epoch(short_k3, card))
 
         reset_launches()
-        bince = banana_main(cfg_of("banana_viz_BINCE", BINCE_OVERRIDES,
+        bince = timed_main(cfg_of("banana_viz_BINCE", BINCE_OVERRIDES,
                                    "bince"), precision)
         logs = bince.pop("logs")
         i_q_zm = np.concatenate([lg["I_q_zm"] for lg in logs])
@@ -2833,7 +2913,7 @@ def banana_path(card: str) -> dict:
         record("bince", bince)
 
         for name in ("banana_viz_VAE", "banana_viz_VIC_trnslt"):
-            run_ = banana_main(cfg_of(name, SHORT_OVERRIDES, name),
+            run_ = timed_main(cfg_of(name, SHORT_OVERRIDES, name),
                                precision)
             run_.pop("logs")
             record(name, run_)
@@ -2860,6 +2940,140 @@ def banana_path(card: str) -> dict:
         "fused_vs_host_fed", "wall_s")}}), flush=True)
     return launches
 
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: the augmented-MNIST image path
+# ---------------------------------------------------------------------------
+
+# mnist_vic's recipe is 100 epochs over MNIST's 60,000 images: here 2
+# epochs of 105 steps over 30,000 seeded synthetic MNIST-shaped images
+# (train 27,000 after the 10% validation carve; test 30,000), 1 of the
+# probe's 20 epochs; every width as the recipe has it
+IMAGE_OVERRIDES = ["rate.eb_use_pallas=True",
+                   "data_feat.kwargs.synthetic=True",
+                   "data_feat.kwargs.synthetic_n=30000",
+                   "data_feat.n_epochs=2", "predictor.n_epochs=1",
+                   "trainer.log_every=25"]
+IMAGE_AB_STEPS = 3        # the logs held to the plain-K3 run, rtol 1e-2
+IMAGE_TURN_STEPS = 50     # a turn of the fused vs host-fed A/B
+IMAGE_PROFILE_STEPS = 20
+# the staggered pair at a small depth: 1 epoch of 14 steps each
+STAG_OVERRIDES = ["rate.eb_use_pallas=True",
+                  "data_feat.kwargs.synthetic=True",
+                  "data_feat.kwargs.synthetic_n=4096",
+                  "data_feat.n_epochs=1", "predictor.n_epochs=1"]
+IMAGE_REDUCED = {
+    "featurizer_steps": "2 epochs of 105 steps (27,000 train images) of "
+                        "the recipe's 100 epochs over MNIST's 60,000",
+    "predictor_epochs": "1 of 20",
+    "data": "30,000 seeded synthetic MNIST-shaped images (32 x 32 x 1, 10 "
+            "classes) in place of the MNIST files, which are not in the "
+            "checkout; batches drawn and augmented (rotation, x/y "
+            "translation, scale, shear) on the card by the fused epoch",
+    "mnist_stag_step1 -> step2": "4,096 images, 1 epoch of 14 steps each",
+    "widths": "none cut: ResNet-18 (3x3 stem) at 32 x 32 x 1, z = 128, "
+              "the hyperprior's 25-channel side latent on K3, the CNN "
+              "decoder at hid_dim 32, batch 256, bf16"}
+
+
+def image_path(card: str) -> dict:
+    """Phase 13: `main(preset("mnist_vic"))` at full width with K3 on (the
+    launches counted on that run: K3 and its backward, nothing else),
+    through the fused epoch (batches drawn and augmented on the card);
+    a plain-K3 run of the same featurizer whose first steps' logs the
+    kernels' must equal to rtol 1e-2; the fused epoch and the host-fed
+    loop in turns; a profiled fused epoch; then `mnist_stag_step1` ->
+    `mnist_stag_step2`, whose frozen encoder must be step 1's export.
+    Returns the K3 run's launch counts."""
+    import torch
+
+    from lossyless_tpu_torch.pipeline import config
+    from lossyless_tpu_torch.train.checkpoints import load_weights
+
+    t_phase = time.perf_counter()
+    precision = matmul_precision()
+    out = dict(card=card, preset="mnist_vic", overrides=IMAGE_OVERRIDES,
+               reduced=IMAGE_REDUCED, matmul_precision=precision)
+
+    def record(key, value):
+        out[key] = value
+        print(json.dumps({f"image_path_{key}": value}), flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        def cfg_of(name, overrides, tag):
+            return config.apply_overrides(config.preset(name), overrides + [
+                f"out_dir={tmp}/{tag}/out", f"ckpt_dir={tmp}/{tag}/ckpt"])
+
+        k3_cfg = cfg_of("mnist_vic", IMAGE_OVERRIDES, "k3")
+        reset_launches()
+        kernels = timed_main(k3_cfg, precision)
+        launches = read_launches()
+        others = {k: v for k, v in launches.items()
+                  if not k.startswith("eb_likelihood") and v}
+        if launches["eb_likelihood"] < 1 or \
+                launches["eb_likelihood_bwd"] < 1 or others:
+            raise AssertionError(f"image path launches {launches}")
+        if not kernels["fused"]:
+            raise AssertionError("the image path did not take the fused "
+                                 "epoch")
+        logs = kernels.pop("logs")
+        record("kernels", kernels)
+        record("launches", launches)
+
+        reset_launches()
+        plain = timed_main(cfg_of("mnist_vic", IMAGE_OVERRIDES + [
+            "rate.eb_use_pallas=False", "is_only_feat=True"], "plain"),
+            precision, need=("test/feat/loss",))
+        if any(read_launches().values()):
+            raise AssertionError(f"the plain image run launched "
+                                 f"{read_launches()}")
+        a = first_steps(logs, IMAGE_AB_STEPS)
+        b = first_steps(plain.pop("logs"), IMAGE_AB_STEPS)
+        worst = max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-12)
+                    for x, y in zip(a, b) for k in x)
+        record("plain", plain)
+        record("kernels_vs_plain", dict(steps=IMAGE_AB_STEPS, kernels=a,
+                                        plain=b, max_rel_diff=worst,
+                                        tolerance=1e-2))
+        if not worst <= 1e-2:
+            raise AssertionError(f"image path K3 vs plain logs differ by "
+                                 f"{worst}")
+
+        record("fused_vs_host_fed", fused_vs_host_fed(k3_cfg,
+                                                      IMAGE_TURN_STEPS))
+        record("profile", profile_fused_epoch(k3_cfg, card,
+                                              IMAGE_PROFILE_STEPS))
+
+        # the staggered pair: step 2 reads step 1's export, frozen
+        s1 = cfg_of("mnist_stag_step1", STAG_OVERRIDES, "stag")
+        t0 = time.perf_counter()
+        m1 = timed_main(s1, precision, need=("test/feat/loss",))
+        export1 = Path(tmp) / "stag" / "ckpt" / s1.long_name / \
+            "best_featurizer"
+        s2 = cfg_of("mnist_stag_step2", STAG_OVERRIDES + [
+            f"encoder.pretrained_path={export1}"], "stag")
+        m2 = timed_main(s2, precision)
+        w1 = load_weights(export1)
+        w2 = load_weights(Path(s2.ckpt_dir) / s2.long_name /
+                          "best_featurizer")
+        # the parameters (the running statistics go on moving in train
+        # mode, in JAX too)
+        enc = [k for k in w2 if k.startswith("p_ZlX.mapper.")
+               and not k.endswith((".mean", ".var"))]
+        same = bool(enc) and all(torch.equal(w1[k], w2[k]) for k in enc)
+        record("stag", dict(wall_s=time.perf_counter() - t0,
+                            step1=m1["metrics"], step2=m2["metrics"],
+                            encoder_tensors=len(enc),
+                            encoder_equals_step1_export=same))
+        if not same:
+            raise AssertionError("mnist_stag_step2's encoder is not step "
+                                 "1's export")
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"image_path": {k: out[k] for k in (
+        "card", "matmul_precision", "launches", "kernels_vs_plain",
+        "fused_vs_host_fed", "wall_s")}}), flush=True)
+    return launches
 
 def main() -> int:
     import torch
@@ -2903,6 +3117,7 @@ def main() -> int:
     bench_path(card)
     pipeline_launches = pipeline_path(card)
     banana_launches = banana_path(card)
+    image_launches = image_path(card)
 
     attention_cu = "lossyless_tpu_torch/nn/csrc/attention.cu"
     eb_cu = "lossyless_tpu_torch/coding/csrc/eb_likelihood.cu"
@@ -2928,7 +3143,8 @@ def main() -> int:
                 launches=slice_launches[name],
                 launches_per_training_step_under_knob=under_knob[name],
                 launches_on_pipeline_path=pipeline_launches[name],
-                launches_on_banana_path=banana_launches[name])
+                launches_on_banana_path=banana_launches[name],
+                launches_on_image_path=image_launches[name])
         else:
             # K1/K2 on the encode path, K3/K4 on the training path (K1/K2
             # run there too: launches_per_training_step)
@@ -2941,7 +3157,8 @@ def main() -> int:
                 / TRAIN_STEPS,
                 launches_on_slice_path=slice_launches[name],
                 launches_on_pipeline_path=pipeline_launches[name],
-                launches_on_banana_path=banana_launches[name])
+                launches_on_banana_path=banana_launches[name],
+                launches_on_image_path=image_launches[name])
         row = dict(name=name, route="cuda", source=sources[name],
                    replaces=replaces[name], **counts, **timings[name])
         # registers and spills of the kernel's instantiations

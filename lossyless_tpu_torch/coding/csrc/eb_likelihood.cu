@@ -13,8 +13,9 @@
 //         (pallas_eb.py::_bwd, which differentiates the reference chain):
 //         recomputes both chains in registers and applies the chain rule
 //         (lower_bound's pass-through (lik >= 1e-9) | (g < 0), the sign
-//         held constant, d|D| = sign(D) with sign(0) = 0, d softplus =
-//         sigmoid, d tanh = 1 - tanh^2), giving dz per element and the
+//         held constant, d|D| = +1 for D >= 0 and -1 below (JAX's
+//         derivative of abs: 1 at 0), d softplus = sigmoid, d tanh =
+//         1 - tanh^2), giving dz per element and the
 //         gradients of every matrix, bias and factor summed over the batch
 //         and both chains.
 //
@@ -534,9 +535,9 @@ __global__ void __cluster_dims__(kSplit, 1, 1) __launch_bounds__(kThreads, 1)
       const float s = sum > 0.f ? -1.f : (sum < 0.f ? 1.f : 0.f);
       const float pu = sigmoid(s * upper), pl = sigmoid(s * lower);
       const float delta = pu - pl;
-      // lower_bound's pass-through, then d|delta|
+      // lower_bound's pass-through, then d|delta| (+1 at 0, as JAX's)
       const float gb = (fabsf(delta) >= kBound || go < 0.f) ? go : 0.f;
-      const float gd = delta > 0.f ? gb : (delta < 0.f ? -gb : 0.f);
+      const float gd = delta >= 0.f ? gb : -gb;
       const float gu = gd * (pu * (1.f - pu)) * s;
       const float gl = -gd * (pl * (1.f - pl)) * s;
       const float dl = chain_grad(d, t, tl, gl, sums);

@@ -195,10 +195,10 @@ def likelihood_backward_plain(params: dict, z: torch.Tensor,
 
     The chain rule of the JAX `_bwd` (`pallas_eb.py:153-171`): lower_bound
     passes g where the raw likelihood is >= the bound or g < 0; the sign
-    s = -sign(lower + upper) is held constant; d|D| = sign(D) (0 at D =
-    0, as torch's `abs`; JAX's takes 1 there, which differs only where
-    both sigmoids' slopes are non-zero and their values equal); d softplus
-    = sigmoid, d tanh = 1 - tanh^2. Returns (dz (batch, channels), a dict
+    s = -sign(lower + upper) is held constant; d|D| = +1 for D >= 0 and
+    -1 below, JAX's derivative of `abs` (1 at D = 0, where the upper and
+    lower sigmoids round to one value while their slopes are not 0);
+    d softplus = sigmoid, d tanh = 1 - tanh^2. Returns (dz (batch, channels), a dict
     of gradients shaped like the chain parameters)."""
     L = eb.n_layers(params)
     A = [F.softplus(params[f"matrix{l}"]) for l in range(L)]
@@ -224,7 +224,7 @@ def likelihood_backward_plain(params: dict, z: torch.Tensor,
     gv = g.float().transpose(0, 1)[:, None, :]
     gv = torch.where((delta.abs() >= eb.LIKELIHOOD_BOUND) | (gv < 0), gv,
                      torch.zeros_like(gv))
-    gd = gv * torch.sign(delta)
+    gd = torch.where(delta >= 0, gv, -gv)
     grads = {}
 
     def back(gx, ins, ths):

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..core.math import lower_bound
+from ..core.math import abs_jax, lower_bound
 
 LIKELIHOOD_BOUND = 1e-9
 TAIL_MASS = 1e-9
@@ -106,7 +106,8 @@ def likelihood(params: dict, z: torch.Tensor) -> torch.Tensor:
     upper = _logits_cumulative(params, v + 0.5, stop_gradient=False)
     # evaluate on the side with smaller magnitude for stability (sign trick)
     sign = -torch.sign(lower + upper).detach()
-    lik = torch.abs(torch.sigmoid(sign * upper) - torch.sigmoid(sign * lower))
+    # d|D| = +1 at D = 0, as JAX's
+    lik = abs_jax(torch.sigmoid(sign * upper) - torch.sigmoid(sign * lower))
     return _batch_major(lik)
 
 
@@ -159,7 +160,7 @@ def aux_loss(params: dict, tail_mass: float = TAIL_MASS) -> torch.Tensor:
     t = math.log(2.0 / tail_mass - 1.0)
     target = torch.tensor([-t, 0.0, t], dtype=torch.float32,
                           device=logits.device)
-    return torch.sum(torch.abs(logits - target[None, None, :]))
+    return torch.sum(abs_jax(logits - target[None, None, :]))
 
 
 # ---------------------------------------------------------------------------

@@ -7,8 +7,9 @@ computes the combined objective
          + online probe loss on the detached z + coder quantile aux loss
 
 and the trainer (`train/state.py`) splits the parameters into optimizer
-groups by path. The encoder is the CLIP tower or an MLP; the rate any of
-the ported estimators; the distortion direct, contrastive or lossy Z.
+groups by path. The encoder is the CLIP tower, an MLP, a ResNet or a
+CNN; the rate any of the ported estimators; the distortion direct,
+contrastive or lossy Z.
 
 Contrastive recipes encode two views (x and its positive, `aux_target`).
 The default two-pass form encodes the positive after the anchor, with the
@@ -44,7 +45,7 @@ import torch
 from torch import nn
 
 from ..core.annealer import Annealer
-from ..nn.mlp import params_from_flax as mlp_params_from_flax
+from ..nn.layers import params_from_flax as tree_params_from_flax
 from ..nn.registry import get_architecture
 from ..nn.vit import VisionTransformer, params_from_flax
 from .distortions import (DistortionConfig, make_distortion_estimator,
@@ -94,14 +95,15 @@ class CompressorConfig:
 class CondEncoder(nn.Module):
     """Architecture -> sufficient stats -> conditional distribution."""
 
-    def __init__(self, cfg: EncoderConfig, in_shape):
+    def __init__(self, cfg: EncoderConfig, in_shape,
+                 generator: torch.Generator | None = None):
         super().__init__()
         self.cfg = cfg
         shape = tuple(in_shape) if not isinstance(in_shape, int) \
             else in_shape
         self.mapper = get_architecture(
             cfg.arch, shape, cfg.z_dim * n_suff_params(cfg.family),
-            **cfg.arch_kwargs)
+            generator=generator, **cfg.arch_kwargs)
 
     def forward(self, x, *, training: bool = False):
         # the tower has no batch statistics and takes no `training`
@@ -156,7 +158,7 @@ class LearnableCompressor(nn.Module):
         c = self.cfg = cfg
         self.frozen = tuple(frozen)
         generator = generator or torch.Generator().manual_seed(0)
-        self.p_ZlX = CondEncoder(c.encoder, c.in_shape)
+        self.p_ZlX = CondEncoder(c.encoder, c.in_shape, generator)
         init = getattr(self.p_ZlX.mapper, "init_weights", None)
         if init is not None:
             init(generator)
@@ -347,23 +349,25 @@ def compressor_params_from_flax(tree, batch_stats=None) -> dict:
     `tree` is the `params` collection; `batch_stats`, when given, is merged
     into it (flax's running `mean` / `var` are the BatchNorm buffers). The
     encoder's mapper goes through `nn.vit.params_from_flax` when it is the
-    CLIP tower, else (the MLP family) its path joined with dots, as every
-    other subtree does: the rate estimator (`affine`,
-    `entropy_bottleneck`, the hyperprior's MLPs), the distortion
-    estimator (the direct decoder `q_YlZ`, the contrastive `projector` and
-    `logit_scale`) and the online probe. Values come back as fp32 tensors.
+    CLIP tower, else (the MLP family, the ResNet, the CNN) through
+    `nn.layers.params_from_flax` (the path joined with dots, conv kernels
+    in their modules' layouts), as every other subtree does: the rate
+    estimator (`affine`, `entropy_bottleneck`, the hyperprior's MLPs), the
+    distortion estimator (the direct decoder `q_YlZ`, MLP or CNN; the
+    contrastive `projector` and `logit_scale`) and the online probe. Values
+    come back as fp32 tensors.
     """
     tree = _merge_stats(tree, batch_stats or {})
     mapper = tree["p_ZlX"]["mapper"]
     if any(k.startswith(("MLP_", "Dense_")) for k in mapper):
-        out = mlp_params_from_flax(mapper, "p_ZlX.mapper.")
+        out = tree_params_from_flax(mapper, "p_ZlX.mapper.")
     else:
         out = {f"p_ZlX.mapper.{k}": v
                for k, v in params_from_flax(mapper).items()}
     for name in ("rate_estimator", "distortion_estimator",
                  "online_evaluator"):
         if name in tree:
-            out.update(mlp_params_from_flax(tree[name], f"{name}."))
+            out.update(tree_params_from_flax(tree[name], f"{name}."))
     return out
 
 

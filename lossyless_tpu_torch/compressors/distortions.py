@@ -3,9 +3,12 @@
 Counterpart of `lossyless_tpu/compressors/distortions.py`:
 
 * `DirectDistortion`: the variational bound -log q(Y|Z) through a decoder
-  (`q_YlZ`, the registry's `mlp` unless `arch` names another) in the
-  `distribution` and `feature` data modes; the `image` mode, with its CNN
-  decoder, is not ported yet (ROADMAP queue 1 item 7);
+  (`q_YlZ`: the registry's `cnn` in the `image` data mode, else `mlp`,
+  unless `arch` names another); an image target is summed per example, a
+  coloured one as the squared error of the sigmoid, a grayscale one as
+  the Bernoulli negative log-likelihood of the logits (`_bce_with_logits`,
+  JAX's form and its gradient at logit 0); the other modes take the
+  prediction loss;
 * `ContrastiveDistortion`: InfoNCE over the global batch of both views'
   representations, with the projector MLP, the learned temperature and
   the effective-batch-size reweighting;
@@ -23,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core.math import abs_jax
 from ..nn.mlp import MLP
 from ..nn.registry import get_architecture
 
@@ -84,30 +88,49 @@ def prediction_loss(y_hat, y, is_classification=True,
 
 
 class DirectDistortion(nn.Module):
-    """Variational reconstruction bound -log q(Y|Z): the prediction loss
-    of the decoder's output."""
+    """Variational reconstruction bound -log q(Y|Z) through the decoder
+    `q_YlZ`: per example, the image's summed negative log-likelihood, or
+    the prediction loss of the other data modes."""
 
     def __init__(self, z_dim: int, y_shape, cfg: DistortionConfig =
                  DistortionConfig(), generator: torch.Generator | None = None):
         super().__init__()
-        if cfg.data_mode == "image":
-            raise NotImplementedError(
-                "the direct distortion's image mode (the CNN decoder) is not "
-                "ported yet (ROADMAP queue 1 item 7)")
         self.cfg = cfg
-        self.q_YlZ = get_architecture(cfg.arch or "mlp", z_dim, y_shape,
+        self.is_img_out = cfg.data_mode == "image"
+        arch = cfg.arch or ("cnn" if self.is_img_out else "mlp")
+        self.q_YlZ = get_architecture(arch, z_dim, y_shape,
                                       generator=generator, **cfg.arch_kwargs)
 
     def forward(self, z_hat, aux_target, p_zlx=None, *,
                 training: bool = False):
         y_hat = self.q_YlZ(z_hat, training=training)
-        neg_log = prediction_loss(y_hat, aux_target,
-                                  self.cfg.is_classification)
+        if self.is_img_out:
+            if aux_target.shape[-1] == 3:
+                # colour: a Gaussian on the sigmoid's [0, 1] output
+                neg_log = (torch.sigmoid(y_hat) - aux_target) ** 2
+            else:
+                # grayscale: a Bernoulli of the logits
+                neg_log = _bce_with_logits(y_hat, aux_target)
+            neg_log = neg_log.reshape(z_hat.shape[0], -1).sum(-1)
+        else:
+            neg_log = prediction_loss(y_hat, aux_target,
+                                      self.cfg.is_classification)
         return neg_log, {"H_q_TlZ": neg_log.mean() / LOG2}
 
     def reconstruct(self, z_hat):
-        """The decoder's output."""
-        return self.q_YlZ(z_hat, training=False)
+        """The decoder's output: [0, 1] images (the sigmoid) in the image
+        mode."""
+        y_hat = self.q_YlZ(z_hat, training=False)
+        return torch.sigmoid(y_hat) if self.is_img_out else y_hat
+
+
+def _bce_with_logits(logits, targets):
+    """JAX's `_bce_with_logits`, term for term: `torch.maximum` splits its
+    tie 1/2 : 1/2 as `jnp.maximum` does and `abs_jax` takes d|x| = 1 at
+    0, so the gradient at logit 0 is 1/2 - target - 1/2 (JAX's), where
+    `F.binary_cross_entropy_with_logits` gives the analytic 1/2 - target."""
+    return torch.maximum(logits, torch.zeros_like(logits)) \
+        - logits * targets + torch.log1p(torch.exp(-abs_jax(logits)))
 
 
 class ContrastiveDistortion(nn.Module):
@@ -186,7 +209,7 @@ class LossyZDistortion(nn.Module):
     def forward(self, z_hat, aux_target, p_zlx=None, *,
                 training: bool = False):
         p = self.cfg.p_norm
-        dist = torch.sum(torch.abs(z_hat - p_zlx.mean) ** p, dim=-1) \
+        dist = torch.sum(abs_jax(z_hat - p_zlx.mean) ** p, dim=-1) \
             ** (1.0 / p)
         return dist, {}
 

@@ -1,9 +1,9 @@
 """Numerical primitives shared across the port.
 
 Counterpart of `lossyless_tpu/core/math.py`: CompressAI's `LowerBound`
-straight-through op used by the entropy models, and a straight-through
-round. Both are `torch.autograd.Function`s where the JAX code has a
-`custom_vjp`.
+straight-through op used by the entropy models, a straight-through
+round (both `torch.autograd.Function`s where the JAX code has a
+`custom_vjp`), and `abs_jax`, |x| with `jnp.abs`'s derivative at 0.
 """
 
 from __future__ import annotations
@@ -48,3 +48,12 @@ class _SteRound(torch.autograd.Function):
 def ste_round(x: torch.Tensor) -> torch.Tensor:
     """Round with a straight-through (identity) gradient."""
     return _SteRound.apply(x)
+
+
+def abs_jax(x: torch.Tensor) -> torch.Tensor:
+    """|x| with JAX's derivative: +1 at 0, where torch's `abs` gives 0.
+
+    `jax.grad(jnp.abs)(0.) == 1.0`; every loss and likelihood the JAX
+    package writes with `jnp.abs` keeps that gradient at an exact tie.
+    """
+    return torch.where(x >= 0, x, -x)

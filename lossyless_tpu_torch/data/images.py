@@ -1,32 +1,40 @@
-"""Image datasets for the CLIP presets.
+"""Image datasets with equivalence augmentation.
 
 Counterpart of the part of `lossyless_tpu/data/images.py` that the CLIP
-presets reach: `SPECS`, the seeded procedural source `_synthetic` (the
-same bytes as JAX's for every split and seed), `ImageDataset` (load,
-carve train/validation from train, `batches` with `drop_last`,
-`is_normalize`) and `get_datamodule` for the image sets.
+and MNIST presets reach: `SPECS`, the seeded procedural source
+`_synthetic` (the same bytes as JAX's for every split and seed),
+`ImageDataset` (load, carve train/validation from train, `batches` with
+`drop_last`, `is_normalize`, the affine augmentations, `device_sampler`)
+and `get_datamodule` for the image sets.
 
 Batches are `(x, target, aux_target)` CPU tensors: x float32 NHWC in
 [0, 1] (normalized with `is_normalize`), in the order of JAX's batches
-(one `default_rng(seed)` permutation an epoch). `aux_target` follows
-`additional_target` (`input`, `representative`, `equiv_x`, `target`).
+(one `default_rng(seed)` permutation an epoch), augmented with
+`is_augment` by the equivalence's warp drawn from a `torch.Generator`
+seeded with the epoch's seed. `aux_target` follows `additional_target`
+(`input`: the augmented x; `representative`: the raw image; `equiv_x`: a
+second augmented view, normalized as x is; `target`: the label).
+`device_sampler` draws, augments and builds the same triple on the card.
 
-Not ported: the augmentations (ROADMAP queue 1 order 4); a dataset that
-would augment a batch (`is_augment` with an equivalence set, or a
-`label_equivalence`) raises when it would. Real files are read only for
-STL10's binary format, under `DATA_DIR`, and only when `synthetic` is off:
-a missing file raises, it never falls back to the synthetic source.
+Not ported: the STL10 half of the augmentations and `label_equivalence`
+(ROADMAP queue 1 order 4), raised when a batch would use them. Real files
+are read for MNIST's idx files and STL10's binary format, under
+`DATA_DIR`, and only when `synthetic` is off: a missing file raises, it
+never falls back to the synthetic source.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gzip
 import zlib
 from pathlib import Path
 from typing import ClassVar, Sequence
 
 import numpy as np
 import torch
+
+from .augmentations import make_augmenter
 
 # where the real datasets go once they are in the repository
 DATA_DIR = Path(__file__).resolve().parents[2] / "data"
@@ -82,6 +90,26 @@ STDS = {
     "clip": [0.26862954, 0.26130258, 0.27577711],
     "galaxy": [0.07004886, 0.07964786, 0.09574898],
 }
+
+
+def _load_mnist(data_dir: Path, split: str):
+    """MNIST's gzip'd idx files under `data_dir/MNIST/raw`, each 28 x 28
+    digit resized to 32 x 32 with PIL's bicubic filter (JAX's loader, the
+    reference's `Resize(32, BICUBIC)`): (N, 32, 32, 1) uint8, int64
+    labels."""
+    from PIL import Image
+
+    name = "train" if split == "train" else "t10k"
+    raw = data_dir / "MNIST" / "raw"
+    with gzip.open(raw / f"{name}-images-idx3-ubyte.gz") as f:
+        data = np.frombuffer(f.read(), np.uint8, offset=16).reshape(
+            -1, 28, 28)
+    with gzip.open(raw / f"{name}-labels-idx1-ubyte.gz") as f:
+        labels = np.frombuffer(f.read(), np.uint8, offset=8)
+    data = np.stack([
+        np.asarray(Image.fromarray(img).resize((32, 32), Image.BICUBIC))
+        for img in data])[..., None]
+    return data, labels.astype(np.int64)
 
 
 def _load_stl10(data_dir: Path, split: str):
@@ -173,6 +201,8 @@ class ImageDataset:
     def _load(self, split: str):
         if split == "validation":  # the binary formats ship train/test only
             raise FileNotFoundError(f"{self.name} has no validation split")
+        if self.name == "mnist":
+            return _load_mnist(self.data_dir, split)
         if self.name == "stl10":
             return _load_stl10(self.data_dir, split)
         raise NotImplementedError(
@@ -221,19 +251,50 @@ class ImageDataset:
             return x
         # datasets without published statistics use CLIP's
         name = self.name if self.name in MEANS else "clip"
-        mean = torch.as_tensor(np.asarray(MEANS[name], np.float32))
-        std = torch.as_tensor(np.asarray(STDS[name], np.float32))
+        mean, std = (torch.tensor(v[name], dtype=torch.float32,
+                                  device=x.device) for v in (MEANS, STDS))
         return (x - mean) / std
+
+    def augmenter(self):
+        """The batch augmenter when this dataset augments (`is_augment`
+        with an equivalence set), else None. Raises for what is not
+        ported yet: the STL10 half of the augmentations and
+        `label_equivalence` (ROADMAP queue 1 order 4)."""
+        if not self.is_augment:
+            return None
+        if self.label_equivalence is not None:
+            raise NotImplementedError(
+                "label_equivalence (data/label_augment.py) is not ported "
+                "yet (ROADMAP queue 1 order 4, its STL10 half)")
+        return make_augmenter(self.equivalence) if self.equivalence \
+            else None
+
+    def _views(self, raw, y, x_view, aux_view):
+        """(x, y, aux) from the raw [0, 1] images and the augmenter's
+        views (`x_view()`, `aux_view()`: augmented, or the raw images when
+        nothing augments). Views that enter the encoder (x, equiv_x) are
+        normalized; reconstruction targets stay in [0, 1]."""
+        x = x_view()
+        at = self.additional_target
+        if at == "input":
+            aux = x
+        elif at == "representative":
+            aux = raw
+        elif at == "equiv_x":
+            aux = self._normalize(aux_view())
+        elif at in ("target", None):
+            aux = y
+        else:
+            raise ValueError(f"unknown additional_target={at}")
+        return self._normalize(x), y, aux
 
     def batches(self, batch_size: int, n_epochs: int = 1, seed: int = 0,
                 shuffle: bool = True, drop_last: bool = True):
-        """Yield (x, target, aux_target) CPU tensors."""
-        if self.is_augment and (self.equivalence or self.label_equivalence):
-            raise NotImplementedError(
-                "the augmentations are not ported yet (ROADMAP queue 1 "
-                "order 4); pass is_augment=False (the evaluation view) or "
-                "an empty equivalence")
+        """Yield (x, target, aux_target) CPU tensors; the augmentations
+        are drawn from a generator seeded with `seed`."""
+        augment = self.augmenter()
         rng = np.random.default_rng(seed)
+        g = torch.Generator().manual_seed(seed)
         n = len(self)
         for _ in range(n_epochs):
             order = rng.permutation(n) if shuffle else np.arange(n)
@@ -242,18 +303,66 @@ class ImageDataset:
                 idx = order[i:i + batch_size]
                 raw = torch.from_numpy(self.data[idx]).float() / 255.0
                 y = torch.from_numpy(self.targets[idx])
-                at = self.additional_target
-                # views that enter the encoder are normalized like x;
-                # reconstruction targets stay in [0, 1]
-                if at in ("input", "representative"):
-                    aux = raw
-                elif at == "equiv_x":
-                    aux = self._normalize(raw)
-                elif at in ("target", None):
-                    aux = y
-                else:
-                    raise ValueError(f"unknown additional_target={at}")
-                yield self._normalize(raw), y, aux
+
+                def view(raw=raw):
+                    return raw if augment is None else augment(g, raw)
+
+                yield self._views(raw, y, view, view)
+
+    def device_sampler(self, batch_size: int) -> "ImageSampler":
+        """`sample(generator) -> (x, y, aux)`: a batch drawn, augmented
+        and built on the generator's device (`ImageSampler`)."""
+        return ImageSampler(self, batch_size)
+
+
+class ImageSampler:
+    """A dataset's batches drawn on the card (JAX's `device_sampler`).
+
+    The uint8 images and the labels are staged on a device once, at the
+    first call on it. Each call draws `batch_size` indices uniformly
+    (with replacement), then the augmentation of x and, for `equiv_x`,
+    of the positive view, all from the caller's generator on that
+    device; `build` turns given draws into the batch, so a test can hand
+    it JAX's. The normalization contract is `batches()`'s."""
+
+    def __init__(self, ds: ImageDataset, batch_size: int):
+        self.ds, self.batch_size = ds, batch_size
+        self.augment = ds.augmenter()
+        self._staged = {}
+
+    def _stage(self, device):
+        key = str(torch.device(device))
+        if key not in self._staged:
+            self._staged[key] = (
+                torch.as_tensor(self.ds.data).to(device),
+                torch.as_tensor(self.ds.targets).to(device))
+        return self._staged[key]
+
+    def __call__(self, generator: torch.Generator):
+        data, _ = self._stage(generator.device)
+        idx = torch.randint(0, len(data), (self.batch_size,),
+                            generator=generator, device=generator.device)
+        x_draw = aux_draw = None
+        if self.augment is not None:
+            shape = (self.batch_size,) + tuple(data.shape[1:])
+            x_draw = self.augment.draw(generator, shape)
+            if self.ds.additional_target == "equiv_x":
+                aux_draw = self.augment.draw(generator, shape)
+        return self.build(idx, x_draw, aux_draw)
+
+    def build(self, idx: torch.Tensor, x_draw: dict | None = None,
+              aux_draw: dict | None = None):
+        """The batch of images `idx`, x warped by `x_draw` and an
+        `equiv_x` positive by `aux_draw` (None: not augmented)."""
+        data, targets = self._stage(idx.device)
+        raw = data[idx].float() / 255.0
+        y = targets[idx]
+
+        def warp(draw):
+            return lambda: raw if draw is None else self.augment.apply(
+                raw, draw)
+
+        return self.ds._views(raw, y, warp(x_draw), warp(aux_draw))
 
 
 def get_datamodule(name: str, **kwargs):

@@ -2,10 +2,10 @@
 
 Counterpart of `lossyless_tpu/nn/mlp.py`. Parameters keep flax's names and
 layouts (`Dense_i.kernel` of shape (in, out), `Dense_i.bias`, norms
-`BatchNorm_i` / `LayerNorm_i`), so `params_from_flax` carries a JAX tree
-over by joining its path with dots. torch needs the input width at
-construction (flax infers it at init): each module takes `in_dim` or
-`in_shape`. No bias under a norm, the last layer always biased, hidden
+`BatchNorm_i` / `LayerNorm_i`), so `params_from_flax` (from `nn/layers.py`)
+carries a JAX tree over by joining its path with dots. torch needs the
+input width at construction (flax infers it at init): each module takes
+`in_dim` or `in_shape`. No bias under a norm, the last layer always biased, hidden
 activations cast to the compute dtype, the output fp32.
 """
 
@@ -14,12 +14,11 @@ from __future__ import annotations
 import math
 from typing import Sequence
 
-import numpy as np
 import torch
 from torch import nn
 
 from .layers import (KAIMING_UNIFORM, apply_norm, get_activation, make_norm,
-                     norm_uses_bias)
+                     norm_uses_bias, params_from_flax)  # noqa: F401 (re-export)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -41,11 +40,12 @@ class Dense(nn.Module):
 
     def __init__(self, in_dim: int, out_dim: int, use_bias: bool = True,
                  dtype=torch.float32,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 kernel_init=KAIMING_UNIFORM):
         super().__init__()
         self.dtype = _dtype(dtype)
         g = generator or torch.Generator().manual_seed(0)
-        self.kernel = nn.Parameter(KAIMING_UNIFORM((in_dim, out_dim), g))
+        self.kernel = nn.Parameter(kernel_init((in_dim, out_dim), g))
         self.bias = nn.Parameter(torch.zeros(out_dim)) if use_bias else None
 
     def forward(self, x):
@@ -125,17 +125,3 @@ class FlattenLinear(nn.Module):
 class Identity(nn.Module):
     def forward(self, x, *, training: bool = False):
         return x
-
-
-def params_from_flax(tree, prefix: str = "") -> dict:
-    """A flax tree (nested dicts of arrays; `params` and `batch_stats`
-    merged) -> a state dict: the path joined with dots, fp32 tensors."""
-    out = {}
-    for k, v in tree.items():
-        name = f"{prefix}{k}"
-        if isinstance(v, dict):
-            out.update(params_from_flax(v, name + "."))
-        else:
-            out[name] = torch.from_numpy(np.array(v, dtype=np.float32,
-                                                  copy=True))
-    return out

@@ -2,10 +2,13 @@
 
 Counterpart of `lossyless_tpu/nn/registry.py`: maps a mode string + kwargs
 to a module taking (in_shape, out_shape). Image shapes are channels-last
-(H, W, C). Ported: the CLIP ViT tower and the `mlp`, `linear` and
-`identity` heads (`nn/mlp.py`); the other architectures wait for ROADMAP
-queue 1 item 7. `generator` seeds the heads' init (torch needs it at
-construction; the tower takes it through `init_weights`).
+(H, W, C). Ported: the CLIP ViT tower, the `mlp`, `linear` and
+`identity` heads (`nn/mlp.py`), the `cnn` encoder and, for an int
+`in_shape` and an image `out_shape`, its transposed decoder
+(`nn/cnn.py`), and the `resnet` (`nn/resnet.py`); `balle`, `clip_rn50`,
+`simclr` and `swav` wait for ROADMAP queue 1 item 7 (orders 5 and 7b).
+`generator` seeds the init (torch needs it at construction; the tower
+takes it through `init_weights`).
 
 The JAX config vocabulary is translated, so a JAX preset or override
 string works unchanged: `mlp_impl` "pallas" -> "kernel", "xla" -> "ops";
@@ -17,7 +20,9 @@ from __future__ import annotations
 
 import torch
 
+from .cnn import CNNDecoder, CNNEncoder
 from .mlp import FlattenLinear, FlattenMLP, Identity
+from .resnet import ResNet
 from .vit import VisionTransformer
 
 _MLP_IMPL = {"pallas": "kernel", "xla": "ops", "kernel": "kernel",
@@ -65,8 +70,22 @@ def get_architecture(mode: str, in_shape, out_shape, generator=None,
         # flax's default compute dtype for the tower is bf16
         kwargs.setdefault("dtype", torch.bfloat16)
         return VisionTransformer(out_dim=out_shape, **kwargs)
-    if mode in ("cnn", "balle", "resnet", "clip_rn50", "simclr", "swav"):
+    if mode == "cnn":
+        kwargs = _translate(kwargs)
+        if isinstance(in_shape, int) and not isinstance(out_shape, int):
+            return CNNDecoder(in_shape, tuple(out_shape),
+                              generator=generator, **kwargs)
+        return CNNEncoder(out_shape, tuple(in_shape), generator=generator,
+                          **kwargs)
+    if mode == "resnet":
+        return ResNet(out_shape, tuple(in_shape), generator=generator,
+                      **_translate(kwargs))
+    if mode == "balle":
+        raise NotImplementedError(
+            "architecture 'balle' is not ported yet (ROADMAP queue 1 item "
+            "7, order 5)")
+    if mode in ("clip_rn50", "simclr", "swav"):
         raise NotImplementedError(
             f"architecture {mode!r} is not ported yet (ROADMAP queue 1 "
-            f"item 7)")
+            f"item 7, order 7b)")
     raise ValueError(f"unknown architecture mode={mode}")

@@ -5,12 +5,16 @@ Counterpart of `lossyless_tpu/pipeline/config.py`: `DataConfig`,
 override syntax, literal-eval coercion), `apply_precision` and the presets
 that run on the port: the banana experiments `banana_viz_VIC`,
 `banana_viz_VAE`, `banana_viz_BINCE`, `banana_viz_VIC_trnslt` and
-`banana_RD` (fp32), the CLIP recipes `clip_bottleneck_pretrain` (the
+`banana_RD` (fp32), the augmented-MNIST experiments `mnist_vic` (alias
+`augmnist_viz_VIC`; a ResNet-18 encoder, the hyperprior rate, the CNN
+decoder), `augmnist_RD`, the staggered `mnist_stag_step1` /
+`mnist_stag_step2` and the augmentation study `augmnist_aug` /
+`augmnist_aug_warm`, the CLIP recipes `clip_bottleneck_pretrain` (the
 hyperprior rate), `clip_hub` (the factorized rate), `clip_lossyZ` (the
 hyperprior bottleneck with the online probe) and its evaluation presets
 `clip_bottleneck_{linear,mlp}_eval` and `clip_raw_{linear,mlp}_eval` (the
 lossless rate, featurizer at init). The other presets wait for ROADMAP
-queue 1 item 10 (the image ones for order 7's ResNet).
+queue 1 item 10 (the STL10 ones for order 4's STL10 half).
 """
 
 from __future__ import annotations
@@ -349,6 +353,64 @@ def _preset_impl(name: str) -> ExperimentConfig:
         cfg = preset("banana_viz_VIC")
         cfg.experiment = "banana_RD"
         return cfg
+    if name in ("mnist_vic", "augmnist_viz_VIC"):
+        # bin/mnist/augmnist_viz_VIC.sh: resnet18 encoder, H_hyper rate,
+        # z=128, beta=0.1, 100 epochs on augmented MNIST (the mnist spec's
+        # default equivalence: x/y translation, rotation, scale, shear);
+        # the featurizer reconstructs the image (the CNN decoder)
+        return ExperimentConfig(
+            experiment="augmnist_viz_VIC",
+            data_feat=DataConfig(name="mnist", batch_size=256, n_epochs=100,
+                                 kwargs=dict(
+                                     additional_target="representative")),
+            encoder=EncoderConfig(arch="resnet", z_dim=128),
+            rate=RateConfig(mode="H_hyper"),
+            distortion=DistortionConfig(mode="direct", data_mode="image",
+                                        arch_kwargs=dict(hid_dim=32)),
+            online=OnlineEvalConfig(is_online=True, is_classification=True,
+                                    arch_kwargs=dict(hid_dim=512)),
+            loss=LossConfig(beta=0.1),
+        )
+    if name in ("augmnist_RD", "mnist_RD"):
+        # bin/mnist/augmnist_RD.sh: the beta-sweep base config
+        cfg = preset("mnist_vic")
+        cfg.experiment = "augmnist_RD"
+        return cfg
+    if name in ("mnist_stag_step1", "augmnist_stag_step1"):
+        # bin/mnist/augmnist_stag_step1.sh: train the encoder with no
+        # learned rate (lossless, beta 1), export it for step 2
+        cfg = preset("mnist_vic")
+        cfg.experiment = "augmnist_stag"
+        cfg.is_only_feat = True
+        cfg.rate = RateConfig(mode="lossless")
+        cfg.loss = dataclasses.replace(cfg.loss, beta=1.0)
+        return cfg
+    if name in ("mnist_stag_step2", "augmnist_stag_step2"):
+        # bin/mnist/augmnist_stag_step2.sh: the frozen step-1 encoder
+        # (encoder.pretrained_path names step 1's export), the H_hyper
+        # rate on a detached encoder, lossy_Z, beta 1e-2, 50 epochs
+        cfg = preset("mnist_vic")
+        cfg.experiment = "augmnist_stag"
+        cfg.frozen = ("p_ZlX",)
+        cfg.rate = RateConfig(mode="H_hyper", is_endToEnd=False)
+        cfg.distortion = DistortionConfig(mode="lossy_Z")
+        cfg.data_feat = dataclasses.replace(cfg.data_feat, n_epochs=50)
+        cfg.loss = dataclasses.replace(cfg.loss, beta=1e-2)
+        return cfg
+    if name in ("augmnist_aug", "augmnist_aug_warm"):
+        # bin/mnist/augmnist_aug{,_warm}.sh: the augmentation study, the
+        # probe on augmented MNIST; _warm trains the rate on a detached
+        # encoder for its first 5 epochs (rate.warmup_k_epochs)
+        cfg = preset("mnist_vic")
+        cfg.experiment = name
+        cfg.encoder = EncoderConfig(arch="resnet", z_dim=128)
+        cfg.data_feat = dataclasses.replace(cfg.data_feat, n_epochs=100)
+        cfg.data_pred = DataConfig(name="mnist", batch_size=256, kwargs=dict(
+            additional_target="representative"))
+        cfg.loss = dataclasses.replace(cfg.loss, beta_anneal="constant")
+        if name.endswith("_warm"):
+            cfg.rate = dataclasses.replace(cfg.rate, warmup_k_epochs=5)
+        return cfg
     if name in ("clip_bottleneck_pretrain",):
         # bin/clip/clip_bottleneck_pretrain.sh: pretrain the CLIP
         # bottleneck on COCO — featurizer=bottleneck_clip_lossyZ (frozen
@@ -443,7 +505,9 @@ def available_presets() -> list[str]:
     `pipeline.run.run_featurizer` and code through `run_communication`;
     the others run the three stages through `pipeline.run.main`."""
     return ["banana_viz_VIC", "banana_viz_VAE", "banana_viz_BINCE",
-            "banana_viz_VIC_trnslt", "banana_RD",
+            "banana_viz_VIC_trnslt", "banana_RD", "mnist_vic", "augmnist_RD",
+            "augmnist_aug", "augmnist_aug_warm",
+            "mnist_stag_step1", "mnist_stag_step2",
             "clip_lossyZ", "clip_bottleneck_pretrain", "clip_hub",
             "clip_bottleneck_linear_eval", "clip_bottleneck_mlp_eval",
             "clip_raw_linear_eval", "clip_raw_mlp_eval"]

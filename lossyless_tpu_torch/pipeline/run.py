@@ -12,9 +12,10 @@ Counterpart of `lossyless_tpu/pipeline/run.py`:
   datamodule-driven stage built on that loop: an epoch is one
   `run_featurizer` over the epoch's host batches or, when
   `trainer.use_fused_epochs` is set and the dataset has a
-  `device_sampler` (the banana source), one `make_generative_epoch` of
-  batches drawn on the device, its generators keyed by `trainer.seed +
-  epoch`; then validation, the `last` and `best` checkpoints
+  `device_sampler` (the banana source, the image datasets), one
+  `make_generative_epoch` of batches drawn (and augmented) on the device,
+  its generators keyed by `trainer.seed + epoch`; the encoder's weights
+  from `encoder.pretrained_path` when it names one; then validation, the `last` and `best` checkpoints
   (`CheckpointManager`; a run resumes from `last`), the plateau
   controllers, the best weights restored and exported
   (`best_featurizer`), and the test split's metrics with `encoder_time`
@@ -54,6 +55,7 @@ from ..core.device import resolve_device
 from ..data.balancing import get_balancing_weights
 from ..data.banana import BananaDataset
 from ..data.images import get_datamodule
+from ..nn.pretrained import load_pretrained_encoder
 from ..train.checkpoints import (CheckpointManager, is_stage_done,
                                  load_weights, mark_stage_done,
                                  resolve_swap, save_weights)
@@ -291,13 +293,12 @@ def run_featurizer_stage(cfg: ExperimentConfig, device=None,
         cfg.rate = dataclasses.replace(
             cfg.rate,
             warmup_steps=cfg.rate.warmup_k_epochs * steps_per_epoch)
-    if cfg.encoder.pretrained_path:
-        raise NotImplementedError(
-            "pretrained encoders are not ported yet (ROADMAP queue 1 item "
-            "7)")
     n_epochs = cfg.data_feat.n_epochs
     state = build_state(cfg, steps_per_epoch * n_epochs, steps_per_epoch,
                         device)
+    if cfg.encoder.pretrained_path:
+        # a resumed checkpoint below holds these weights already
+        load_pretrained_encoder(cfg.encoder, state.model)
     ckpt = CheckpointManager(Path(cfg.ckpt_dir) / cfg.long_name / "feat",
                              monitor=cfg.trainer.monitor,
                              mode=cfg.trainer.monitor_mode)

@@ -21,6 +21,7 @@ from lossyless_tpu.coding import entropy_bottleneck as jeb
 from lossyless_tpu.coding import pallas_eb
 from lossyless_tpu_torch.coding import eb_kernel
 from lossyless_tpu_torch.coding import entropy_bottleneck as teb
+from lossyless_tpu_torch.core.math import lower_bound
 
 SHAPES = [(37, 13, (3, 3, 3)), (128, 16, (3, 3, 3, 3)), (5, 8, (3, 3, 3)),
           (1, 1, (3, 3, 3, 3)), (9, 130, (2, 4)), (128, 102, (3, 3, 3, 3))]
@@ -240,3 +241,100 @@ def test_k3_wrapper_refuses(kind, error, match):
     p, z = _bad_params(kind)
     with pytest.raises(error, match=match):
         eb_kernel.likelihood(p, z)
+
+
+# ---------------------------------------------------------------------------
+# The |x| tie: JAX's `abs` has derivative +1 at 0, torch's 0
+# ---------------------------------------------------------------------------
+
+# one channel, widths (1, 1): softplus(-30) is so small that the chain
+# rounds z - 0.5 and z + 0.5 to the same logit, 1.0, so D = 0 while both
+# sigmoids' slopes are not 0; the likelihood floors and g = -1e9 passes
+TIE = {"matrix0": np.full((1, 1, 1), -30.0, np.float32),
+       "bias0": np.ones((1, 1, 1), np.float32)}
+TIE_GRAD = 1.8398e-5    # d(-log lower_bound(lik)) / d matrix0 in JAX
+
+
+def _jax_tie_grads():
+    from lossyless_tpu.core.math import lower_bound as jlower_bound
+
+    jp = {k: jnp.asarray(v) for k, v in TIE.items()}
+    z = jnp.zeros((1, 1))
+
+    def plain(p):
+        lik = jlower_bound(jeb.likelihood(p, z), jeb.LIKELIHOOD_BOUND)
+        return -jnp.log(lik).sum()
+
+    def fused(p):
+        return -jnp.log(pallas_eb.eb_likelihood_fused(p, z.T)).sum()
+
+    return [float(jax.grad(f)(jp)["matrix0"][0, 0, 0])
+            for f in (plain, fused)]
+
+
+@pytest.mark.parametrize("path", ["likelihood", "backward_plain", "wrapper"])
+def test_k3_abs_tie_matches_jax(path):
+    """Queue 3 item 7's case: JAX's d/d matrix0 is 1.8398e-5 through both
+    `eb.likelihood` and `eb_likelihood_fused`'s `_bwd`; the port's plain
+    likelihood, its analytic backward and the wrapper give the same."""
+    want = _jax_tie_grads()
+    np.testing.assert_allclose(want, [TIE_GRAD] * 2, rtol=1e-4)
+    tp = {k: torch.tensor(v, requires_grad=True) for k, v in TIE.items()}
+    z = torch.zeros(1, 1)
+    if path == "backward_plain":
+        lik = eb_kernel.likelihood_plain(tp, z)
+        _, grads = eb_kernel.likelihood_backward_plain(tp, z, -1.0 / lik)
+        got = grads["matrix0"]
+    else:
+        lik = teb.likelihood(tp, z) if path == "likelihood" \
+            else eb_kernel.likelihood(tp, z)
+        if path == "likelihood":
+            lik = lower_bound(lik, teb.LIKELIHOOD_BOUND)
+        # the floored tie
+        assert float(lik.detach()) == np.float32(teb.LIKELIHOOD_BOUND)
+        (got,) = torch.autograd.grad(-torch.log(lik).sum(), tp["matrix0"])
+    np.testing.assert_allclose(float(got), want[0], rtol=1e-5)
+
+
+def test_aux_loss_abs_tie_matches_jax():
+    """Zero biases and a zero median quantile put the median's logit on
+    its target, 0: JAX's gradient to that quantile is d|x| = 1 times the
+    chain's slope."""
+    p = _eb_params(3, (3, 3), seed=4)
+    p = {k: np.zeros_like(v) if k.startswith("bias") else np.array(v)
+         for k, v in p.items()}
+    p["quantiles"][:, 0, 1] = 0.0
+    want = jax.grad(jeb.aux_loss)({k: jnp.asarray(v) for k, v in p.items()})
+    tp = {k: torch.tensor(v, requires_grad=True) for k, v in p.items()}
+    teb.aux_loss(tp).backward()
+    got = tp["quantiles"].grad.numpy()
+    assert np.all(np.asarray(want["quantiles"])[:, 0, 1] != 0)
+    np.testing.assert_allclose(got, np.asarray(want["quantiles"]),
+                               rtol=1e-5, atol=1e-7)
+
+
+def test_lossy_z_abs_tie_matches_jax():
+    """`lossy_Z` at p_norm = 1 where z_hat equals the mean: JAX's gradient
+    is 1 there."""
+    from lossyless_tpu.compressors import distortions as jd
+    from lossyless_tpu.compressors import distributions as jdistr
+    from lossyless_tpu_torch.compressors import distortions as td
+    from lossyless_tpu_torch.compressors import distributions as tdistr
+
+    rng = np.random.default_rng(3)
+    z_hat = rng.normal(size=(4, 6)).astype(np.float32)
+    mean = z_hat.copy()
+    mean[:, ::2] += 1.0           # every other entry off the tie
+    cfg = jd.DistortionConfig(mode="lossy_Z", p_norm=1.0)
+
+    def jloss(zh):
+        p = jdistr.from_suff_param("deterministic", jnp.asarray(mean))
+        return jd.LossyZDistortion(cfg).apply({}, zh, None, p)[0].sum()
+
+    want = np.asarray(jax.grad(jloss)(jnp.asarray(z_hat)))
+    tz = torch.tensor(z_hat, requires_grad=True)
+    p = tdistr.from_suff_param("deterministic", torch.from_numpy(mean))
+    td.LossyZDistortion(td.DistortionConfig(mode="lossy_Z", p_norm=1.0))(
+        tz, None, p)[0].sum().backward()
+    assert np.all(want[:, 1::2] == 1.0)
+    np.testing.assert_allclose(tz.grad.numpy(), want, rtol=1e-6)

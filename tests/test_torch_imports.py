@@ -75,6 +75,12 @@ NEW_MODULES = [
     # slice 10: the banana experiments and the experiment CLI
     "lossyless_tpu_torch.data.banana",
     "lossyless_tpu_torch.cli",
+    # slice 11: the augmented-MNIST image path
+    "lossyless_tpu_torch.core.math",
+    "lossyless_tpu_torch.nn.resnet",
+    "lossyless_tpu_torch.nn.cnn",
+    "lossyless_tpu_torch.nn.pretrained",
+    "lossyless_tpu_torch.data.augmentations",
 ]
 
 

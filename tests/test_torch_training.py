@@ -231,13 +231,14 @@ def test_detached_rate_is_one_likelihood_with_live_z_hat():
 def test_unported_modes_raise_and_name_the_queue():
     with pytest.raises(NotImplementedError, match="queue 1 item 5"):
         trates.make_rate_estimator(4, trates.RateConfig(mode="H_spatial"))
-    # the image data mode needs the CNN decoder
+    # the image data mode on the BALLE decoder (order 5)
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        tdist.make_distortion_estimator(tdist.DistortionConfig(), 4, 2)
+        tdist.make_distortion_estimator(
+            tdist.DistortionConfig(arch="balle"), 4, (32, 32, 3))
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        registry.get_architecture("resnet", (32, 32, 3), 8)
+        registry.get_architecture("clip_rn50", (32, 32, 3), 8)
     with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        tconfig.preset("mnist_vic")
+        tconfig.preset("stl10_bince")
 
 
 @pytest.mark.parametrize("p_norm", [1.0, 2.0])
@@ -325,7 +326,8 @@ def test_config_presets_and_overrides_match_jax():
         assert t.long_name == j.long_name
     assert tconfig.available_presets() == [
         n for n in jconfig.available_presets()
-        if n.startswith(("banana", "clip_"))]
+        if n.startswith(("banana", "clip_", "mnist", "augmnist"))]
+    assert len(tconfig.available_presets()) == 18
 
 
 # ---------------------------------------------------------------------------
