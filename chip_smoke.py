@@ -39,8 +39,10 @@ non-zero without printing a result:
    pooled up to the slice check's 19,660,800 outputs (`FLOAT64_OUTPUTS`);
 3b. K3 (entropy-bottleneck likelihood) at the training shape (128, 512),
    at odd shapes in fp32, at the banana path's (1024, 2) and (1024, 1)
-   with filters (3, 3, 3) and at the image path's side latent (256, 25)
-   (`K3_CHECKS`), to rtol 1e-5 / atol 1e-7, each on
+   with filters (3, 3, 3), at the image path's side latent (256, 25) and
+   at the STL10 path's (4096, 25) (stl10_balle's folded side latent) and
+   (256, 128) (stl10_bince's z) with filters (3, 3, 3) (`K3_CHECKS`), to
+   rtol 1e-5 / atol 1e-7, each on
    the design `k3_plan` picks (asserted: the fixed chain for (3,3,3,3) and
    (3,3,3), else the generic one); its backward kernel at the same shapes
    and the side latent's (128, 102) (`K3_BWD_CHECKS`), through the
@@ -50,8 +52,8 @@ non-zero without printing a result:
    g = +1e9 and -1e9 (no gradient may pass the first), two calls equal bit
    for bit; both kernels' times beside their plain versions' and the
    eager backward's (autograd through the reference chain: its time and
-   its device kernels), and at the banana and image shapes with their
-   bounds; the backward at the |x| tie (one channel, widths (1, 1),
+   its device kernels), and at the banana, image and STL10 shapes with
+   their bounds; the backward at the |x| tie (one channel, widths (1, 1),
    matrix0 = -30, bias0 = 1, z = 0: d(-log lik) / d matrix0 = JAX's
    1.8398e-5, rtol 1e-4, and the plain backward's, rtol 1e-5); K4
    (fused MLP
@@ -147,8 +149,9 @@ non-zero without printing a result:
    JSON line, 0 < device_mfu < 1; the lines printed as a record, no
    speed bound;
 11. the three-stage pipeline: `main(preset("clip_bottleneck_linear_eval"))`
-   with K3 on, at full width on 4,096 synthetic 96 px images, 2
-   featurizer and 2 predictor epochs (`PIPELINE_REDUCED`): the three
+   with K3 on, at full width on 4,096 synthetic 96 px images augmented
+   by STL10's default chain on the card, 2 featurizer and 2 predictor
+   epochs (`PIPELINE_REDUCED`): the three
    stage sentinels and results CSVs, a finite `test/pred/acc`, K1 11 and
    K2 1 a tower forward, K3 and its backward launched, the training steps
    counted on the fused epoch (the image datasets' device sampler, since
@@ -188,11 +191,35 @@ non-zero without printing a result:
    `mnist_stag_step2` at a small depth, step 2 reading step 1's export
    through `encoder.pretrained_path`, its frozen encoder's parameters
    equal to that export bit for bit;
+14. the STL10 experiments (`STL10_REDUCED` lists the cuts):
+   `main(preset("stl10_bince"))` at full width (ResNet-18 with the 3x3
+   stem at 96 x 96 x 3, z = 128, `H_factorized` on K3, the contrastive
+   distortion at project_dim 128, batch 256, bf16) through the fused
+   epoch, the anchor and its `equiv_x` positive drawn and augmented on
+   the card by STL10's chain (hflip, resize_crop, color, gray), the
+   launch counts read around that run (K3 and its backward launched,
+   nothing else) and the peak device memory; the same featurizer on the
+   plain likelihood, whose first 3 steps' loss, rate and distortion the
+   kernels' must equal to rtol 1e-2; a fused epoch under torch.profiler
+   (idle share, device kernels a step, device ms by group: convolutions,
+   matmuls, K3, augmentation, other); `stl10_understand_VIC` (unlabelled
+   STL10, targets -1; the CNN decoder at hid_dim 64 through 96 -> 128 ->
+   96; K3 on the (256, 25) side latent; the probe on labelled STL10) and
+   `stl10_balle` (BALLE at hid_dim 64 on 128 px, z = 8192, `H_spatial`
+   with K3 at (4096, 25), batch 64) through `main` at full width (K3 and
+   its backward, nothing else), `stl10_balle`'s exported featurizer
+   through `SpatialHyperpriorCoder` (the decode equal to the receiver's
+   dequantize of the sender's symbols to 1e-5); `stl10_rate_variation`
+   and `stl10_dist_variation` at a small depth and
+   `stl10_action_dist_shift` through the experiment CLI in a subprocess.
+   Every run writes the three stages' metrics, all finite; the phase
+   prints its wall time;
 7. the `kernels` JSON line (K1-K4, K3's backward, K5a, K5b; with
    `device_ms` and `bound_share`, K1/K2 also at batch 256 and at N = 10,
-   K3 also at the banana shapes, K1's design, its float64 readings and
-   its designs side by side, the launches on phase 11's, 12's and 13's
-   paths, and the registers and spills of every kernel) and, last,
+   K3 also at the banana, image and STL10 shapes, K1's design, its
+   float64 readings and its designs side by side, the launches on phase
+   11's, 12's, 13's and 14's paths, and the registers and spills of
+   every kernel) and, last,
    `{"ok": true, "device": {...}}`.
 
 It needs a CUDA card and the repository around it: with no card, or run
@@ -203,6 +230,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import gc
 import itertools
 import json
 import subprocess
@@ -1358,13 +1386,19 @@ K3_CHECKS = [(TRAIN_BATCH, 512, (3, 3, 3, 3)), (37, 13, (3, 3, 3)),
              (1024, 2, (3, 3, 3)), (1024, 1, (3, 3, 3)),
              # the image path's side latent: z = 128 -> 25 channels at
              # batch 256, one 32-channel group
-             (256, 25, (3, 3, 3, 3))]
-BANANA_K3 = K3_CHECKS[-3:-1]
-IMAGE_K3 = K3_CHECKS[-1:]
+             (256, 25, (3, 3, 3, 3)),
+             # the STL10 path: stl10_balle's side latent, 64 images x 8 x 8
+             # positions folded into rows (one cluster owns every row),
+             # and stl10_bince's factorized z = 128 at batch 256
+             (4096, 25, (3, 3, 3)), (256, 128, (3, 3, 3))]
+BANANA_K3 = K3_CHECKS[4:6]
+IMAGE_K3 = K3_CHECKS[6:7]
+STL10_K3 = K3_CHECKS[7:9]
 # the |x| tie (ROADMAP queue 3 item 7): one channel, widths (1, 1),
 # matrix0 = -30, bias0 = 1, z = 0; JAX's d(-log lik) / d matrix0
 K3_TIE_GRAD = 1.8398e-5
-K3_BWD_CHECKS = K3_CHECKS + [(TRAIN_BATCH, 102, (3, 3, 3, 3))]
+K3_BWD_CHECKS = K3_CHECKS[:7] + [(TRAIN_BATCH, 102, (3, 3, 3, 3))] + \
+    STL10_K3
 
 
 def k3_design(filters) -> str:
@@ -1545,6 +1579,14 @@ def check_k3() -> dict:
             fwd_t, shape=f"{Bi}x{Ci}")
         results["eb_likelihood_bwd"]["image_shape"] = dict(
             bwd_t, shape=f"{Bi}x{Ci}")
+
+    # the STL10 path's shapes
+    results["eb_likelihood"]["stl10_shapes"] = {}
+    results["eb_likelihood_bwd"]["stl10_shapes"] = {}
+    for i, (Bs, Cs, fs) in enumerate(STL10_K3):
+        fwd_t, bwd_t = time_k3_at(Bs, Cs, fs, seed=400 + i)
+        results["eb_likelihood"]["stl10_shapes"][f"{Bs}x{Cs}"] = fwd_t
+        results["eb_likelihood_bwd"]["stl10_shapes"][f"{Bs}x{Cs}"] = bwd_t
     results["eb_likelihood_bwd"]["tie"] = check_k3_tie()
 
     # the backward: the wrapper's launch, its plain version, and the eager
@@ -1791,6 +1833,15 @@ def read_launches() -> dict:
     from lossyless_tpu_torch.nn import flash_attn as fa
 
     return {**fa.LAUNCHES, **eb_kernel.LAUNCHES}
+
+
+def check_launches(launches: dict, what: str):
+    """K3 and its backward launched, nothing else."""
+    others = {k: v for k, v in launches.items()
+              if not k.startswith("eb_likelihood") and v}
+    if launches["eb_likelihood"] < 1 or \
+            launches["eb_likelihood_bwd"] < 1 or others:
+        raise AssertionError(f"{what} launches {launches}")
 
 
 def train_images(n: int, seed: int, batch: int = TRAIN_BATCH):
@@ -2184,6 +2235,11 @@ KERNEL_GROUPS = {"attention K5a/K5b": ("packed_attention",
                  "mlp K4": ("mlp_block_kernel",),
                  "likelihood K3": ("eb_likelihood_kernel",
                                    "eb_likelihood_bwd_kernel"),
+                 # the STL10 chain's resampling (resize_crop), flips and
+                 # the colour jitter's roll; its elementwise steps are in
+                 # "other"
+                 "augmentation": ("grid_sampler", "roll_cuda_kernel",
+                                  "flip_kernel"),
                  # cuDNN's convolutions (forward, data and weight
                  # gradients) before the matmuls: both may be xmma/cutlass
                  "convolution": ("conv", "fprop", "dgrad", "wgrad",
@@ -2469,15 +2525,12 @@ def bench_path(card: str) -> dict:
 PIPELINE_OVERRIDES = ["rate.eb_use_pallas=True",
                       "data_feat.kwargs.synthetic=True",
                       "data_feat.kwargs.synthetic_n=4096",
-                      "data_feat.kwargs.is_augment=False",
                       "data_feat.n_epochs=2", "predictor.n_epochs=2"]
 PIPELINE_REDUCED = {
     "images": "4,096 seeded synthetic STL10-shaped images (96 px, 10 "
               "classes; train/validation carved 90/10, test 4,096) in "
               "place of the STL10 files, which are not in the checkout",
     "featurizer_epochs": "2 of 10", "predictor_epochs": "2 of 20",
-    "augmentation": "off (is_augment=False): STL10's augmentations wait "
-                    "for ROADMAP queue 1 order 4's STL10 half",
     "widths": "none cut: ViT-B/32 768 wide, 12 layers, 12 heads"}
 RESUME_IMAGES = 1024
 
@@ -2870,11 +2923,7 @@ def banana_path(card: str) -> dict:
         reset_launches()
         kernels = timed_main(k3_cfg, precision)
         launches = read_launches()
-        others = {k: v for k, v in launches.items()
-                  if not k.startswith("eb_likelihood") and v}
-        if launches["eb_likelihood"] < 1 or \
-                launches["eb_likelihood_bwd"] < 1 or others:
-            raise AssertionError(f"banana path launches {launches}")
+        check_launches(launches, "banana path")
         a = first_steps(kernels.pop("logs"), BANANA_AB_STEPS)
         b = first_steps(plain.pop("logs"), BANANA_AB_STEPS)
         worst = max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-12)
@@ -3009,11 +3058,7 @@ def image_path(card: str) -> dict:
         reset_launches()
         kernels = timed_main(k3_cfg, precision)
         launches = read_launches()
-        others = {k: v for k, v in launches.items()
-                  if not k.startswith("eb_likelihood") and v}
-        if launches["eb_likelihood"] < 1 or \
-                launches["eb_likelihood_bwd"] < 1 or others:
-            raise AssertionError(f"image path launches {launches}")
+        check_launches(launches, "image path")
         if not kernels["fused"]:
             raise AssertionError("the image path did not take the fused "
                                  "epoch")
@@ -3075,6 +3120,250 @@ def image_path(card: str) -> dict:
         "fused_vs_host_fed", "wall_s")}}), flush=True)
     return launches
 
+# ---------------------------------------------------------------------------
+# Phase 14: the STL10 experiments
+# ---------------------------------------------------------------------------
+
+STL10_SYNTH = ["data_feat.kwargs.synthetic=True",
+               "data_pred.kwargs.synthetic=True"]
+# stl10_bince's recipe is 20 epochs over STL10's 5,000 labelled train
+# images: here 2 epochs of 14 steps over 4,096 seeded synthetic ones
+# (3,686 after the 10% validation carve), 1 of the probe's 20 epochs
+BINCE_STL10 = ["rate.eb_use_pallas=True", "data_feat.kwargs.synthetic=True",
+               "data_feat.kwargs.synthetic_n=4096", "data_feat.n_epochs=2",
+               "predictor.n_epochs=1", "trainer.log_every=7"]
+# the plain-likelihood run: the same first epoch (the same draws), 4 of
+# its steps, featurizer only, the evaluation cut; its schedules are bound
+# to the kernel run's span (`plain_overrides`)
+STL10_PLAIN = ["rate.eb_use_pallas=False", "data_feat.n_epochs=1",
+               "trainer.limit_train_batches=0.3",
+               "trainer.limit_eval_batches=0.1", "is_only_feat=True",
+               "is_skip_comm=True"]
+STL10_AB_STEPS = 3        # the logs held to the plain-K3 run, rtol 1e-2
+STL10_PROFILE_STEPS = 10
+# stl10_understand_VIC and stl10_balle: 100 epochs over the 100,000
+# unlabelled images in the recipes; here 1 epoch over 2,048 synthetic
+# ones, the probe on 1,024 labelled ones, 1 epoch
+VIC_STL10 = ["rate.eb_use_pallas=True", *STL10_SYNTH,
+             "data_feat.kwargs.synthetic_n=2048",
+             "data_pred.kwargs.synthetic_n=1024", "data_feat.n_epochs=1",
+             "predictor.n_epochs=1", "trainer.log_every=7"]
+# the variants: 1,024 images, a few steps
+SHORT_STL10 = ["rate.eb_use_pallas=True", *STL10_SYNTH,
+               "data_feat.kwargs.synthetic_n=1024",
+               "data_pred.kwargs.synthetic_n=1024", "data_feat.n_epochs=1",
+               "predictor.n_epochs=1"]
+STL10_REDUCED = {
+    "stl10_bince": "2 epochs of 14 steps over 4,096 seeded synthetic "
+                   "STL10-shaped images (96 x 96 x 3, 10 classes) of the "
+                   "recipe's 20 epochs over STL10's files, which are not "
+                   "in the checkout; 1 of the probe's 20 epochs",
+    "stl10_understand_VIC, stl10_balle": "1 epoch (7 and 28 steps) over "
+                                         "2,048 synthetic unlabelled "
+                                         "images of the recipes' 100 "
+                                         "over 100,000; the probe 1 "
+                                         "epoch on 1,024 labelled",
+    "stl10_rate_variation, stl10_dist_variation, stl10_action_dist_shift":
+        "1,024 images, 1 epoch of 3 steps (the CLI's --dev: 2 epochs of "
+        "1 step)",
+    "data": "the featurizer's batches drawn and augmented (hflip, "
+            "resize_crop, color, gray) on the card by the fused epoch",
+    "widths": "none cut: ResNet-18 (3x3 stem) at 96 x 96 x 3, z = 128, "
+              "batch 256, bf16 (bince: the contrastive projection at 128, "
+              "K3 at (256, 128); VIC: the CNN decoder at hid_dim 64 "
+              "through 96 -> 128 -> 96, H_hyper's side latent (256, 25)); "
+              "BALLE at hid_dim 64 on 128 px, z = 8192 (8 x 8 x 128), "
+              "H_spatial with K3 at (4096, 25), batch 64"}
+
+
+def plain_overrides(steps: int) -> list:
+    """`STL10_PLAIN` with the three optimizers' schedules spanning the
+    kernel run's `steps` (expdecay's rate depends on the span)."""
+    return STL10_PLAIN + [f"optimizer_{g}.total_steps={steps}"
+                          for g in ("feat", "coder", "online")]
+
+
+def check_test_metrics(metrics: dict, what: str):
+    """Every `test/*` metric of a run finite (the three stages': feat,
+    comm, pred)."""
+    bad = {k: v for k, v in metrics.items() if k.startswith("test/")
+           and not np.isfinite(v)}
+    stages = {k.split("/")[1] for k in metrics if k.startswith("test/")}
+    if bad or not {"feat", "comm", "pred"} <= stages:
+        raise AssertionError(f"{what}: test metrics {bad or sorted(stages)}")
+
+
+def spatial_communication(cfg, n: int = 256) -> dict:
+    """`stl10_balle`'s exported featurizer through
+    `SpatialHyperpriorCoder` on `n` test images: the decoded latents
+    against the receiver's dequantize of the sender's symbols (1e-5)."""
+    import torch
+
+    from lossyless_tpu_torch.compressors import rates
+    from lossyless_tpu_torch.pipeline import config, run
+    from lossyless_tpu_torch.train.checkpoints import load_weights
+
+    cfg = config.apply_precision(copy.deepcopy(cfg))
+    run.instantiate_datamodule(cfg, cfg.data_feat)
+    state = run.build_state(cfg, 0, device=DEVICE)
+    state.model.load_state_dict(load_weights(
+        Path(cfg.ckpt_dir) / cfg.long_name / "best_featurizer"))
+    rate = state.model.rate_estimator
+    coder = rates.SpatialHyperpriorCoder(rate)
+    test = run._test_dataset(cfg, cfg.data_pred)
+    n = min(n, len(test))
+    x, _, _ = next(test.batches(n, seed=0))
+    with torch.no_grad():
+        z = state.model.encode(x.to(DEVICE)).float().cpu().numpy()
+    t0 = time.perf_counter()
+    streams = coder.compress(z)
+    t_comp = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    decoded = coder.decompress(streams)
+    t_dec = time.perf_counter() - t0
+    rows = rates.fold_spatial(z, rate.n_channels)
+    want = rates.unfold_spatial(coder.inner.dequantize(
+        *coder.inner.encode_symbols(rows)), n)
+    err = float(np.abs(decoded - want).max())
+    nbytes = sum(len(s) for grp in streams for s in grp)
+    out = dict(images=n, messages=len(streams[0]),
+               bits_per_image=8 * nbytes / n, max_abs_err=err,
+               tolerance=1e-5, compress_s=t_comp, decompress_s=t_dec)
+    print(json.dumps({"stl10_path_spatial_coder": out}), flush=True)
+    if not err <= 1e-5:
+        raise AssertionError(f"SpatialHyperpriorCoder decodes {err} off "
+                             f"the dequantized latents")
+    return out
+
+
+def stl10_path(card: str) -> dict:
+    """Phase 14: `main(preset("stl10_bince"))` at full width with K3 on
+    (the launches counted on that run: K3 and its backward, nothing
+    else; the peak device memory), through the fused epoch (the anchor
+    and its positive drawn and augmented on the card by the STL10 chain);
+    the same featurizer on the plain likelihood, whose first steps' logs
+    the kernels' must equal to rtol 1e-2; a profiled fused epoch;
+    `stl10_understand_VIC` and `stl10_balle` through `main` at full width
+    (K3 and its backward, nothing else), `stl10_balle`'s communication
+    through `SpatialHyperpriorCoder`; `stl10_rate_variation` and
+    `stl10_dist_variation` at a small depth, `stl10_action_dist_shift`
+    through the experiment CLI in a subprocess. Returns the launch counts
+    of the phase's runs on the kernels."""
+    import torch
+
+    from lossyless_tpu_torch.pipeline import config
+
+    t_phase = time.perf_counter()
+    precision = matmul_precision()
+    out = dict(card=card, reduced=STL10_REDUCED, matmul_precision=precision)
+    total = None
+
+    def record(key, value):
+        out[key] = value
+        print(json.dumps({f"stl10_path_{key}": value}), flush=True)
+
+    def add(launches):
+        nonlocal total
+        total = dict(launches) if total is None else {
+            k: total[k] + v for k, v in launches.items()}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        def cfg_of(name, overrides, tag):
+            return config.apply_overrides(config.preset(name), overrides + [
+                f"out_dir={tmp}/{tag}/out", f"ckpt_dir={tmp}/{tag}/ckpt"])
+
+        # the main path: stl10_bince
+        bince_cfg = cfg_of("stl10_bince", BINCE_STL10, "bince")
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        bince = timed_main(bince_cfg, precision)
+        launches = read_launches()
+        check_launches(launches, "stl10_bince")
+        check_test_metrics(bince["metrics"], "stl10_bince")
+        if not bince["fused"]:
+            raise AssertionError("stl10_bince did not take the fused epoch")
+        bince["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        bince["launches_per_step"] = {k: v / bince["steps"]
+                                      for k, v in launches.items()}
+        logs = bince.pop("logs")
+        record("bince", bince)
+        record("bince_launches", launches)
+        add(launches)
+
+        reset_launches()
+        plain = timed_main(cfg_of("stl10_bince", BINCE_STL10 + plain_overrides(
+            bince["steps"]), "plain"), precision, need=("test/feat/loss",))
+        if any(read_launches().values()):
+            raise AssertionError(f"the plain STL10 run launched "
+                                 f"{read_launches()}")
+        a = first_steps(logs, STL10_AB_STEPS)
+        b = first_steps(plain.pop("logs"), STL10_AB_STEPS)
+        worst = max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-12)
+                    for x, y in zip(a, b) for k in x)
+        record("kernels_vs_plain", dict(steps=STL10_AB_STEPS, kernels=a,
+                                        plain=b, max_rel_diff=worst,
+                                        tolerance=1e-2))
+        if not worst <= 1e-2:
+            raise AssertionError(f"stl10_bince K3 vs plain logs differ by "
+                                 f"{worst}")
+        record("profile", profile_fused_epoch(bince_cfg, card,
+                                              STL10_PROFILE_STEPS))
+
+        for name in ("stl10_understand_VIC", "stl10_balle"):
+            cfg = cfg_of(name, VIC_STL10, name)
+            reset_launches()
+            run_ = timed_main(cfg, precision)
+            launches = read_launches()
+            check_launches(launches, name)
+            check_test_metrics(run_["metrics"], name)
+            run_.pop("logs")
+            run_["launches"] = launches
+            if not run_["fused"]:
+                raise AssertionError(f"{name} did not take the fused epoch")
+            if name == "stl10_balle":
+                run_["spatial_coder"] = spatial_communication(cfg)
+            record(name, run_)
+            add(launches)
+
+        for name in ("stl10_rate_variation", "stl10_dist_variation"):
+            reset_launches()
+            run_ = timed_main(cfg_of(name, SHORT_STL10, name), precision)
+            run_.pop("logs")
+            run_["launches"] = read_launches()
+            check_launches(run_["launches"], name)
+            check_test_metrics(run_["metrics"], name)
+            record(name, run_)
+            add(run_["launches"])
+
+        # the subprocess needs the card's memory that this process's
+        # allocator still caches
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "lossyless_tpu_torch.cli",
+             "stl10_action_dist_shift", "-m", "--dev", *SHORT_STL10,
+             f"out_dir={tmp}/cli/out", f"ckpt_dir={tmp}/cli/ckpt"],
+            capture_output=True, text=True, timeout=600, cwd=ROOT)
+        if cli.returncode:
+            raise AssertionError(f"the experiment CLI exited "
+                                 f"{cli.returncode}: {cli.stderr[-3000:]}")
+        jobs = [json.loads(line) for line in cli.stdout.splitlines()
+                if line.startswith('{"job"')]
+        if len(jobs) != 1:
+            raise AssertionError(f"the CLI printed {cli.stdout[-2000:]}")
+        check_test_metrics(jobs[0]["metrics"], "the CLI's job")
+        record("cli", dict(preset="stl10_action_dist_shift",
+                           wall_s=time.perf_counter() - t0, jobs=jobs))
+    out["wall_s"] = time.perf_counter() - t_phase
+    out["launches"] = total
+    print(json.dumps({"stl10_path": {k: out[k] for k in (
+        "card", "matmul_precision", "launches", "kernels_vs_plain",
+        "wall_s")}}), flush=True)
+    print(f"phase 14 (STL10) wall {out['wall_s']:.1f} s", flush=True)
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -3118,6 +3407,7 @@ def main() -> int:
     pipeline_launches = pipeline_path(card)
     banana_launches = banana_path(card)
     image_launches = image_path(card)
+    stl10_launches = stl10_path(card)
 
     attention_cu = "lossyless_tpu_torch/nn/csrc/attention.cu"
     eb_cu = "lossyless_tpu_torch/coding/csrc/eb_likelihood.cu"
@@ -3144,7 +3434,8 @@ def main() -> int:
                 launches_per_training_step_under_knob=under_knob[name],
                 launches_on_pipeline_path=pipeline_launches[name],
                 launches_on_banana_path=banana_launches[name],
-                launches_on_image_path=image_launches[name])
+                launches_on_image_path=image_launches[name],
+                launches_on_stl10_path=stl10_launches[name])
         else:
             # K1/K2 on the encode path, K3/K4 on the training path (K1/K2
             # run there too: launches_per_training_step)
@@ -3158,7 +3449,8 @@ def main() -> int:
                 launches_on_slice_path=slice_launches[name],
                 launches_on_pipeline_path=pipeline_launches[name],
                 launches_on_banana_path=banana_launches[name],
-                launches_on_image_path=image_launches[name])
+                launches_on_image_path=image_launches[name],
+                launches_on_stl10_path=stl10_launches[name])
         row = dict(name=name, route="cuda", source=sources[name],
                    replaces=replaces[name], **counts, **timings[name])
         # registers and spills of the kernel's instantiations

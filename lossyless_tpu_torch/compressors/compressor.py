@@ -7,8 +7,8 @@ computes the combined objective
          + online probe loss on the detached z + coder quantile aux loss
 
 and the trainer (`train/state.py`) splits the parameters into optimizer
-groups by path. The encoder is the CLIP tower, an MLP, a ResNet or a
-CNN; the rate any of the ported estimators; the distortion direct,
+groups by path. The encoder is the CLIP tower, an MLP, a ResNet, a
+CNN or BALLE; the rate any of the ported estimators; the distortion direct,
 contrastive or lossy Z.
 
 Contrastive recipes encode two views (x and its positive, `aux_target`).
@@ -349,21 +349,22 @@ def compressor_params_from_flax(tree, batch_stats=None) -> dict:
     `tree` is the `params` collection; `batch_stats`, when given, is merged
     into it (flax's running `mean` / `var` are the BatchNorm buffers). The
     encoder's mapper goes through `nn.vit.params_from_flax` when it is the
-    CLIP tower, else (the MLP family, the ResNet, the CNN) through
-    `nn.layers.params_from_flax` (the path joined with dots, conv kernels
-    in their modules' layouts), as every other subtree does: the rate
-    estimator (`affine`, `entropy_bottleneck`, the hyperprior's MLPs), the
-    distortion estimator (the direct decoder `q_YlZ`, MLP or CNN; the
-    contrastive `projector` and `logit_scale`) and the online probe. Values
-    come back as fp32 tensors.
+    CLIP tower, else (the MLP family, the ResNet, the CNN, BALLE with its
+    GDN `beta_sqrt` / `gamma_sqrt`) through `nn.layers.params_from_flax`
+    (the path joined with dots, conv kernels in their modules' layouts),
+    as every other subtree does: the rate estimator (`affine`,
+    `entropy_bottleneck`, the hyperprior's MLPs; `inner.*` of the spatial
+    hyperprior), the distortion estimator (the direct decoder `q_YlZ`,
+    MLP, CNN or BALLE; the contrastive `projector` and `logit_scale`) and
+    the online probe. Values come back as fp32 tensors.
     """
     tree = _merge_stats(tree, batch_stats or {})
     mapper = tree["p_ZlX"]["mapper"]
-    if any(k.startswith(("MLP_", "Dense_")) for k in mapper):
-        out = tree_params_from_flax(mapper, "p_ZlX.mapper.")
-    else:
+    if "class_embedding" in mapper:   # the CLIP tower
         out = {f"p_ZlX.mapper.{k}": v
                for k, v in params_from_flax(mapper).items()}
+    else:
+        out = tree_params_from_flax(mapper, "p_ZlX.mapper.")
     for name in ("rate_estimator", "distortion_estimator",
                  "online_evaluator"):
         if name in tree:

@@ -2,9 +2,10 @@
 
 Counterpart of `lossyless_tpu/compressors/rates.py`: `RateConfig` (all of
 it), `EntropyBottleneckModule`, `_AffineZ`, `HRateFactorizedPrior`,
-`HRateHyperprior`, `Lossless` with `lossless_bits`, `MIRate`,
-`make_rate_estimator`, and the host coders `FactorizedCoder` and
-`HyperpriorCoder`. Each estimator's
+`HRateHyperprior`, `HRateHyperpriorSpatial`, `Lossless` with
+`lossless_bits`, `MIRate`, `make_rate_estimator`, and the host coders
+`FactorizedCoder`, `HyperpriorCoder` and `SpatialHyperpriorCoder`. Each
+estimator's
 `forward(z, p_zlx, *, training, ...)` returns `(z_hat, rates_in_nats,
 logs)`; likelihoods are fp32.
 
@@ -12,8 +13,9 @@ Training noise is U(-0.5, 0.5), drawn from the caller's `torch.Generator`
 or passed in as `noise` (the parity tests hand both frameworks the same
 draws). The hyperprior takes two draws, the side bottleneck's and then the
 Gaussian conditional's (JAX splits the rate's key into these two), so its
-`noise` is the pair. `MI` draws nothing. `H_spatial` is not ported yet
-(ROADMAP queue 1 item 5).
+`noise` is the pair; the spatial hyperprior's is its inner hyperprior's
+pair, in the folded layout ((B * H * W, side), (B * H * W, C)). `MI`
+draws nothing.
 """
 
 from __future__ import annotations
@@ -226,6 +228,58 @@ class HRateHyperprior(nn.Module):
         return self.entropy_bottleneck.aux_loss()
 
 
+def _side(z_dim: int, n_channels: int) -> int:
+    """The side of the square spatial latent of `z_dim` = C * side^2."""
+    side = math.isqrt(z_dim // n_channels)
+    if side * side * n_channels != z_dim:
+        raise ValueError("H_spatial needs a square spatial latent")
+    return side
+
+
+def fold_spatial(z, n_channels: int):
+    """(B, C * H * W), stored channel-major (einops' 'b (c h w)'), ->
+    (B * H * W, C): the positions become rows. Tensors or numpy arrays."""
+    b = z.shape[0]
+    s2 = z.shape[1] // n_channels
+    return z.reshape(b, n_channels, s2).swapaxes(1, 2).reshape(
+        b * s2, n_channels)
+
+
+def unfold_spatial(zs, b: int):
+    """`fold_spatial`'s inverse: (B * H * W, C) -> (B, C * H * W)."""
+    c = zs.shape[1]
+    return zs.reshape(b, -1, c).swapaxes(1, 2).reshape(b, -1)
+
+
+class HRateHyperpriorSpatial(nn.Module):
+    """The hyperprior at each spatial position of a BALLE latent: the
+    flattened latent (B, C * H * W) is folded to (B * H * W, C), the
+    positions become rows of the inner `HRateHyperprior` over C
+    channels, and the rates are summed back over a sample's positions
+    (the logs, means over rows, scaled by H * W)."""
+
+    def __init__(self, z_dim: int, n_channels: int,
+                 cfg: RateConfig = RateConfig(mode="H_spatial"),
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.z_dim, self.n_channels, self.cfg = z_dim, n_channels, cfg
+        self.side_dim = _side(z_dim, n_channels)
+        self.inner = HRateHyperprior(n_channels, cfg, generator)
+
+    def forward(self, z, p_zlx=None, *, training: bool, noise=None,
+                generator=None, step: int = 0, detach_rate: bool = False):
+        b, n_pos = z.shape[0], self.side_dim ** 2
+        z_hat, rates, logs = self.inner(
+            fold_spatial(z, self.n_channels), p_zlx, training=training,
+            noise=noise, generator=generator, step=step,
+            detach_rate=detach_rate)
+        return (unfold_spatial(z_hat, b), rates.reshape(b, n_pos).sum(-1),
+                {k: v * n_pos for k, v in logs.items()})
+
+    def aux_loss(self):
+        return self.inner.aux_loss()
+
+
 class Lossless(nn.Module):
     """Lossless float coding baseline: z passes through. The rate term is a
     gradient-connected zero, as in JAX; the gzip'd bits are computed on
@@ -285,9 +339,7 @@ def make_rate_estimator(z_dim: int, cfg: RateConfig,
     if cfg.mode == "MI":
         return MIRate(z_dim)
     if cfg.mode == "H_spatial":
-        raise NotImplementedError(
-            f"rate mode {cfg.mode!r} is not ported yet (ROADMAP queue 1 "
-            f"item 5)")
+        return HRateHyperpriorSpatial(z_dim, cfg.n_channels, cfg, generator)
     raise ValueError(f"unknown rate mode={cfg.mode}")
 
 
@@ -468,3 +520,25 @@ class HyperpriorCoder:
         indexes, _ = self._indexes_means(side_z_hat)
         z_symbols = self.z_codec.decode_batch_varidx(z_streams, indexes)
         return self.dequantize(z_symbols, side_symbols)
+
+
+class SpatialHyperpriorCoder:
+    """compress/decompress for HRateHyperpriorSpatial: the latent folded
+    as in training (`fold_spatial`), one hyperprior message a position
+    coded by the inner `HyperpriorCoder`; the streams are the inner
+    coder's, a sample's positions in scan order."""
+
+    def __init__(self, module: HRateHyperpriorSpatial):
+        self.module = module
+        self.n_channels = module.n_channels
+        self.side_dim = module.side_dim
+        self.inner = HyperpriorCoder(module.inner)
+
+    def compress(self, z) -> list[list[bytes]]:
+        return self.inner.compress(fold_spatial(np.asarray(z, np.float32),
+                                                self.n_channels))
+
+    def decompress(self, all_strings, batch_size: int | None = None):
+        zs = self.inner.decompress(all_strings)
+        b = batch_size or len(all_strings[0]) // self.side_dim ** 2
+        return unfold_spatial(zs, b)

@@ -1,26 +1,29 @@
 """Image datasets with equivalence augmentation.
 
-Counterpart of the part of `lossyless_tpu/data/images.py` that the CLIP
-and MNIST presets reach: `SPECS`, the seeded procedural source
+Counterpart of the part of `lossyless_tpu/data/images.py` that the CLIP,
+MNIST and STL10 presets reach: `SPECS`, the seeded procedural source
 `_synthetic` (the same bytes as JAX's for every split and seed),
 `ImageDataset` (load, carve train/validation from train, `batches` with
-`drop_last`, `is_normalize`, the affine augmentations, `device_sampler`)
-and `get_datamodule` for the image sets.
+`drop_last`, `is_normalize`, the equivalence's augmentations and the
+joint (image, label) `label_equivalence`, `device_sampler`) and
+`get_datamodule` for the image sets.
 
 Batches are `(x, target, aux_target)` CPU tensors: x float32 NHWC in
 [0, 1] (normalized with `is_normalize`), in the order of JAX's batches
 (one `default_rng(seed)` permutation an epoch), augmented with
-`is_augment` by the equivalence's warp drawn from a `torch.Generator`
-seeded with the epoch's seed. `aux_target` follows `additional_target`
-(`input`: the augmented x; `representative`: the raw image; `equiv_x`: a
-second augmented view, normalized as x is; `target`: the label).
-`device_sampler` draws, augments and builds the same triple on the card.
+`is_augment` by the equivalence's chain and then, with a
+`label_equivalence`, by `EquivariantRandomResizedCrop` (which may
+resample the label), all drawn from a `torch.Generator` seeded with the
+epoch's seed. `aux_target` follows `additional_target` (`input`: the
+augmented x; `representative`: the raw image; `equiv_x`: a second view
+augmented by the chain alone, normalized as x is; `target`: the label).
+`device_sampler` draws, augments and builds the same triple on the card;
+`ImageDataset.build` turns given draws into a batch, so a test can hand
+both paths JAX's draws.
 
-Not ported: the STL10 half of the augmentations and `label_equivalence`
-(ROADMAP queue 1 order 4), raised when a batch would use them. Real files
-are read for MNIST's idx files and STL10's binary format, under
-`DATA_DIR`, and only when `synthetic` is off: a missing file raises, it
-never falls back to the synthetic source.
+Real files are read for MNIST's idx files and STL10's binary format,
+under `DATA_DIR`, and only when `synthetic` is off: a missing file
+raises, it never falls back to the synthetic source.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import numpy as np
 import torch
 
 from .augmentations import make_augmenter
+from .label_augment import EquivariantRandomResizedCrop
 
 # where the real datasets go once they are in the repository
 DATA_DIR = Path(__file__).resolve().parents[2] / "data"
@@ -256,32 +260,56 @@ class ImageDataset:
         return (x - mean) / std
 
     def augmenter(self):
-        """The batch augmenter when this dataset augments (`is_augment`
-        with an equivalence set), else None. Raises for what is not
-        ported yet: the STL10 half of the augmentations and
-        `label_equivalence` (ROADMAP queue 1 order 4)."""
-        if not self.is_augment:
+        """The equivalence's chain when this dataset augments
+        (`is_augment` with an equivalence set), else None."""
+        if not self.is_augment or not self.equivalence:
             return None
-        if self.label_equivalence is not None:
-            raise NotImplementedError(
-                "label_equivalence (data/label_augment.py) is not ported "
-                "yet (ROADMAP queue 1 order 4, its STL10 half)")
-        return make_augmenter(self.equivalence) if self.equivalence \
-            else None
+        return make_augmenter(self.equivalence)
 
-    def _views(self, raw, y, x_view, aux_view):
-        """(x, y, aux) from the raw [0, 1] images and the augmenter's
-        views (`x_view()`, `aux_view()`: augmented, or the raw images when
-        nothing augments). Views that enter the encoder (x, equiv_x) are
-        normalized; reconstruction targets stay in [0, 1]."""
-        x = x_view()
+    def label_augmenter(self):
+        """The joint (image, label) crop of `label_equivalence` when this
+        dataset augments, else None."""
+        if not self.is_augment or self.label_equivalence is None:
+            return None
+        return EquivariantRandomResizedCrop(
+            num_classes=self.spec.n_classes, **self.label_equivalence)
+
+    def draws(self, generator: torch.Generator, shape) -> tuple:
+        """(x's, the label augmentation's, the equiv_x positive's) draws
+        for a batch of `shape`, in that order, from `generator`; None
+        where nothing is drawn."""
+        augment, label_aug = self.augmenter(), self.label_augmenter()
+        x_draw = None if augment is None else augment.draw(generator, shape)
+        label_draw = None if label_aug is None \
+            else label_aug.draw(generator, shape)
+        aux_draw = None
+        if augment is not None and self.additional_target == "equiv_x":
+            aux_draw = augment.draw(generator, shape)
+        return x_draw, label_draw, aux_draw
+
+    def build(self, raw: torch.Tensor, y: torch.Tensor, x_draw=None,
+              label_draw=None, aux_draw=None):
+        """(x, y, aux) of the raw [0, 1] images and their labels: x
+        augmented by the chain on `x_draw`, then jointly with y by the
+        label augmentation on `label_draw`; an equiv_x positive by the
+        chain on `aux_draw` (None: not augmented). Views that enter the
+        encoder (x, equiv_x) are normalized; reconstruction targets stay
+        in [0, 1]."""
+        augment = self.augmenter()
+
+        def view(draw):
+            return raw if draw is None else augment.apply(raw, draw)
+
+        x = view(x_draw)
+        if label_draw is not None:
+            x, y = self.label_augmenter().apply(x, y, label_draw)
         at = self.additional_target
         if at == "input":
             aux = x
         elif at == "representative":
             aux = raw
         elif at == "equiv_x":
-            aux = self._normalize(aux_view())
+            aux = self._normalize(view(aux_draw))
         elif at in ("target", None):
             aux = y
         else:
@@ -291,8 +319,7 @@ class ImageDataset:
     def batches(self, batch_size: int, n_epochs: int = 1, seed: int = 0,
                 shuffle: bool = True, drop_last: bool = True):
         """Yield (x, target, aux_target) CPU tensors; the augmentations
-        are drawn from a generator seeded with `seed`."""
-        augment = self.augmenter()
+        are drawn from a generator seeded with `seed` (`draws`)."""
         rng = np.random.default_rng(seed)
         g = torch.Generator().manual_seed(seed)
         n = len(self)
@@ -303,11 +330,7 @@ class ImageDataset:
                 idx = order[i:i + batch_size]
                 raw = torch.from_numpy(self.data[idx]).float() / 255.0
                 y = torch.from_numpy(self.targets[idx])
-
-                def view(raw=raw):
-                    return raw if augment is None else augment(g, raw)
-
-                yield self._views(raw, y, view, view)
+                yield self.build(raw, y, *self.draws(g, raw.shape))
 
     def device_sampler(self, batch_size: int) -> "ImageSampler":
         """`sample(generator) -> (x, y, aux)`: a batch drawn, augmented
@@ -320,14 +343,14 @@ class ImageSampler:
 
     The uint8 images and the labels are staged on a device once, at the
     first call on it. Each call draws `batch_size` indices uniformly
-    (with replacement), then the augmentation of x and, for `equiv_x`,
-    of the positive view, all from the caller's generator on that
-    device; `build` turns given draws into the batch, so a test can hand
-    it JAX's. The normalization contract is `batches()`'s."""
+    (with replacement), then the augmentations (`ImageDataset.draws`: x's
+    chain, the label augmentation, an equiv_x positive's chain), all from
+    the caller's generator on that device; `build` turns given draws into
+    the batch, so a test can hand it JAX's. The normalization contract is
+    `batches()`'s."""
 
     def __init__(self, ds: ImageDataset, batch_size: int):
         self.ds, self.batch_size = ds, batch_size
-        self.augment = ds.augmenter()
         self._staged = {}
 
     def _stage(self, device):
@@ -342,27 +365,17 @@ class ImageSampler:
         data, _ = self._stage(generator.device)
         idx = torch.randint(0, len(data), (self.batch_size,),
                             generator=generator, device=generator.device)
-        x_draw = aux_draw = None
-        if self.augment is not None:
-            shape = (self.batch_size,) + tuple(data.shape[1:])
-            x_draw = self.augment.draw(generator, shape)
-            if self.ds.additional_target == "equiv_x":
-                aux_draw = self.augment.draw(generator, shape)
-        return self.build(idx, x_draw, aux_draw)
+        x_draw, label_draw, aux_draw = self.ds.draws(
+            generator, (self.batch_size,) + tuple(data.shape[1:]))
+        return self.build(idx, x_draw, aux_draw, label_draw)
 
-    def build(self, idx: torch.Tensor, x_draw: dict | None = None,
-              aux_draw: dict | None = None):
-        """The batch of images `idx`, x warped by `x_draw` and an
-        `equiv_x` positive by `aux_draw` (None: not augmented)."""
+    def build(self, idx: torch.Tensor, x_draw=None, aux_draw=None,
+              label_draw=None):
+        """The batch of images `idx` (`ImageDataset.build` on the given
+        draws)."""
         data, targets = self._stage(idx.device)
-        raw = data[idx].float() / 255.0
-        y = targets[idx]
-
-        def warp(draw):
-            return lambda: raw if draw is None else self.augment.apply(
-                raw, draw)
-
-        return self.ds._views(raw, y, warp(x_draw), warp(aux_draw))
+        return self.ds.build(data[idx].float() / 255.0, targets[idx],
+                             x_draw, label_draw, aux_draw)
 
 
 def get_datamodule(name: str, **kwargs):

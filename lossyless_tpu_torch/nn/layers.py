@@ -1,8 +1,9 @@
 """Shared layers: initializers, activations, norms and convolutions.
 
-Counterpart of `lossyless_tpu/nn/layers.py` without GDN (the BALLE slice,
-ROADMAP queue 1 order 5): the initializers (`KAIMING_UNIFORM`,
-`KAIMING_NORMAL_OUT`, flax's `LECUN_NORMAL`), `get_activation`,
+Counterpart of `lossyless_tpu/nn/layers.py`: the initializers
+(`KAIMING_UNIFORM`, `KAIMING_NORMAL_OUT`, flax's `LECUN_NORMAL`),
+`get_activation` (GDN as a factory, `GDN(features)`, which
+`make_activation` registers under flax's name `GDN_i`),
 `norm_uses_bias` and the identity, batch, group and layer norms of
 `apply_norm`, computed with flax's formulas (the fast variance E[x^2] -
 E[x]^2; batch norm eps 1e-5 with running averages at momentum 0.9; group
@@ -19,6 +20,7 @@ flax tree onto these modules' state dicts.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable
 
@@ -26,6 +28,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..core.math import lower_bound
 
 BN_MOMENTUM = 0.9
 
@@ -59,9 +63,43 @@ def norm_uses_bias(norm_layer: str | None) -> bool:
     return norm_layer in (None, "identity")
 
 
-def get_activation(activation: str) -> Callable[[torch.Tensor], torch.Tensor]:
+class GDN(nn.Module):
+    """Generalized divisive normalization (Balle et al. 2016), JAX's
+    `nn.layers.GDN` on the channels (dim 1: (batch, features) or an NCHW
+    view):
+
+        y_i = x_i / sqrt(beta_i + sum_j gamma_ji x_j^2)   (inverse=False)
+        y_i = x_i * sqrt(...)                             (inverse=True)
+
+    The parameters are stored as square roots (`beta_sqrt`, `gamma_sqrt`,
+    flax's names), `beta_sqrt` lower-bounded at `beta_min ** 0.5`. The
+    normalizer is computed in fp32 and the output cast back to the
+    input's dtype."""
+
+    def __init__(self, features: int, inverse: bool = False,
+                 beta_min: float = 1e-6, gamma_init: float = 0.1):
+        super().__init__()
+        self.inverse, self.beta_min = inverse, beta_min
+        self.beta_sqrt = nn.Parameter(torch.ones(features))
+        self.gamma_sqrt = nn.Parameter(
+            torch.sqrt(gamma_init * torch.eye(features)))
+
+    def forward(self, x):
+        beta = lower_bound(self.beta_sqrt, self.beta_min ** 0.5) ** 2
+        gamma = self.gamma_sqrt ** 2
+        x32 = x.float()
+        norm = (x32 * x32).movedim(1, -1) @ gamma + beta
+        norm = norm.movedim(-1, 1)
+        out = x32 * (torch.sqrt(norm) if self.inverse
+                     else torch.rsqrt(norm))
+        return out.to(x.dtype)
+
+
+def get_activation(activation: str, inverse: bool = False) -> Callable:
     """The activation function of the JAX package's name (gelu is the tanh
-    approximation, jax.nn.gelu's default)."""
+    approximation, jax.nn.gelu's default); for "gdn" the factory
+    `GDN(features)` (inverted with `inverse`), as JAX's factory builds a
+    GDN module."""
     acts = {
         "relu": F.relu,
         "gelu": lambda x: F.gelu(x, approximate="tanh"),
@@ -74,11 +112,22 @@ def get_activation(activation: str) -> Callable[[torch.Tensor], torch.Tensor]:
     }
     key = activation.lower()
     if key == "gdn":
-        raise NotImplementedError(
-            "GDN is not ported yet (the BALLE slice, ROADMAP queue 1 item 7)")
+        return functools.partial(GDN, inverse=inverse)
     if key in acts:
         return acts[key]
     raise ValueError(f"unknown activation={activation}")
+
+
+def make_activation(module: nn.Module, activation: str, features: int,
+                    i: int, inverse: bool = False) -> Callable:
+    """The activation of a stack's i-th layer: the function, or for GDN a
+    `GDN(features)` registered on `module` under flax's name `GDN_i`."""
+    act = get_activation(activation, inverse)
+    if activation.lower() != "gdn":
+        return act
+    gdn = act(features)
+    module.add_module(f"GDN_{i}", gdn)
+    return gdn
 
 
 def _fast_stats(x: torch.Tensor, dims):

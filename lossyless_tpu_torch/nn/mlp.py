@@ -17,8 +17,9 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from .layers import (KAIMING_UNIFORM, apply_norm, get_activation, make_norm,
-                     norm_uses_bias, params_from_flax)  # noqa: F401 (re-export)
+from .layers import (KAIMING_UNIFORM, apply_norm, make_activation, make_norm,
+                     norm_uses_bias)
+from .layers import params_from_flax  # noqa: F401 (re-export)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -61,11 +62,11 @@ class MLP(nn.Module):
         super().__init__()
         self.dtype = _dtype(dtype)
         self.n_hid_layers = n_hid_layers
-        self.act = get_activation(activation)
         self.dropout = nn.Dropout(dropout_p) if dropout_p > 0 else None
         use_bias = norm_uses_bias(norm_layer)
         dims = [in_dim] + [hid_dim] * n_hid_layers
-        self._norms = []   # registered below under flax's names
+        # registered below under flax's names
+        self._norms, self._acts = [], []
         for i in range(n_hid_layers):
             self.add_module(f"Dense_{i}", Dense(dims[i], hid_dim, use_bias,
                                                 self.dtype, generator))
@@ -73,6 +74,7 @@ class MLP(nn.Module):
             if norm is not None:
                 self.add_module(f"{type(norm).__name__}_{i}", norm)
             self._norms.append(norm)
+            self._acts.append(make_activation(self, activation, hid_dim, i))
         self.add_module(f"Dense_{n_hid_layers}", Dense(
             dims[-1], out_dim, True, self.dtype, generator))
 
@@ -82,7 +84,7 @@ class MLP(nn.Module):
         for i in range(self.n_hid_layers):
             x = getattr(self, f"Dense_{i}")(x)
             x = apply_norm(self._norms[i], x, training=training)
-            x = self.act(x).to(self.dtype)
+            x = self._acts[i](x).to(self.dtype)
             if self.dropout is not None and training:
                 x = self.dropout(x)
         return getattr(self, f"Dense_{self.n_hid_layers}")(x).float()

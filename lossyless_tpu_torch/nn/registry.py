@@ -3,10 +3,10 @@
 Counterpart of `lossyless_tpu/nn/registry.py`: maps a mode string + kwargs
 to a module taking (in_shape, out_shape). Image shapes are channels-last
 (H, W, C). Ported: the CLIP ViT tower, the `mlp`, `linear` and
-`identity` heads (`nn/mlp.py`), the `cnn` encoder and, for an int
-`in_shape` and an image `out_shape`, its transposed decoder
-(`nn/cnn.py`), and the `resnet` (`nn/resnet.py`); `balle`, `clip_rn50`,
-`simclr` and `swav` wait for ROADMAP queue 1 item 7 (orders 5 and 7b).
+`identity` heads (`nn/mlp.py`), the `cnn` and `balle` encoders and, for
+an int `in_shape` and an image `out_shape`, their transposed decoders
+(`nn/cnn.py`), and the `resnet` (`nn/resnet.py`); `clip_rn50`, `simclr`
+and `swav` wait for ROADMAP queue 1 item 7 (order 7b).
 `generator` seeds the init (torch needs it at construction; the tower
 takes it through `init_weights`).
 
@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from .cnn import CNNDecoder, CNNEncoder
+from .cnn import BalleDecoder, BalleEncoder, CNNDecoder, CNNEncoder
 from .mlp import FlattenLinear, FlattenMLP, Identity
 from .resnet import ResNet
 from .vit import VisionTransformer
@@ -70,20 +70,18 @@ def get_architecture(mode: str, in_shape, out_shape, generator=None,
         # flax's default compute dtype for the tower is bf16
         kwargs.setdefault("dtype", torch.bfloat16)
         return VisionTransformer(out_dim=out_shape, **kwargs)
-    if mode == "cnn":
+    if mode in ("cnn", "balle"):
         kwargs = _translate(kwargs)
+        enc, dec = (CNNEncoder, CNNDecoder) if mode == "cnn" \
+            else (BalleEncoder, BalleDecoder)
         if isinstance(in_shape, int) and not isinstance(out_shape, int):
-            return CNNDecoder(in_shape, tuple(out_shape),
-                              generator=generator, **kwargs)
-        return CNNEncoder(out_shape, tuple(in_shape), generator=generator,
-                          **kwargs)
+            return dec(in_shape, tuple(out_shape), generator=generator,
+                       **kwargs)
+        return enc(out_shape, tuple(in_shape), generator=generator,
+                   **kwargs)
     if mode == "resnet":
         return ResNet(out_shape, tuple(in_shape), generator=generator,
                       **_translate(kwargs))
-    if mode == "balle":
-        raise NotImplementedError(
-            "architecture 'balle' is not ported yet (ROADMAP queue 1 item "
-            "7, order 5)")
     if mode in ("clip_rn50", "simclr", "swav"):
         raise NotImplementedError(
             f"architecture {mode!r} is not ported yet (ROADMAP queue 1 "

@@ -9,12 +9,18 @@ that run on the port: the banana experiments `banana_viz_VIC`,
 `augmnist_viz_VIC`; a ResNet-18 encoder, the hyperprior rate, the CNN
 decoder), `augmnist_RD`, the staggered `mnist_stag_step1` /
 `mnist_stag_step2` and the augmentation study `augmnist_aug` /
-`augmnist_aug_warm`, the CLIP recipes `clip_bottleneck_pretrain` (the
-hyperprior rate), `clip_hub` (the factorized rate), `clip_lossyZ` (the
-hyperprior bottleneck with the online probe) and its evaluation presets
-`clip_bottleneck_{linear,mlp}_eval` and `clip_raw_{linear,mlp}_eval` (the
-lossless rate, featurizer at init). The other presets wait for ROADMAP
-queue 1 item 10 (the STL10 ones for order 4's STL10 half).
+`augmnist_aug_warm`, the STL10 experiments `stl10_bince` (the
+contrastive distortion on the ResNet), `stl10_understand_VIC` and its
+variants `stl10_action_dist_shift`, `stl10_rate_variation` (the
+factorized rate) and `stl10_dist_variation`, and `stl10_balle` (BALLE
+with the spatial hyperprior), the CLIP recipes
+`clip_bottleneck_pretrain` (the hyperprior rate), `clip_hub` (the
+factorized rate), `clip_lossyZ` (the hyperprior bottleneck with the
+online probe) and its evaluation presets
+`clip_bottleneck_{linear,mlp}_eval` and `clip_raw_{linear,mlp}_eval`
+(the lossless rate, featurizer at init). The other presets wait for ROADMAP
+queue 1 item 10 (the `ssl_*` ones for order 7b, `galaxy_regression` for
+order 9).
 """
 
 from __future__ import annotations
@@ -411,6 +417,74 @@ def _preset_impl(name: str) -> ExperimentConfig:
         if name.endswith("_warm"):
             cfg.rate = dataclasses.replace(cfg.rate, warmup_k_epochs=5)
         return cfg
+    if name in ("stl10_bince",):
+        # bin/stl10: the contrastive (BINCE) featurizer on augmented STL10
+        # (the default STL10 equivalence), resnet18, z=128, the factorized
+        # rate, project_dim 128, beta 0.01
+        return ExperimentConfig(
+            experiment="stl10_bince",
+            data_feat=DataConfig(name="stl10", batch_size=256, n_epochs=20,
+                                 kwargs=dict(additional_target="equiv_x")),
+            encoder=EncoderConfig(arch="resnet", z_dim=128),
+            rate=RateConfig(mode="H_factorized"),
+            distortion=DistortionConfig(mode="contrastive", project_dim=128),
+            online=OnlineEvalConfig(is_online=True,
+                                    arch_kwargs=dict(hid_dim=512)),
+            loss=LossConfig(beta=0.01),
+        )
+    if name in ("stl10_balle",):
+        # bin/stl10/STL10_balle.sh: the BALLE conv autoencoder with the
+        # spatial hyperprior, z=8192 (96 px resized to 128, 4 stride-2
+        # convs: 8x8 positions x 128 channels), on the unlabeled images;
+        # the probe on labeled STL10; the online probe off (the script's
+        # evaluation.featurizer.is_online=false); beta 1e-3, the largest
+        # point of the script's sweep
+        return ExperimentConfig(
+            experiment="stl10_balle",
+            data_feat=DataConfig(name="stl10_unlabeled", batch_size=64,
+                                 n_epochs=100,
+                                 kwargs=dict(additional_target="input")),
+            data_pred=DataConfig(name="stl10", batch_size=64),
+            encoder=EncoderConfig(arch="balle", z_dim=8192,
+                                  arch_kwargs=dict(hid_dim=64)),
+            rate=RateConfig(mode="H_spatial", n_channels=128),
+            distortion=DistortionConfig(mode="direct", data_mode="image",
+                                        arch="balle",
+                                        arch_kwargs=dict(hid_dim=64)),
+            online=OnlineEvalConfig(is_online=False),
+            loss=LossConfig(beta=1e-3),
+        )
+    if name in ("stl10_rate_variation",):
+        # bin/stl10/STL10_rate_variation.sh: stl10_understand_VIC with the
+        # factorized rate (the script sweeps rate.mode on the CLI)
+        cfg = preset("stl10_understand_VIC")
+        cfg.experiment = "stl10_rate_variation"
+        cfg.rate = RateConfig(mode="H_factorized")
+        return cfg
+    if name in ("stl10_dist_variation",):
+        # bin/stl10/STL10_dist_variation_{featpred,recpred}.sh: resnet18 +
+        # H_hyper on unlabeled STL10 (the script sweeps the distortion)
+        cfg = preset("stl10_understand_VIC")
+        cfg.experiment = "stl10_dist_variation"
+        return cfg
+    if name in ("stl10_action_dist_shift", "stl10_understand_VIC"):
+        # bin/stl10/STL10_action_dist_shift.sh / STL10_understand_VIC.sh:
+        # the featurizer on unlabeled STL10 reconstructing the image (the
+        # CNN decoder at hid_dim 64), H_hyper, the probe on labeled STL10
+        return ExperimentConfig(
+            experiment=name,
+            data_feat=DataConfig(name="stl10_unlabeled", batch_size=256,
+                                 n_epochs=100, kwargs=dict(
+                                     additional_target="representative")),
+            data_pred=DataConfig(name="stl10", batch_size=256),
+            encoder=EncoderConfig(arch="resnet", z_dim=128),
+            rate=RateConfig(mode="H_hyper"),
+            distortion=DistortionConfig(mode="direct", data_mode="image",
+                                        arch_kwargs=dict(hid_dim=64)),
+            online=OnlineEvalConfig(is_online=True,
+                                    arch_kwargs=dict(hid_dim=512)),
+            loss=LossConfig(beta=0.1),
+        )
     if name in ("clip_bottleneck_pretrain",):
         # bin/clip/clip_bottleneck_pretrain.sh: pretrain the CLIP
         # bottleneck on COCO — featurizer=bottleneck_clip_lossyZ (frozen
@@ -507,7 +581,9 @@ def available_presets() -> list[str]:
     return ["banana_viz_VIC", "banana_viz_VAE", "banana_viz_BINCE",
             "banana_viz_VIC_trnslt", "banana_RD", "mnist_vic", "augmnist_RD",
             "augmnist_aug", "augmnist_aug_warm",
-            "mnist_stag_step1", "mnist_stag_step2",
+            "mnist_stag_step1", "mnist_stag_step2", "stl10_bince",
+            "stl10_balle", "stl10_rate_variation", "stl10_dist_variation",
+            "stl10_action_dist_shift", "stl10_understand_VIC",
             "clip_lossyZ", "clip_bottleneck_pretrain", "clip_hub",
             "clip_bottleneck_linear_eval", "clip_bottleneck_mlp_eval",
             "clip_raw_linear_eval", "clip_raw_mlp_eval"]

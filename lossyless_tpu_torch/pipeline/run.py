@@ -21,10 +21,11 @@ Counterpart of `lossyless_tpu/pipeline/run.py`:
   (`best_featurizer`), and the test split's metrics with `encoder_time`
   in `results_featurizer.csv`.
 * `run_communication`: real entropy coding of a measurement set with the
-  trained rate (`H_factorized`, `H_hyper`), the gzip'd size of the raw
-  features (`lossless`), or for `MI` the rate the estimator bounds (no
-  coder: `is_real_coding` 0): `n_bits` and the per-image times, written
-  to `results_communication.csv` with the stage sentinel.
+  trained rate (`H_factorized`, `H_hyper`, `H_spatial`), the gzip'd
+  size of the raw features (`lossless`), or for `MI` the rate the
+  estimator bounds (no coder: `is_real_coding` 0): `n_bits` and the
+  per-image times, written to `results_communication.csv` with the stage
+  sentinel.
 * `run_predictor`: featurize the predictor's datasets through the frozen
   compressor, fit the probe (`pipeline/predictor.py`), evaluate it on the
   test split: `results_predictor.csv`.
@@ -50,7 +51,7 @@ import torch
 
 from ..compressors.compressor import LearnableCompressor
 from ..compressors.rates import (FactorizedCoder, HyperpriorCoder,
-                                 lossless_bits)
+                                 SpatialHyperpriorCoder, lossless_bits)
 from ..core.device import resolve_device
 from ..data.balancing import get_balancing_weights
 from ..data.banana import BananaDataset
@@ -439,10 +440,10 @@ def run_communication(cfg: ExperimentConfig, state: TrainState,
         coder = FactorizedCoder.from_module(model.rate_estimator)
     elif cfg.rate.mode == "H_hyper":
         coder = HyperpriorCoder(model.rate_estimator)
+    elif cfg.rate.mode == "H_spatial":
+        coder = SpatialHyperpriorCoder(model.rate_estimator)
     else:
-        raise NotImplementedError(
-            f"communication for rate mode {cfg.rate.mode!r} is not ported "
-            f"yet (ROADMAP queue 1 items 5 and 10)")
+        raise ValueError(f"unknown rate mode={cfg.rate.mode}")
     n, total_bytes = 0, 0
     t_enc = t_comp = t_dec = 0.0
     warmed = False
@@ -462,7 +463,8 @@ def run_communication(cfg: ExperimentConfig, state: TrainState,
         t0 = time.perf_counter()
         coder.decompress(streams)
         t_dec += time.perf_counter() - t0
-        groups = streams if cfg.rate.mode == "H_hyper" else [streams]
+        groups = streams if cfg.rate.mode in ("H_hyper", "H_spatial") \
+            else [streams]
         total_bytes += sum(len(s) for grp in groups for s in grp)
         n += len(z)
     if n == 0:

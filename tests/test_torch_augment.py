@@ -1,5 +1,5 @@
 """The affine augmentations and the image datasets' batches on the port
-against the JAX package.
+against the JAX package (the STL10 half: tests/test_torch_stl10_augment.py).
 
 `jax.random` and torch draw different numbers, so each augmentation is
 split into a draw and an apply: the tests draw with JAX's keys, exactly as
@@ -49,11 +49,12 @@ def _jax_draws(key, shape, degrees=0.0, translate=(0.0, 0.0),
             for k, v in d.items()}
 
 
-def _augmenter_draws(key, shape, equivalence) -> dict:
-    """JAX `make_augmenter(equivalence)(key, batch)`'s draws: the merged
+def _augmenter_draws(key, shape, equivalence) -> list:
+    """JAX `make_augmenter(equivalence)(key, batch)`'s draws, as the
+    port's chain takes them (a list, one draw a member): the merged
     affine is its only function, keyed by the first of one split."""
     (k,) = jax.random.split(key, 1)
-    return _jax_draws(k, shape, **_merged_kwargs(equivalence))
+    return [_jax_draws(k, shape, **_merged_kwargs(equivalence))]
 
 
 def _merged_kwargs(equivalence) -> dict:
@@ -71,7 +72,7 @@ def test_each_affine_augmentation_matches_jax(name):
     assert got.shape == want.shape
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
     # the port's affine of the same name has JAX's ranges
-    aff = taug.make_augmenter([name])
+    (aff,) = taug.make_augmenter([name]).members
     merged = _merged_kwargs([name])
     assert (aff.degrees, tuple(aff.translate), tuple(aff.scale), aff.shear) \
         == (merged["degrees"], tuple(merged["translate"]),
@@ -99,7 +100,7 @@ def test_make_augmenter_matches_jax(equivalence):
 def test_the_ports_draws_keep_jaxs_ranges():
     aug = taug.make_augmenter(MNIST_EQ)
     n, h, w = 20000, 32, 28
-    d = aug.draw(torch.Generator().manual_seed(0), (n, h, w, 1))
+    (d,) = aug.draw(torch.Generator().manual_seed(0), (n, h, w, 1))
     bounds = {"angle": np.deg2rad(45.0), "tx": 0.25 * w, "ty": 0.25 * h,
               "shear": np.deg2rad(25.0)}
     for k, lim in bounds.items():
@@ -111,16 +112,20 @@ def test_the_ports_draws_keep_jaxs_ranges():
     # an identity draw leaves the images as they are
     x = torch.from_numpy(_batch((3, h, w, 2), 4))
     ident = {k: torch.zeros(3) for k in bounds} | {"scale": torch.ones(3)}
-    np.testing.assert_allclose(aug.apply(x, ident).numpy(), x.numpy(),
+    np.testing.assert_allclose(aug.apply(x, [ident]).numpy(), x.numpy(),
                                atol=1e-5)
 
 
 def test_available_augmentations_and_what_is_not_ported():
+    """Every name JAX takes is ported: a non-affine one chains after the
+    merged affine (the STL10 half; tests/test_torch_stl10_augment.py holds
+    each to JAX); an unknown name raises."""
     assert taug.available_augmentations() == jaug.available_augmentations()
     for name in ("hflip", "vflip", "D4_group", "color", "gray",
                  "resize_crop", "erasing"):
-        with pytest.raises(NotImplementedError, match="queue 1 order 4"):
-            taug.make_augmenter(["rotation", name])
+        aug = taug.make_augmenter([name, "rotation"])
+        assert aug.members == (taug._merged_affine(["rotation"]),
+                               taug._REGISTRY[name])
     with pytest.raises(KeyError):
         taug.make_augmenter(["no_such"])
 
@@ -191,12 +196,29 @@ def test_batches_augment_with_the_epochs_generator():
 
 
 def test_label_equivalence_waits_for_the_stl10_half():
-    ds = timages.ImageDataset(name="mnist", synthetic=True, synthetic_n=40,
-                              label_equivalence={"scale": (0.5, 1.0)})
-    with pytest.raises(NotImplementedError, match="queue 1 order 4"):
-        next(ds.batches(4))
+    """The STL10 half is ported: MNIST's batches with a
+    `label_equivalence` are warped, then cropped jointly with their
+    labels (`build` on the epoch generator's draws); an unknown key of
+    the equivalence's kwargs raises; without augmentation the batch is
+    raw."""
+    ds = timages.ImageDataset(
+        name="mnist", synthetic=True, synthetic_n=40,
+        label_equivalence={"invariant_scale": (0.5, 1.0), "p": 1.0})
+    x, y, aux = next(ds.batches(4, seed=2))
+    assert x.shape == (4, 32, 32, 1)
+    order = np.random.default_rng(2).permutation(len(ds))[:4]
+    raw = torch.from_numpy(ds.data[order]).float() / 255.0
+    g = torch.Generator().manual_seed(2)
+    want = ds.build(raw, torch.from_numpy(ds.targets[order]),
+                    *ds.draws(g, raw.shape))
+    assert torch.equal(want[0], x) and torch.equal(want[1], y)
+    assert torch.equal(aux, raw)
+    bad = timages.ImageDataset(name="mnist", synthetic=True, synthetic_n=40,
+                               label_equivalence={"scale": (0.5, 1.0)})
+    with pytest.raises(TypeError):
+        next(bad.batches(4))
     ds.is_augment = False
-    assert next(ds.batches(4))[0].shape == (4, 32, 32, 1)
+    assert torch.equal(next(ds.batches(4, seed=2))[0], raw)
 
 
 # ---------------------------------------------------------------------------

@@ -364,8 +364,13 @@ def test_hyperprior_sizes_and_modes():
         16, trates.RateConfig(mode="H_hyper", is_pred_mean=False))
     assert small.z_encoder.Dense_0.kernel.shape == (10, 256)
     assert small.z_encoder.Dense_2.kernel.shape == (256, 16)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        trates.make_rate_estimator(8, trates.RateConfig(mode="H_spatial"))
+    spatial = trates.make_rate_estimator(
+        64, trates.RateConfig(mode="H_spatial", n_channels=4))
+    assert isinstance(spatial, trates.HRateHyperpriorSpatial)
+    assert spatial.side_dim == 4 and spatial.inner.side_z_dim == 10
+    with pytest.raises(ValueError, match="square"):
+        trates.make_rate_estimator(
+            8, trates.RateConfig(mode="H_spatial", n_channels=4))
     assert isinstance(trates.make_rate_estimator(
         8, trates.RateConfig(mode="MI")), trates.MIRate)
     assert isinstance(trates.make_rate_estimator(
@@ -634,8 +639,13 @@ def test_flatten_modules_and_activations_match_flax():
             tlayers.get_activation(name)(torch.from_numpy(x)).numpy(),
             np.asarray(jlayers.get_activation(name)()(jnp.asarray(x))),
             rtol=1e-5, atol=1e-6, err_msg=name)
-    with pytest.raises(NotImplementedError, match="BALLE"):
-        tlayers.get_activation("gdn")
+    # GDN is a factory of modules, as JAX's (tests/test_torch_balle_spatial.py
+    # holds it to flax)
+    for inverse in (False, True):
+        gdn = tlayers.get_activation("gdn", inverse=inverse)(3)
+        assert isinstance(gdn, tlayers.GDN) and gdn.inverse == inverse
+        assert isinstance(jlayers.get_activation("gdn", inverse)(),
+                          jlayers.GDN)
     # kaiming uniform: U(-sqrt(6 / fan_in), +sqrt(6 / fan_in))
     k = tlayers.KAIMING_UNIFORM((600, 50), torch.Generator().manual_seed(0))
     assert k.abs().max() <= (6 / 600) ** 0.5

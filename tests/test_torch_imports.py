@@ -81,6 +81,9 @@ NEW_MODULES = [
     "lossyless_tpu_torch.nn.cnn",
     "lossyless_tpu_torch.nn.pretrained",
     "lossyless_tpu_torch.data.augmentations",
+    # slice 12: the STL10 experiments (BALLE, GDN, the spatial hyperprior
+    # live in nn/cnn.py, nn/layers.py and compressors/rates.py)
+    "lossyless_tpu_torch.data.label_augment",
 ]
 
 

@@ -39,6 +39,7 @@ from lossyless_tpu.pipeline import run as jrun
 from lossyless_tpu.train import state as jstate
 from lossyless_tpu_torch.compressors import compressor as tcomp
 from lossyless_tpu_torch.compressors import rates as trates
+from lossyless_tpu_torch.data import augmentations as taug
 from lossyless_tpu_torch.data import images as timages
 from lossyless_tpu_torch.data.balancing import PETS37_BALANCING_WEIGHTS
 from lossyless_tpu_torch.data.features import FeaturesDataset
@@ -98,9 +99,14 @@ def test_image_batches_match_jax(split, at, norm, drop_last):
 
 
 def test_augmentation_raises_and_names_the_queue():
+    """STL10's augmentations are ported (its batches are augmented by the
+    default chain); the imagenet module still raises naming its item."""
     ds = timages.ImageDataset(name="stl10", synthetic=True, synthetic_n=16)
-    with pytest.raises(NotImplementedError, match="queue 1 order 4"):
-        next(ds.batches(4))
+    x, _, raw = next(ds.batches(4))
+    assert x.shape == raw.shape == (4, 96, 96, 3)
+    assert not torch.allclose(x, raw)
+    assert ds.augmenter() == taug.make_augmenter(
+        ("hflip", "resize_crop", "color", "gray"))
     with pytest.raises(NotImplementedError, match="queue 1 item 9"):
         timages.get_datamodule("imagenet")
 

@@ -229,16 +229,20 @@ def test_detached_rate_is_one_likelihood_with_live_z_hat():
 
 
 def test_unported_modes_raise_and_name_the_queue():
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        trates.make_rate_estimator(4, trates.RateConfig(mode="H_spatial"))
-    # the image data mode on the BALLE decoder (order 5)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        tdist.make_distortion_estimator(
-            tdist.DistortionConfig(arch="balle"), 4, (32, 32, 3))
+    """H_spatial and the image mode on the BALLE decoder are ported
+    (tests/test_torch_balle_spatial.py); the pretrained towers and their
+    presets, and galaxy_regression, still raise naming their items."""
+    assert isinstance(trates.make_rate_estimator(
+        16, trates.RateConfig(mode="H_spatial", n_channels=4)),
+        trates.HRateHyperpriorSpatial)
+    dist = tdist.make_distortion_estimator(
+        tdist.DistortionConfig(arch="balle"), 16, (32, 32, 3))
+    assert type(dist.q_YlZ).__name__ == "BalleDecoder"
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
         registry.get_architecture("clip_rn50", (32, 32, 3), 8)
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        tconfig.preset("stl10_bince")
+    for name in ("ssl_bottleneck_pretrain", "galaxy_regression"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+            tconfig.preset(name)
 
 
 @pytest.mark.parametrize("p_norm", [1.0, 2.0])
@@ -326,8 +330,8 @@ def test_config_presets_and_overrides_match_jax():
         assert t.long_name == j.long_name
     assert tconfig.available_presets() == [
         n for n in jconfig.available_presets()
-        if n.startswith(("banana", "clip_", "mnist", "augmnist"))]
-    assert len(tconfig.available_presets()) == 18
+        if n.startswith(("banana", "clip_", "mnist", "augmnist", "stl10"))]
+    assert len(tconfig.available_presets()) == 24
 
 
 # ---------------------------------------------------------------------------
