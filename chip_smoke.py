@@ -214,12 +214,39 @@ non-zero without printing a result:
    `stl10_action_dist_shift` through the experiment CLI in a subprocess.
    Every run writes the three stages' metrics, all finite; the phase
    prints its wall time;
+15. the SSL towers (`SSL_REDUCED` lists the cuts):
+   `ssl_bottleneck_pretrain` at full width (CLIP's ModifiedResNet-50:
+   width 64, (3, 4, 6, 3), 32 heads, 224 px, z = 1024, fp32, `H_hyper`
+   with K3 on its (128, 204) side latent) through `run_featurizer`, its
+   tower loaded through `encoder.pretrained_path` from a seeded
+   OpenAI-layout fp16 `.pt`: 20 steps at batch 128 (median step ms,
+   img/s, peak device memory, finite logs; launches a step asserted: K2
+   1 as the attention pool, K3 1, its backward 1, K1, K4, K5a, K5b 0), a
+   profile of 3 steps (idle share, device kernels a step, device ms by
+   group), 3 steps from the same weights and noise on the kernels and on
+   the plain K2 and K3 (loss, rate, distortion within rtol 1e-2),
+   `run_communication` over 4 x 256 images with the `HyperpriorCoder`
+   decode equal to the host dequantize to 1e-5; `simclr` and `swav`
+   (ResNet-50, z = 2048, K3 at (128, 409)) 3 steps each from seeded
+   torchvision-layout files under the `encoder.` and `module.` prefixes
+   (K3 and its backward once a step, nothing else); `main(preset(
+   "ssl_bottleneck_linear_eval"))` at the preset's bf16 on synthetic
+   STL10 at 96 px (the pool's pe resampled 7 -> 3; K2 once a tower
+   forward at N = 10; the three sentinels, a finite probe accuracy, the
+   exported tower's parameters equal to the loaded weights bit for bit);
+   `ssl_bottleneck_mlp_eval` through the experiment CLI; CLIP's text
+   tower (`featurize_captions`, bf16, CLIP's widths) on 1,024 seeded
+   token rows in batches of 256 (captions/s; 8 rows within 2e-2 of the
+   largest entry of the same tower's fp32 output on the card). Phase 3
+   checks and times K2 at the pool's shapes ((128, 50 / 10, 32, 64) in
+   fp32 and bf16; times in fp32) and prints the ptxas line of its fp32
+   16-byte instantiation; phase 3b K3 at (128, 204) and (128, 409);
 7. the `kernels` JSON line (K1-K4, K3's backward, K5a, K5b; with
    `device_ms` and `bound_share`, K1/K2 also at batch 256 and at N = 10,
-   K3 also at the banana, image and STL10 shapes, K1's design, its
-   float64 readings and its designs side by side, the launches on phase
-   11's, 12's, 13's and 14's paths, and the registers and spills of
-   every kernel) and, last,
+   K2 at the RN50 pool's shapes, K3 also at the banana, image, STL10 and
+   ssl shapes, K1's design, its float64 readings and its designs side by
+   side, the launches on phase 11's, 12's, 13's, 14's and 15's paths,
+   and the registers and spills of every kernel) and, last,
    `{"ok": true, "device": {...}}`.
 
 It needs a CUDA card and the repository around it: with no card, or run
@@ -416,7 +443,14 @@ K2_CHECKS = [
     (3, 50, 12, 64, "bfloat16", 2e-2, {"unaligned": True}),
     (128, 10, 12, 64, "bfloat16", 2e-2, {}),      # the 96 px presets
     (256, 10, 12, 64, "bfloat16", 2e-2, {}),
+    # the ssl presets' RN50 attention pool at batch 128: 224 px (N = 50)
+    # and 96 px (N = 10), fp32 and bf16 (trainer.precision)
+    (128, 50, 32, 64, "float32", 1e-5, {}),
+    (128, 10, 32, 64, "float32", 1e-5, {}),
+    (128, 50, 32, 64, "bfloat16", 2e-2, {}),
+    (128, 10, 32, 64, "bfloat16", 2e-2, {}),
 ]
+RN50_POOL = dict(B=128, heads=32, d=64, Ns=(50, 10))   # phase 3's K2 timing
 PIPELINE_N, PIPELINE_BATCHES = 10, (128, 256)   # phase 11's attention
 
 
@@ -655,6 +689,14 @@ def check_kernels():
                 if name == "fused_attention":
                     row.update(k1_float64_check(B, PIPELINE_N, h, d))
                 results[name][f"at_n{PIPELINE_N}_b{B}"] = row
+        # the ssl presets' RN50 attention pool (phase 15), fp32
+        pool = RN50_POOL
+        for N in pool["Ns"]:
+            results["fused_attention_cls"][f"rn50_pool_n{N}_fp32"] = \
+                time_attention("fused_attention_cls", k2_inputs,
+                               fa.fused_attention_cls, fa.attention_cls_plain,
+                               pool["B"], N, pool["heads"], pool["d"],
+                               "float32")
     return results
 
 
@@ -736,32 +778,34 @@ def k1_float64_and_designs(lib, B, N, h, d) -> dict:
                 float64=check, designs=designs)
 
 
-def time_attention(name, make, kernel, plain, B, N, h, d) -> dict:
-    """K1's or K2's times at (B, N, h, d) bf16: the kernel's CUDA-event and
-    device-only time, its plain version's, SDPA's (both clocks), the bound
-    and the share of it reached."""
+def time_attention(name, make, kernel, plain, B, N, h, d,
+                   dtype: str = "bfloat16") -> dict:
+    """K1's or K2's times at (B, N, h, d) in `dtype`: the kernel's
+    CUDA-event and device-only time, its plain version's, SDPA's (both
+    clocks), the bound and the share of it reached."""
     import torch
     import torch.nn.functional as F
 
     from lossyless_tpu_torch.nn import flash_attn as fa
 
-    args = make(B, N, h, d, torch.bfloat16, seed=100)
+    dt = getattr(torch, dtype)
+    size = dt.itemsize
+    args = make(B, N, h, d, dt, seed=100)
     D = h * d
     if name == "fused_attention":
         (qkv,) = args
         q, k, v = (t.view(B, N, h, d).transpose(1, 2)
                    for t in qkv.split(D, dim=-1))
-        nbytes = qkv.numel() * 2 + B * N * D * 2
+        nbytes = qkv.numel() * size + B * N * D * size
         flops = 4 * B * h * N * N * d
         # the kernel of the design K1's plan picks: the only one it runs
-        match = (DESIGN_KERNELS[fa.k1_plan(B, N, h, d,
-                                           torch.bfloat16).design],)
+        match = (DESIGN_KERNELS[fa.k1_plan(B, N, h, d, dt).design],)
     else:
         q0, kv = args
         q = q0.view(B, 1, h, d).transpose(1, 2)
         k, v = (t.view(B, N, h, d).transpose(1, 2)
                 for t in kv.split(D, dim=-1))
-        nbytes = q0.numel() * 2 + kv.numel() * 2 + B * D * 2
+        nbytes = q0.numel() * size + kv.numel() * size + B * D * size
         flops = 4 * B * h * N * d
         match = ("k2_attention_kernel",)
     ms = median_ms(lambda: kernel(*args, h))
@@ -770,12 +814,14 @@ def time_attention(name, make, kernel, plain, B, N, h, d) -> dict:
     sdpa = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
     library_ms = median_ms(sdpa)
     library_dev_ms = device_ms(sdpa)
-    bound_ms, bound_by = bound(nbytes, flops, "bfloat16")
+    bound_ms, bound_by = bound(nbytes, flops, dtype)
     row = dict(B=B, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                bound_ms=bound_ms, bound_by=bound_by,
                bound_share=bound_share(bound_ms, dev_ms or ms),
                library_ms=library_ms, library_device_ms=library_dev_ms)
-    print(f"time {name} B={B} N={N} h={h} d={d} bf16: kernel {ms!r} ms "
+    if dtype != "bfloat16":
+        row.update(N=N, heads=h, d=d, dtype=dtype)
+    print(f"time {name} B={B} N={N} h={h} d={d} {dtype}: kernel {ms!r} ms "
           f"(device {dev_ms!r} ms), plain {plain_ms!r} ms, sdpa "
           f"{library_ms!r} ms (device {library_dev_ms!r} ms), bound "
           f"{bound_ms!r} ms ({bound_by}: {nbytes} bytes, {flops} flop), "
@@ -1390,15 +1436,19 @@ K3_CHECKS = [(TRAIN_BATCH, 512, (3, 3, 3, 3)), (37, 13, (3, 3, 3)),
              # the STL10 path: stl10_balle's side latent, 64 images x 8 x 8
              # positions folded into rows (one cluster owns every row),
              # and stl10_bince's factorized z = 128 at batch 256
-             (4096, 25, (3, 3, 3)), (256, 128, (3, 3, 3))]
+             (4096, 25, (3, 3, 3)), (256, 128, (3, 3, 3)),
+             # the ssl path's side latent at batch 128: z = 1024 (CLIP
+             # RN50) -> 204 channels, z = 2048 (SimCLR / SwAV) -> 409
+             (TRAIN_BATCH, 204, (3, 3, 3)), (TRAIN_BATCH, 409, (3, 3, 3))]
 BANANA_K3 = K3_CHECKS[4:6]
 IMAGE_K3 = K3_CHECKS[6:7]
 STL10_K3 = K3_CHECKS[7:9]
+SSL_K3 = K3_CHECKS[9:11]
 # the |x| tie (ROADMAP queue 3 item 7): one channel, widths (1, 1),
 # matrix0 = -30, bias0 = 1, z = 0; JAX's d(-log lik) / d matrix0
 K3_TIE_GRAD = 1.8398e-5
 K3_BWD_CHECKS = K3_CHECKS[:7] + [(TRAIN_BATCH, 102, (3, 3, 3, 3))] + \
-    STL10_K3
+    STL10_K3 + SSL_K3
 
 
 def k3_design(filters) -> str:
@@ -1587,6 +1637,14 @@ def check_k3() -> dict:
         fwd_t, bwd_t = time_k3_at(Bs, Cs, fs, seed=400 + i)
         results["eb_likelihood"]["stl10_shapes"][f"{Bs}x{Cs}"] = fwd_t
         results["eb_likelihood_bwd"]["stl10_shapes"][f"{Bs}x{Cs}"] = bwd_t
+
+    # the ssl path's side latents
+    results["eb_likelihood"]["ssl_shapes"] = {}
+    results["eb_likelihood_bwd"]["ssl_shapes"] = {}
+    for i, (Bs, Cs, fs) in enumerate(SSL_K3):
+        fwd_t, bwd_t = time_k3_at(Bs, Cs, fs, seed=500 + i)
+        results["eb_likelihood"]["ssl_shapes"][f"{Bs}x{Cs}"] = fwd_t
+        results["eb_likelihood_bwd"]["ssl_shapes"][f"{Bs}x{Cs}"] = bwd_t
     results["eb_likelihood_bwd"]["tie"] = check_k3_tie()
 
     # the backward: the wrapper's launch, its plain version, and the eager
@@ -3364,6 +3422,494 @@ def stl10_path(card: str) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the SSL towers (CLIP RN50 with K2 as its pool, SimCLR / SwAV)
+# ---------------------------------------------------------------------------
+
+
+def _seeded(seed: int):
+    """A normal draw of a shape from a CPU generator seeded with `seed`."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+
+    def r(*shape, std=0.05):
+        return torch.randn(shape, generator=g) * std
+
+    return g, r
+
+
+def _bn_entries(name: str, c: int, r, g) -> dict:
+    """torch BatchNorm2d's entries: weight, bias, running statistics (var
+    in [0.5, 1.5]) and the batch counter torch saves beside them."""
+    import torch
+
+    return {f"{name}.weight": 1 + r(c, std=0.1), f"{name}.bias": r(c),
+            f"{name}.running_mean": r(c, std=0.1),
+            f"{name}.running_var": 0.5 + torch.rand(c, generator=g),
+            f"{name}.num_batches_tracked": torch.tensor(100)}
+
+
+def openai_rn50_state_dict(width: int = 64, layers=(3, 4, 6, 3),
+                           out_dim: int = 1024, grid: int = 7,
+                           seed: int = 0, prefix: str = "visual.",
+                           dtype=None) -> dict:
+    """A seeded OpenAI CLIP ModifiedResNet state dict (`clip.load("RN50")`
+    layout: 3-conv stem, `layer{i}.{j}` bottlenecks with a `downsample.0`
+    conv and `downsample.1` BatchNorm, `attnpool` over 1 + grid^2 tokens),
+    under `prefix`, in `dtype` (fp16 as CLIP ships it where given)."""
+    g, r = _seeded(seed)
+    embed = width * 32
+    sd = {}
+    half = width // 2
+    for i, (cin, cout) in enumerate(((3, half), (half, half), (half, width)),
+                                    start=1):
+        sd[f"conv{i}.weight"] = r(cout, cin, 3, 3, std=(2 / (9 * cin)) ** .5)
+        sd.update(_bn_entries(f"bn{i}", cout, r, g))
+    cin = width
+    for i, n in enumerate(layers):
+        planes = width * 2 ** i
+        for j in range(n):
+            t = f"layer{i + 1}.{j}"
+            for k, (a, b, kk) in enumerate(((planes, cin, 1),
+                                            (planes, planes, 3),
+                                            (planes * 4, planes, 1)),
+                                           start=1):
+                sd[f"{t}.conv{k}.weight"] = r(a, b, kk, kk,
+                                              std=(1 / (kk * kk * b)) ** .5)
+                sd.update(_bn_entries(f"{t}.bn{k}", a, r, g))
+            if j == 0:   # stride 2 or a change of width
+                sd[f"{t}.downsample.0.weight"] = r(planes * 4, cin, 1, 1,
+                                                   std=cin ** -.5)
+                sd.update(_bn_entries(f"{t}.downsample.1", planes * 4, r, g))
+            cin = planes * 4
+    sd["attnpool.positional_embedding"] = r(grid * grid + 1, embed,
+                                            std=embed ** -.5)
+    for name, cout in (("q_proj", embed), ("k_proj", embed),
+                       ("v_proj", embed), ("c_proj", out_dim)):
+        sd[f"attnpool.{name}.weight"] = r(cout, embed, std=embed ** -.5)
+        sd[f"attnpool.{name}.bias"] = r(cout)
+    return {prefix + k: (v.to(dtype) if dtype is not None
+                         and v.is_floating_point() else v)
+            for k, v in sd.items()}
+
+
+def torchvision_resnet50_state_dict(seed: int = 0, prefix: str = "") -> dict:
+    """A seeded torchvision ResNet-50 state dict (the SimCLR / SwAV
+    backbones' layout, `fc` included) under `prefix`."""
+    g, r = _seeded(seed)
+    sd = {"conv1.weight": r(64, 3, 7, 7, std=(2 / 147) ** .5)}
+    sd.update(_bn_entries("bn1", 64, r, g))
+    cin = 64
+    for i, n in enumerate((3, 4, 6, 3)):
+        planes = 64 * 2 ** i
+        for j in range(n):
+            t = f"layer{i + 1}.{j}"
+            for k, (a, b, kk) in enumerate(((planes, cin, 1),
+                                            (planes, planes, 3),
+                                            (planes * 4, planes, 1)),
+                                           start=1):
+                sd[f"{t}.conv{k}.weight"] = r(a, b, kk, kk,
+                                              std=(1 / (kk * kk * b)) ** .5)
+                sd.update(_bn_entries(f"{t}.bn{k}", a, r, g))
+            if j == 0:
+                sd[f"{t}.downsample.0.weight"] = r(planes * 4, cin, 1, 1,
+                                                   std=cin ** -.5)
+                sd.update(_bn_entries(f"{t}.downsample.1", planes * 4, r, g))
+            cin = planes * 4
+    sd["fc.weight"] = r(1000, 2048, std=2048 ** -.5)
+    sd["fc.bias"] = r(1000)
+    return {prefix + k: v for k, v in sd.items()}
+
+
+def openai_clip_text_state_dict(vocab: int = 49408, context: int = 77,
+                                width: int = 512, layers: int = 12,
+                                out_dim: int = 512, seed: int = 0,
+                                dtype=None) -> dict:
+    """A seeded OpenAI CLIP text-tower state dict (`token_embedding`,
+    `transformer.resblocks.{i}`, `ln_final`, `text_projection`)."""
+    _, r = _seeded(seed)
+    w = width
+    sd = {"token_embedding.weight": r(vocab, w, std=0.02),
+          "positional_embedding": r(context, w, std=0.01),
+          "ln_final.weight": 1 + r(w), "ln_final.bias": r(w),
+          "text_projection": r(w, out_dim, std=w ** -.5)}
+    for i in range(layers):
+        p = f"transformer.resblocks.{i}"
+        sd.update({
+            f"{p}.ln_1.weight": 1 + r(w), f"{p}.ln_1.bias": r(w),
+            f"{p}.ln_2.weight": 1 + r(w), f"{p}.ln_2.bias": r(w),
+            f"{p}.attn.in_proj_weight": r(3 * w, w, std=w ** -.5),
+            f"{p}.attn.in_proj_bias": r(3 * w),
+            f"{p}.attn.out_proj.weight": r(w, w, std=w ** -.5),
+            f"{p}.attn.out_proj.bias": r(w),
+            f"{p}.mlp.c_fc.weight": r(4 * w, w, std=w ** -.5),
+            f"{p}.mlp.c_fc.bias": r(4 * w),
+            f"{p}.mlp.c_proj.weight": r(w, 4 * w, std=(4 * w) ** -.5),
+            f"{p}.mlp.c_proj.bias": r(w)})
+    return {k: v.to(dtype) if dtype is not None else v for k, v in sd.items()}
+
+
+# ssl_bottleneck_pretrain at full width (ModifiedRN50: width 64, (3, 4, 6,
+# 3), 32 heads, 224 px, z = 1024) in fp32: `preset()` makes every
+# non-banana preset bf16; the pool's fp32 path is the one K2 gains here
+SSL_OVERRIDES = ["rate.eb_use_pallas=True", "trainer.precision=fp32",
+                 "trainer.log_every=5"]
+SSL_PLAIN = ["rate.eb_use_pallas=False",
+             "encoder.arch_kwargs.attn_impl=einsum"]
+SSL_STEPS, SSL_AB_STEPS, SSL_PROFILE_STEPS, SSL_TOWER_STEPS = 20, 3, 3, 3
+SSL_SIDE = 224
+# ssl_bottleneck_linear_eval through main (the preset's bf16) on
+# synthetic STL10 at 96 px: the pool at N = 10, its pe resampled 7 -> 3
+SSL_EVAL = ["rate.eb_use_pallas=True", "data_feat.name=stl10",
+            "data_feat.kwargs.synthetic=True",
+            "data_feat.kwargs.synthetic_n=4096", "data_feat.n_epochs=2",
+            "predictor.n_epochs=2", "trainer.log_every=10",
+            "data_pred.name=stl10"]
+SSL_CLI = ["rate.eb_use_pallas=True", "data_feat.name=stl10",
+           "data_feat.kwargs.synthetic=True",
+           "data_feat.kwargs.synthetic_n=1024", "data_feat.n_epochs=1",
+           "predictor.n_epochs=1", "data_pred.name=stl10"]
+TEXT_ROWS, TEXT_BATCH, TEXT_CHECK_ROWS = 1024, 256, 8
+SSL_TOWER = {}   # the seeded checkpoint's sizes (a CPU rehearsal cuts them)
+SSL_REDUCED = {
+    "ssl_bottleneck_pretrain": "20 steps (and 3 + 3 for the plain A/B, 3 "
+                               "profiled) at batch 128 on seeded random "
+                               "normalized 224 px images of the recipe's 30 "
+                               "COCO epochs (COCO is not in the checkout); "
+                               "fp32 (the preset's default is bf16)",
+    "simclr, swav": "3 steps each of the same preset at z = 2048",
+    "weights": "seeded random, in the public layouts (OpenAI RN50 fp16, "
+               "torchvision ResNet-50), loaded through "
+               "encoder.pretrained_path; no published checkpoint is in the "
+               "checkout",
+    "ssl_bottleneck_linear_eval": "data_feat and data_pred set to STL10 "
+                                  "(the recipe's COCO is not in the "
+                                  "checkout): 4,096 seeded synthetic 96 px "
+                                  "images, 2 of 30 featurizer and 2 of 20 "
+                                  "probe epochs",
+    "ssl_bottleneck_mlp_eval": "the experiment CLI's --dev on 1,024 "
+                               "synthetic STL10 images",
+    "text tower": "1,024 seeded token rows (COCO's captions are not in the "
+                  "checkout)",
+    "widths": "none cut: ModifiedRN50 (width 64, (3, 4, 6, 3), 32 heads, "
+              "the pool 2048 wide with 50 tokens at 224 px and 10 at 96 "
+              "px, out 1024), ResNet-50 (out 2048), z = 1024 / 2048 with "
+              "H_hyper's side latent (128, 204) / (128, 409); the text "
+              "tower at CLIP's (vocab 49,408, context 77, width 512, 12 "
+              "layers, 8 heads, bf16)"}
+
+
+class CountTowerForwards:
+    """Counts the ModifiedRN50 tower's forwards (each launches K2 once)."""
+
+    def __enter__(self):
+        from lossyless_tpu_torch.nn.clip_resnet import ClipResNet
+
+        self.n, self.saved = 0, ClipResNet.forward
+
+        def forward(module, x, **kw):
+            self.n += 1
+            return self.saved(module, x, **kw)
+
+        ClipResNet.forward = forward
+        return self
+
+    def __exit__(self, *exc):
+        from lossyless_tpu_torch.nn.clip_resnet import ClipResNet
+
+        ClipResNet.forward = self.saved
+
+
+def ssl_images(n: int, seed: int, batch: int = TRAIN_BATCH):
+    """`train_images` at the ssl runs' side (224 px on the card)."""
+    import torch
+
+    from lossyless_tpu_torch.nn.vit import CLIP_MEAN, CLIP_STD
+
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    mean = torch.as_tensor(CLIP_MEAN, device=DEVICE)
+    std = torch.as_tensor(CLIP_STD, device=DEVICE)
+    return [((torch.rand(batch, SSL_SIDE, SSL_SIDE, 3, generator=g,
+                         device=DEVICE) - mean) / std,
+             torch.zeros(batch, device=DEVICE),
+             torch.zeros(batch, device=DEVICE)) for _ in range(n)]
+
+
+def ssl_path(card: str) -> dict:
+    """Phase 15: `ssl_bottleneck_pretrain` at full width with its tower
+    from a seeded OpenAI-layout `.pt` (K2 as the attention pool, K3 on the
+    side latent): 20 steps through `run_featurizer`, a profile, 3 steps on
+    the plain K2 and K3 against the kernels', `run_communication`;
+    `simclr` / `swav` from seeded torchvision-layout files; then
+    `ssl_bottleneck_linear_eval` through `main` and
+    `ssl_bottleneck_mlp_eval` through the experiment CLI; and the CLIP
+    text tower's `featurize_captions`. Returns the launch counts of the
+    phase's runs on the kernels."""
+    import torch
+
+    from lossyless_tpu_torch.compressors.rates import HyperpriorCoder
+    from lossyless_tpu_torch.nn import clip_text
+    from lossyless_tpu_torch.nn.pretrained import load_pretrained_encoder
+    from lossyless_tpu_torch.pipeline import config, run
+    from lossyless_tpu_torch.train.checkpoints import load_weights
+
+    t_phase = time.perf_counter()
+    precision = matmul_precision()
+    out = dict(card=card, reduced=SSL_REDUCED, matmul_precision=precision)
+    total = {}
+
+    def record(key, value):
+        out[key] = value
+        print(json.dumps({f"ssl_path_{key}": value}), flush=True)
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    keys = ("loss", "rate", "H_q_S", "H_q_ZlS", "distortion")
+    with tempfile.TemporaryDirectory() as tmp:
+        rn50 = Path(tmp) / "RN50.pt"   # OpenAI's layout: fp16, visual.*
+        torch.save(openai_rn50_state_dict(seed=31, dtype=torch.float16,
+                                          **SSL_TOWER), rn50)
+        cfg = config.apply_overrides(config.preset(
+            "ssl_bottleneck_pretrain"), SSL_OVERRIDES + [
+            f"encoder.pretrained_path={rn50}", f"out_dir={tmp}/out"])
+        cfg.in_shape = (SSL_SIDE, SSL_SIDE, 3)
+        batches = ssl_images(SSL_STEPS + SSL_PROFILE_STEPS, seed=41)
+
+        # 15a. 20 steps on the kernels, the launches counted
+        step_s, last, t_prev = [], {}, [0.0]
+
+        def on_step(step, state, logs):
+            sync()
+            now = time.perf_counter()
+            step_s.append(now - t_prev[0])
+            t_prev[0] = now
+            last.update(logs)
+
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t_prev[0] = time.perf_counter()
+        state = run.run_featurizer(cfg, batches[:SSL_STEPS],
+                                   total_steps=SSL_STEPS, on_step=on_step,
+                                   log=lambda _: None, device=DEVICE)
+        launches = read_launches()
+        per_step = {k: v / SSL_STEPS for k, v in launches.items()}
+        want = {**dict.fromkeys(launches, 0), "fused_attention_cls": 1,
+                "eb_likelihood": 1, "eb_likelihood_bwd": 1}
+        if per_step != want:
+            raise AssertionError(f"ssl launches per step {per_step}, "
+                                 f"expected {want}")
+        add(launches)
+        logs = {k: float(last[k]) for k in keys}
+        if not all(np.isfinite(v) for v in logs.values()):
+            raise AssertionError(f"non-finite ssl training logs {logs}")
+        pool = state.model.p_ZlX.mapper.attnpool
+        step_ms = float(np.median(step_s[2:])) * 1e3
+        record("training", dict(
+            preset="ssl_bottleneck_pretrain", batch=TRAIN_BATCH,
+            steps=SSL_STEPS, pool_tokens=pool.positional_embedding.shape[0],
+            tower_dtype=str(state.model.p_ZlX.mapper.dtype),
+            side_z_dim=state.model.rate_estimator.side_z_dim,
+            step_ms_median=step_ms, step_ms_all=[t * 1e3 for t in step_s],
+            img_per_s=TRAIN_BATCH / (step_ms / 1e3),
+            peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+            final_logs=logs, launches_per_step=per_step))
+
+        # 15b. where a step's device time goes
+        init = {k: v.clone() for k, v in state.model.state_dict().items()}
+        prof = device_profile(
+            lambda: run.run_featurizer(cfg, batches[SSL_STEPS:], state=state,
+                                       log=lambda _: None, device=DEVICE),
+            card, steps=SSL_PROFILE_STEPS, batch=TRAIN_BATCH)
+        record("profile", prof)
+
+        # 15c. 3 steps from the same weights and noise on the kernels and
+        # on the plain K2 and K3
+        rows = {}
+        for name, extra in (("kernels", []), ("plain", SSL_PLAIN)):
+            c = config.apply_precision(config.apply_overrides(cfg, extra))
+            ab = run.build_state(c, SSL_AB_STEPS, device=DEVICE)
+            ab.model.load_state_dict(init)
+            got = []
+            reset_launches()
+            run.run_featurizer(c, batches[:SSL_AB_STEPS], state=ab,
+                               log=lambda _: None, device=DEVICE,
+                               on_step=lambda st, s, lg: got.append(
+                                   {k: float(lg[k]) for k in keys}))
+            n = read_launches()
+            if (name == "plain") == any(n.values()):
+                raise AssertionError(f"the {name} A/B run launched {n}")
+            rows[name] = got
+        worst = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
+                    for a, b in zip(rows["kernels"], rows["plain"])
+                    for k in a)
+        record("kernels_vs_plain", dict(steps=SSL_AB_STEPS, **rows,
+                                        max_rel_diff=worst, tolerance=1e-2))
+        if not worst <= 1e-2:
+            raise AssertionError(f"ssl kernels vs plain logs differ by "
+                                 f"{worst}")
+
+        # 15d. the communication stage on the trained state
+        comm_batches = ssl_images(COMM_BATCHES, seed=43, batch=COMM_BATCH)
+        reset_launches()
+        m = run.run_communication(cfg, state, comm_batches, device=DEVICE)
+        add(read_launches())
+        coder = HyperpriorCoder(state.model.rate_estimator)
+        z0 = state.model.encode(comm_batches[0][0]).float().cpu().numpy()
+        decoded = coder.decompress(coder.compress(z0))
+        err = float(np.abs(decoded - coder.dequantize(
+            *coder.encode_symbols(z0))).max())
+        record("communication", dict(
+            batches=COMM_BATCHES, batch=COMM_BATCH,
+            n_bits=m["test/comm/n_bits"],
+            sender_ms_per_img=m["test/comm/sender_time"] * 1e3,
+            receiver_ms_per_img=m["test/comm/receiver_time"] * 1e3,
+            decode_vs_dequantize_max_abs_err=err, tolerance=1e-5))
+        if not err <= 1e-5 or not np.isfinite(m["test/comm/n_bits"]):
+            raise AssertionError(f"ssl communication: decode off by {err}")
+        del state, prof
+        gc.collect()
+
+        # 15e. simclr and swav from torchvision-layout files
+        for arch, prefix in (("simclr", "encoder."), ("swav", "module.")):
+            path = Path(tmp) / f"{arch}.pth"
+            torch.save({"state_dict": torchvision_resnet50_state_dict(
+                seed=37, prefix=prefix)}, path)
+            c = config.apply_overrides(cfg, [
+                f"encoder.arch={arch}", "encoder.z_dim=2048",
+                "encoder.arch_kwargs={}",
+                f"encoder.pretrained_path={path}"])
+            got = []
+            reset_launches()
+            st = run.run_featurizer(c, batches[:SSL_TOWER_STEPS],
+                                    log=lambda _: None, device=DEVICE,
+                                    on_step=lambda s, t, lg: got.append(
+                                        {k: float(lg[k]) for k in keys}))
+            n = read_launches()
+            per = {k: v / SSL_TOWER_STEPS for k, v in n.items()}
+            if per != {**dict.fromkeys(n, 0), "eb_likelihood": 1,
+                       "eb_likelihood_bwd": 1}:
+                raise AssertionError(f"{arch} launches per step {per}")
+            if not all(np.isfinite(v) for r in got for v in r.values()):
+                raise AssertionError(f"{arch}: non-finite logs {got}")
+            add(n)
+            record(arch, dict(prefix=prefix, steps=SSL_TOWER_STEPS,
+                              side_z_dim=st.model.rate_estimator.side_z_dim,
+                              logs=got, launches_per_step=per))
+            del st
+            gc.collect()
+
+        # 15f. ssl_bottleneck_linear_eval through main at 96 px
+        ev = config.apply_overrides(config.preset(
+            "ssl_bottleneck_linear_eval"), SSL_EVAL + [
+            f"encoder.pretrained_path={rn50}", f"out_dir={tmp}/eval/out",
+            f"ckpt_dir={tmp}/eval/ckpt"])
+        reset_launches()
+        with CountTowerForwards() as fw:
+            run_ = timed_main(ev, precision)
+        launches = read_launches()
+        if (launches["fused_attention_cls"] != fw.n or fw.n == 0
+                or any(v for k, v in launches.items()
+                       if not k.startswith(("eb_likelihood",
+                                            "fused_attention_cls")))
+                or not launches["eb_likelihood_bwd"]):
+            raise AssertionError(f"linear eval launches {launches} over "
+                                 f"{fw.n} tower forwards")
+        check_test_metrics(run_["metrics"], "ssl_bottleneck_linear_eval")
+        add(launches)
+        stage = Path(ev.stage_dir)
+        done = {s: (stage / f"{s}_end.txt").exists()
+                for s in ("featurizer", "communication", "predictor")}
+        exported = load_weights(Path(ev.ckpt_dir) / ev.long_name /
+                                "best_featurizer")
+        evc = config.apply_precision(copy.deepcopy(ev))
+        evc.in_shape = (96, 96, 3)
+        ref = run.build_state(evc, 0, device="cpu").model
+        load_pretrained_encoder(evc.encoder, ref)
+        ref_sd = ref.state_dict()
+        names = [n for n, _ in ref.named_parameters()
+                 if n.startswith("p_ZlX.")]
+        same = all(torch.equal(exported[n], ref_sd[n]) for n in names)
+        pool_tokens = ref.p_ZlX.mapper.attnpool.positional_embedding.shape[0]
+        run_.pop("logs")
+        record("linear_eval", dict(
+            run_, launches=launches, tower_forwards=fw.n,
+            pool_tokens=pool_tokens, tower_dtype=str(ref.p_ZlX.mapper.dtype),
+            sentinels=done, tower_equals_loaded_weights=same,
+            test_pred_acc=run_["metrics"].get("test/pred/acc")))
+        if not all(done.values()) or not same or pool_tokens != 10:
+            raise AssertionError(f"linear eval: sentinels {done}, tower "
+                                 f"equal {same}, pool tokens {pool_tokens}")
+
+        # 15g. ssl_bottleneck_mlp_eval through the experiment CLI
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "lossyless_tpu_torch.cli",
+             "ssl_bottleneck_mlp_eval", "-m", "--dev", *SSL_CLI,
+             f"out_dir={tmp}/cli/out", f"ckpt_dir={tmp}/cli/ckpt"],
+            capture_output=True, text=True, timeout=600, cwd=ROOT)
+        if cli.returncode:
+            raise AssertionError(f"the experiment CLI exited "
+                                 f"{cli.returncode}: {cli.stderr[-3000:]}")
+        jobs = [json.loads(line) for line in cli.stdout.splitlines()
+                if line.startswith('{"job"')]
+        if len(jobs) != 1:
+            raise AssertionError(f"the CLI printed {cli.stdout[-2000:]}")
+        check_test_metrics(jobs[0]["metrics"], "the CLI's job")
+        record("cli", dict(preset="ssl_bottleneck_mlp_eval",
+                           wall_s=time.perf_counter() - t0, jobs=jobs))
+
+    # 15h. the CLIP text tower at CLIP's widths, bf16, on the card
+    sd = clip_text.convert_openai_clip_text_weights(
+        openai_clip_text_state_dict(seed=47, dtype=torch.float16))
+    rng = np.random.default_rng(53)
+    ids = rng.integers(1, 49407, (TEXT_ROWS, 77))
+    for i, end in enumerate(rng.integers(5, 77, TEXT_ROWS)):
+        ids[i, end], ids[i, end + 1:] = 49407, 0
+    clip_text.featurize_captions(sd, ids[:TEXT_BATCH], TEXT_BATCH,
+                                 device=DEVICE)            # warm-up
+    sync()
+    t0 = time.perf_counter()
+    emb = clip_text.featurize_captions(sd, ids, TEXT_BATCH, device=DEVICE)
+    text_s = time.perf_counter() - t0
+    ref = clip_text.featurize_captions(sd, ids[:TEXT_CHECK_ROWS],
+                                       dtype=torch.float32, device=DEVICE)
+    err = float(np.abs(emb[:TEXT_CHECK_ROWS] - ref).max())
+    tol = 2e-2 * max(1.0, float(np.abs(ref).max()))
+    # the call above builds the tower on the host first; its forward alone
+    tower = clip_text.TextTransformer()
+    tower.load_state_dict(sd)
+    tower.to(DEVICE).eval()
+    rows = torch.as_tensor(ids, device=DEVICE)
+    with torch.no_grad():
+        tower(rows[:TEXT_BATCH])
+        sync()
+        t0 = time.perf_counter()
+        for i in range(0, TEXT_ROWS, TEXT_BATCH):
+            tower(rows[i:i + TEXT_BATCH])
+        sync()
+    forward_s = time.perf_counter() - t0
+    record("text_tower", dict(
+        rows=TEXT_ROWS, batch=TEXT_BATCH, shape=list(emb.shape),
+        call_captions_per_s=TEXT_ROWS / text_s, call_s=text_s,
+        forward_captions_per_s=TEXT_ROWS / forward_s, forward_s=forward_s,
+        bf16_vs_fp32_max_abs_err=err, tolerance=tol))
+    if emb.shape != (TEXT_ROWS, 512) or not np.isfinite(emb).all() \
+            or not err <= tol:
+        raise AssertionError(f"text tower: shape {emb.shape}, bf16 vs fp32 "
+                             f"{err} (tolerance {tol})")
+    out["wall_s"] = time.perf_counter() - t_phase
+    out["launches"] = total
+    print(json.dumps({"ssl_path": {k: out[k] for k in (
+        "card", "matmul_precision", "launches", "wall_s")}}), flush=True)
+    print(f"phase 15 (SSL towers) wall {out['wall_s']:.1f} s", flush=True)
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -3386,6 +3932,14 @@ def main() -> int:
     for name, kernels in ptxas.items():
         for fn, info in kernels.items():
             print(f"ptxas {name} {fn}: {info}", flush=True)
+    # the RN50 pool's instantiation: K2 in fp32 on the 16-byte path
+    for fn, info in ptxas["attention"].items():
+        if "k2_attention_kernel<float, true>" in fn:
+            print(f"ptxas K2 fp32 16-byte path: {info.get('registers')} "
+                  f"registers, {info.get('spill_stores', 0)} bytes spill "
+                  f"stores, {info.get('spill_loads', 0)} bytes spill loads, "
+                  f"{info.get('stack_frame', 0)} bytes stack frame",
+                  flush=True)
 
     global OUT_DIR
     timings = check_kernels()
@@ -3408,6 +3962,7 @@ def main() -> int:
     banana_launches = banana_path(card)
     image_launches = image_path(card)
     stl10_launches = stl10_path(card)
+    ssl_launches = ssl_path(card)
 
     attention_cu = "lossyless_tpu_torch/nn/csrc/attention.cu"
     eb_cu = "lossyless_tpu_torch/coding/csrc/eb_likelihood.cu"
@@ -3435,7 +3990,8 @@ def main() -> int:
                 launches_on_pipeline_path=pipeline_launches[name],
                 launches_on_banana_path=banana_launches[name],
                 launches_on_image_path=image_launches[name],
-                launches_on_stl10_path=stl10_launches[name])
+                launches_on_stl10_path=stl10_launches[name],
+                launches_on_ssl_path=ssl_launches.get(name, 0))
         else:
             # K1/K2 on the encode path, K3/K4 on the training path (K1/K2
             # run there too: launches_per_training_step)
@@ -3450,7 +4006,8 @@ def main() -> int:
                 launches_on_pipeline_path=pipeline_launches[name],
                 launches_on_banana_path=banana_launches[name],
                 launches_on_image_path=image_launches[name],
-                launches_on_stl10_path=stl10_launches[name])
+                launches_on_stl10_path=stl10_launches[name],
+                launches_on_ssl_path=ssl_launches.get(name, 0))
         row = dict(name=name, route="cuda", source=sources[name],
                    replaces=replaces[name], **counts, **timings[name])
         # registers and spills of the kernel's instantiations

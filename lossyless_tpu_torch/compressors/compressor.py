@@ -45,6 +45,7 @@ import torch
 from torch import nn
 
 from ..core.annealer import Annealer
+from ..nn.layers import merge_stats as _merge_stats
 from ..nn.layers import params_from_flax as tree_params_from_flax
 from ..nn.registry import get_architecture
 from ..nn.vit import VisionTransformer, params_from_flax
@@ -369,14 +370,4 @@ def compressor_params_from_flax(tree, batch_stats=None) -> dict:
                  "online_evaluator"):
         if name in tree:
             out.update(tree_params_from_flax(tree[name], f"{name}."))
-    return out
-
-
-def _merge_stats(params: dict, stats: dict) -> dict:
-    """flax params with the batch_stats collection merged in, path by
-    path."""
-    out = dict(params)
-    for k, v in stats.items():
-        out[k] = _merge_stats(out.get(k, {}), v) if isinstance(v, dict) \
-            else v
     return out

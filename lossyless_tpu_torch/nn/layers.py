@@ -307,6 +307,26 @@ def flip_transpose_kernel(k: torch.Tensor) -> torch.Tensor:
     return k.flip(0, 1).permute(2, 3, 0, 1).contiguous()
 
 
+def numpy_state_dict(torch_state_dict) -> dict:
+    """A public checkpoint's tensors as fp32 numpy arrays, cast with
+    `.float()` first (CLIP ships fp16), for the converters' layout
+    work."""
+    return {k: np.asarray(v.float().cpu().numpy() if hasattr(v, "cpu")
+                          else v, dtype=np.float32)
+            for k, v in torch_state_dict.items()}
+
+
+def merge_stats(params: dict, stats: dict) -> dict:
+    """flax params with the batch_stats collection merged in, path by
+    path (running `mean` / `var` beside `scale` / `bias`): the tree
+    `params_from_flax` takes."""
+    out = dict(params)
+    for k, v in stats.items():
+        out[k] = merge_stats(out.get(k, {}), v) if isinstance(v, dict) \
+            else v
+    return out
+
+
 def params_from_flax(tree, prefix: str = "") -> dict:
     """A flax tree (nested dicts of arrays; `params` and `batch_stats`
     merged) -> a state dict: the path joined with dots, fp32 tensors. A

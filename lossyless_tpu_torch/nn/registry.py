@@ -5,8 +5,11 @@ to a module taking (in_shape, out_shape). Image shapes are channels-last
 (H, W, C). Ported: the CLIP ViT tower, the `mlp`, `linear` and
 `identity` heads (`nn/mlp.py`), the `cnn` and `balle` encoders and, for
 an int `in_shape` and an image `out_shape`, their transposed decoders
-(`nn/cnn.py`), and the `resnet` (`nn/resnet.py`); `clip_rn50`, `simclr`
-and `swav` wait for ROADMAP queue 1 item 7 (order 7b).
+(`nn/cnn.py`), the `resnet` (`nn/resnet.py`), and the pretrained towers:
+`clip_rn50`, CLIP's ModifiedResNet-50 with K2 as its attention pool
+(`nn/clip_resnet.py`), and `simclr` / `swav`, a torchvision ResNet-50
+(`nn/resnet.py` at `base="resnet50"`), whose public weights load through
+`encoder.pretrained_path` (`nn/pretrained.py`).
 `generator` seeds the init (torch needs it at construction; the tower
 takes it through `init_weights`).
 
@@ -20,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from .clip_resnet import ClipResNet
 from .cnn import BalleDecoder, BalleEncoder, CNNDecoder, CNNEncoder
 from .mlp import FlattenLinear, FlattenMLP, Identity
 from .resnet import ResNet
@@ -82,8 +86,14 @@ def get_architecture(mode: str, in_shape, out_shape, generator=None,
     if mode == "resnet":
         return ResNet(out_shape, tuple(in_shape), generator=generator,
                       **_translate(kwargs))
-    if mode in ("clip_rn50", "simclr", "swav"):
-        raise NotImplementedError(
-            f"architecture {mode!r} is not ported yet (ROADMAP queue 1 "
-            f"item 7, order 7b)")
+    if mode == "clip_rn50":
+        # OpenAI CLIP's ModifiedResNet-50 (the reference keeps
+        # clip.load("RN50").visual): the pool's positional embedding is
+        # sized from the input resolution
+        return ClipResNet(out_shape, tuple(in_shape), generator=generator,
+                          **_translate(kwargs))
+    if mode in ("simclr", "swav"):
+        # the SSL towers: a torchvision ResNet-50 backbone
+        return ResNet(out_shape, tuple(in_shape), base="resnet50",
+                      generator=generator, **_translate(kwargs))
     raise ValueError(f"unknown architecture mode={mode}")

@@ -18,9 +18,11 @@ with the spatial hyperprior), the CLIP recipes
 factorized rate), `clip_lossyZ` (the hyperprior bottleneck with the
 online probe) and its evaluation presets
 `clip_bottleneck_{linear,mlp}_eval` and `clip_raw_{linear,mlp}_eval`
-(the lossless rate, featurizer at init). The other presets wait for ROADMAP
-queue 1 item 10 (the `ssl_*` ones for order 7b, `galaxy_regression` for
-order 9).
+(the lossless rate, featurizer at init), and the SSL recipes
+`ssl_bottleneck_pretrain` (the bottleneck on CLIP's RN50, or with
+`encoder.arch=simclr|swav` a ResNet-50, loaded from
+`encoder.pretrained_path`) and its `ssl_bottleneck_{linear,mlp}_eval`.
+`galaxy_regression` waits for ROADMAP queue 1 item 10 (order 9).
 """
 
 from __future__ import annotations
@@ -520,6 +522,32 @@ def _preset_impl(name: str) -> ExperimentConfig:
         cfg.rate = RateConfig(mode="H_factorized", eb_filters=(3, 3, 3, 3),
                               is_endToEnd=False)
         return cfg
+    if name in ("ssl_bottleneck_pretrain",):
+        # bin/ssl/bottleneck_pretrain.sh: the same bottleneck on an SSL
+        # ResNet-50 tower (encoder.arch=clip_rn50|simclr|swav); CLIP RN50's
+        # attention pool gives 1024-d embeddings, simclr/swav pool to 2048
+        # (override z_dim with the arch); the hyperprior rate
+        cfg = preset("clip_bottleneck_pretrain")
+        cfg.experiment = "ssl_bottleneck_pretrain"
+        cfg.encoder = EncoderConfig(arch="clip_rn50", z_dim=1024)
+        cfg.rate = RateConfig(mode="H_hyper", is_endToEnd=False)
+        cfg.loss = dataclasses.replace(cfg.loss, beta=1e-3)
+        return cfg
+    if name in ("ssl_bottleneck_linear_eval",):
+        # bin/ssl/bottleneck_linear_eval.sh: a linear probe on the
+        # compressed SSL (ResNet-50) features
+        cfg = preset("ssl_bottleneck_pretrain")
+        cfg.experiment = "ssl_bottleneck_linear_eval"
+        cfg.is_only_feat = False
+        cfg.predictor = PredictorConfig(arch="linear", arch_kwargs={},
+                                        n_epochs=20)
+        return cfg
+    if name in ("ssl_bottleneck_mlp_eval",):
+        # bin/ssl/bottleneck_mlp_eval.sh
+        cfg = preset("ssl_bottleneck_linear_eval")
+        cfg.experiment = "ssl_bottleneck_mlp_eval"
+        cfg.predictor = PredictorConfig()
+        return cfg
     if name in ("clip_lossyZ", "clip_bottleneck"):
         # bottleneck_clip_lossyZ: frozen CLIP tower, hyperprior rate on the
         # 512-d embeddings, lossy_Z distortion, beta 5e-2, the online probe
@@ -575,7 +603,8 @@ def _preset_impl(name: str) -> ExperimentConfig:
 
 def available_presets() -> list[str]:
     """The presets this package has, in the JAX package's order:
-    `clip_hub` and `clip_bottleneck_pretrain` train through
+    `clip_hub`, `clip_bottleneck_pretrain` and `ssl_bottleneck_pretrain`
+    (COCO recipes, featurizer only) train through
     `pipeline.run.run_featurizer` and code through `run_communication`;
     the others run the three stages through `pipeline.run.main`."""
     return ["banana_viz_VIC", "banana_viz_VAE", "banana_viz_BINCE",
@@ -585,5 +614,7 @@ def available_presets() -> list[str]:
             "stl10_balle", "stl10_rate_variation", "stl10_dist_variation",
             "stl10_action_dist_shift", "stl10_understand_VIC",
             "clip_lossyZ", "clip_bottleneck_pretrain", "clip_hub",
-            "clip_bottleneck_linear_eval", "clip_bottleneck_mlp_eval",
-            "clip_raw_linear_eval", "clip_raw_mlp_eval"]
+            "ssl_bottleneck_pretrain", "ssl_bottleneck_linear_eval",
+            "ssl_bottleneck_mlp_eval", "clip_bottleneck_linear_eval",
+            "clip_bottleneck_mlp_eval", "clip_raw_linear_eval",
+            "clip_raw_mlp_eval"]

@@ -100,10 +100,12 @@ def run_featurizer(cfg: ExperimentConfig, batches: Iterable,
 
     `total_steps` (default `len(batches)`) is the planned span the
     schedules bind to. `state` continues an existing train state instead
-    of building one. `on_step(step, state, logs)` runs after every
-    update; every `trainer.log_every` steps the logs go to the logger (a
-    new one for the stage directory unless `logger` is given; a given one
-    is left open) and a line to `log`. Returns the train state.
+    of building one; a state built here takes the encoder's weights from
+    `encoder.pretrained_path` when it names one. `on_step(step, state,
+    logs)` runs after every update; every `trainer.log_every` steps the
+    logs go to the logger (a new one for the stage directory unless
+    `logger` is given; a given one is left open) and a line to `log`.
+    Returns the train state.
     """
     cfg = apply_precision(copy.deepcopy(cfg))
     device = resolve_device(device)
@@ -118,6 +120,8 @@ def run_featurizer(cfg: ExperimentConfig, batches: Iterable,
     if state is None:
         spe = max(1, total_steps // max(1, cfg.data_feat.n_epochs))
         state = build_state(cfg, total_steps, spe, device)
+        if cfg.encoder.pretrained_path:
+            load_pretrained_encoder(cfg.encoder, state.model)
 
     own_logger = logger is None
     if own_logger:

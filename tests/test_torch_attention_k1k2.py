@@ -95,17 +95,23 @@ def test_k1_k2_match_pallas_at_the_tile_edges(N, dtype):
     _check_k1_k2(2, N, 12, 64, dtype, seed=N)
 
 
-def test_k2_matches_pallas_at_the_rn50_pool_shape():
-    """The RN50 attention pool: fp32, 32 heads of 64, kv width 4096."""
-    B, N, heads, d = 2, 50, 32, 64
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("N", [50, 10])
+def test_k2_matches_pallas_at_the_rn50_pool_shape(N, dtype):
+    """The RN50 attention pool (`nn/clip_resnet.py`): 32 heads of 64, kv
+    width 4096, N = 50 tokens at 224 px and 10 at 96 px, in fp32 (the
+    ssl presets' default) and bf16 (`trainer.precision=bf16`)."""
+    B, heads, d = 2, 32, 64
     D = heads * d
     g = np.random.default_rng(5)
     q0 = g.normal(size=(B, 1, D)).astype(np.float32)
     kv = g.normal(size=(B, N, 2 * D)).astype(np.float32)
-    got = tfa.fused_attention_cls(torch.from_numpy(q0),
-                                  torch.from_numpy(kv), heads)
-    want = _jax_k2(jnp.asarray(q0), jnp.asarray(kv), heads)
-    np.testing.assert_allclose(_np(got), _np(want), **FP32)
+    got = tfa.fused_attention_cls(torch.from_numpy(q0).to(dtype),
+                                  torch.from_numpy(kv).to(dtype), heads)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    want = _jax_k2(jnp.asarray(q0, jdt), jnp.asarray(kv, jdt), heads)
+    assert got.dtype == dtype
+    np.testing.assert_allclose(_np(got), _np(want), **TOL[dtype])
 
 
 def _cases(checks, kernel):

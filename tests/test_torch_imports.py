@@ -84,6 +84,10 @@ NEW_MODULES = [
     # slice 12: the STL10 experiments (BALLE, GDN, the spatial hyperprior
     # live in nn/cnn.py, nn/layers.py and compressors/rates.py)
     "lossyless_tpu_torch.data.label_augment",
+    # slice 13: the pretrained towers and their converters
+    "lossyless_tpu_torch.nn.clip_resnet",
+    "lossyless_tpu_torch.nn.convert_resnet",
+    "lossyless_tpu_torch.nn.clip_text",
 ]
 
 

@@ -320,10 +320,20 @@ def test_load_pretrained_encoder_refusals(tmp_path):
     with pytest.raises(FileNotFoundError):
         tpre.load_pretrained_encoder(cfg.encoder, model,
                                      str(tmp_path / "absent"))
+    # a torch file in no layout the converters read: the converter's
+    # error, naming the arch and the supported converters
     torch.save({"conv1.weight": torch.zeros(1)}, tmp_path / "rn.pt")
-    with pytest.raises(NotImplementedError, match="order 7b"):
+    with pytest.raises(ValueError, match="converter for encoder.arch="
+                                         "'resnet'.*supported"):
         tpre.load_pretrained_encoder(cfg.encoder, model,
                                      str(tmp_path / "rn.pt"))
+    # JAX's orbax export directories are a kept difference: refused,
+    # naming the formats this package reads
+    (tmp_path / "orbax").mkdir()
+    with pytest.raises(NotImplementedError, match="directory.*save_weights"
+                                                  " export.*torch.*npz"):
+        tpre.load_pretrained_encoder(cfg.encoder, model,
+                                     str(tmp_path / "orbax"))
     np.savez(tmp_path / "bad.npz", **{"params/Conv_0/kernel":
                                       np.zeros((3, 3, 2, 64), np.float32)})
     with pytest.raises(ValueError, match="do not fit"):

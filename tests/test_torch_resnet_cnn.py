@@ -393,11 +393,22 @@ def test_cnn_pair_matches_flax_bf16(training):
 
 
 def test_registry_refuses_what_is_not_ported():
-    """`balle` is ported (tests/test_torch_balle_spatial.py); the
-    pretrained towers still raise naming their order."""
+    """`balle` is ported (tests/test_torch_balle_spatial.py), and so are
+    the pretrained towers: `clip_rn50` builds CLIP's ModifiedResNet with
+    its pool sized for the input, `simclr` and `swav` a ResNet-50
+    (tests/test_torch_clip_resnet.py, tests/test_torch_pretrained_ssl.py);
+    an unknown mode still raises."""
+    from lossyless_tpu_torch.nn import clip_resnet as tcr
+
     assert isinstance(registry.get_architecture("balle", (32, 32, 3), 8),
                       tcnn.BalleEncoder)
-    for mode, order in (("clip_rn50", "order 7b"), ("simclr", "order 7b"),
-                        ("swav", "order 7b")):
-        with pytest.raises(NotImplementedError, match=order):
-            registry.get_architecture(mode, (32, 32, 3), 8)
+    rn = registry.get_architecture("clip_rn50", (32, 32, 3), 8, width=16,
+                                   layers=(1, 1, 1, 1), heads=4)
+    assert isinstance(rn, tcr.ClipResNet)
+    assert rn.attnpool.positional_embedding.shape == (2, 512)
+    for mode in ("simclr", "swav"):
+        m = registry.get_architecture(mode, (32, 32, 3), 8)
+        assert isinstance(m, tresnet.ResNet)
+        assert len(m.blocks) == 16 and m.Dense_0.kernel.shape == (2048, 8)
+    with pytest.raises(ValueError, match="unknown architecture"):
+        registry.get_architecture("vgg", (32, 32, 3), 8)

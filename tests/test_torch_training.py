@@ -230,19 +230,22 @@ def test_detached_rate_is_one_likelihood_with_live_z_hat():
 
 def test_unported_modes_raise_and_name_the_queue():
     """H_spatial and the image mode on the BALLE decoder are ported
-    (tests/test_torch_balle_spatial.py); the pretrained towers and their
-    presets, and galaxy_regression, still raise naming their items."""
+    (tests/test_torch_balle_spatial.py), and so are the pretrained towers
+    and the ssl presets (tests/test_torch_pretrained_ssl.py); only
+    galaxy_regression still raises naming its item."""
     assert isinstance(trates.make_rate_estimator(
         16, trates.RateConfig(mode="H_spatial", n_channels=4)),
         trates.HRateHyperpriorSpatial)
     dist = tdist.make_distortion_estimator(
         tdist.DistortionConfig(arch="balle"), 16, (32, 32, 3))
     assert type(dist.q_YlZ).__name__ == "BalleDecoder"
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        registry.get_architecture("clip_rn50", (32, 32, 3), 8)
-    for name in ("ssl_bottleneck_pretrain", "galaxy_regression"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-            tconfig.preset(name)
+    assert type(registry.get_architecture(
+        "clip_rn50", (32, 32, 3), 8, width=16, layers=(1, 1, 1, 1),
+        heads=4)).__name__ == "ClipResNet"
+    assert tconfig.preset("ssl_bottleneck_pretrain").encoder.arch == \
+        "clip_rn50"
+    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+        tconfig.preset("galaxy_regression")
 
 
 @pytest.mark.parametrize("p_norm", [1.0, 2.0])
@@ -320,7 +323,9 @@ def test_registry_translates_the_jax_vocabulary():
 def test_config_presets_and_overrides_match_jax():
     ov = ["rate.eb_use_pallas=True", "encoder.arch_kwargs.mlp_impl=pallas",
           "loss.beta=0.01", "trainer.log_every=5"]
-    for name in ("clip_hub", "clip_bottleneck_pretrain"):
+    for name in ("clip_hub", "clip_bottleneck_pretrain",
+                 "ssl_bottleneck_pretrain", "ssl_bottleneck_linear_eval",
+                 "ssl_bottleneck_mlp_eval"):
         j = jconfig.apply_precision(
             jconfig.apply_overrides(jconfig.preset(name), ov))
         t = tconfig.apply_precision(
@@ -329,9 +334,8 @@ def test_config_presets_and_overrides_match_jax():
         assert jd == td, name
         assert t.long_name == j.long_name
     assert tconfig.available_presets() == [
-        n for n in jconfig.available_presets()
-        if n.startswith(("banana", "clip_", "mnist", "augmnist", "stl10"))]
-    assert len(tconfig.available_presets()) == 24
+        n for n in jconfig.available_presets() if n != "galaxy_regression"]
+    assert len(tconfig.available_presets()) == 27
 
 
 # ---------------------------------------------------------------------------
