@@ -241,12 +241,34 @@ non-zero without printing a result:
    checks and times K2 at the pool's shapes ((128, 50 / 10, 32, 64) in
    fp32 and bf16; times in fp32) and prints the ptxas line of its fp32
    16-byte instantiation; phase 3b K3 at (128, 204) and (128, 409);
+16. the tower knobs and data parallelism: (a) K1 and K2 with
+   `SOFTMAX_DTYPE=bfloat16` (the bf16 instantiations, `kBf16Sm`) against
+   their plain versions under the same knob at every `K1_CHECKS` /
+   `K2_CHECKS` case (atol 2e-2; the share of outputs that differ printed;
+   K1's three designs all run), their times at ViT-B/32's width (B = 512
+   and 256; K1's designs side by side) and at the RN50 pool's fp32 shape,
+   beside phase 3's fp32-softmax times; phase 4's 8 x 256 images encoded
+   under the bf16 softmax (its K1 and K2 launches counted: the bf16 rows'
+   main path) and with the tower at `ln_dtype=bfloat16`, whose file must
+   equal phase 4's byte for byte; one fine-tuning step of the ViT-B/32
+   tower at batch 128 with `remat` off and on (K1, K2, K4): gradients
+   equal (rtol 1e-5 / atol 1e-6), peak memory, step ms, launches a step
+   (K1 and K4 22 under remat); (b) the hub over a mesh of two replicas on
+   cuda:0 and over `make_mesh(0)`: phase 4's file byte for byte (where it
+   differs, the flips against the float64 tower held to phase 4's bound),
+   encode img/s, K1 and K2 launches; (c) `stl10_bince` and
+   `banana_viz_VIC` featurizer stages at full width (`DP_REDUCED`), each
+   in a subprocess as a world of one NCCL rank (torchrun's environment,
+   `core.mesh.init_distributed`, the differentiable collectives run once
+   on the card) and in one with no process group: every logged step
+   equal bit for bit, K3 launched, ms a step of each;
 7. the `kernels` JSON line (K1-K4, K3's backward, K5a, K5b; with
    `device_ms` and `bound_share`, K1/K2 also at batch 256 and at N = 10,
    K2 at the RN50 pool's shapes, K3 also at the banana, image, STL10 and
    ssl shapes, K1's design, its float64 readings and its designs side by
    side, the launches on phase 11's, 12's, 13's, 14's and 15's paths,
-   and the registers and spills of every kernel) and, last,
+   and the registers and spills of every kernel; phase 16's bf16-softmax
+   instantiations of K1 and K2 as rows of their own) and, last,
    `{"ok": true, "device": {...}}`.
 
 It needs a CUDA card and the repository around it: with no card, or run
@@ -596,12 +618,13 @@ def k1_design_runs(lib, qkv, heads: int) -> dict:
         def run(plan=plan, out=out, design=design):
             stream = torch.cuda.current_stream(qkv.device).cuda_stream
             if plan is not None:
-                rc = fa._launch_tile_designs(lib, qkv, out, heads, plan)
+                rc = fa._launch_tile_designs(lib, qkv, out, heads, plan,
+                                             fa._bf16_softmax())
             else:
                 rc = lib.lossyless_fused_attention(
                     qkv.data_ptr(), out.data_ptr(), B, N, heads, d,
                     fa._DTYPE_CODE[qkv.dtype], d**-0.5, fa.K1_WARPS,
-                    qkv.device.index, stream)
+                    fa._bf16_softmax(), qkv.device.index, stream)
             fa._raise_on(rc, f"K1 {design} design")
             return out
         runs[design] = run
@@ -1098,6 +1121,7 @@ def main_path(card: str) -> dict:
         z_hat, y = comp.decompress_dataset(data, labels, is_info=False)
         t_dec = time.perf_counter() - t0
         launches = read_launches()
+        file_bytes = data.read_bytes()
     print(f"main path launches: {launches}", flush=True)
 
     n_layers = len(comp.model.blocks)
@@ -1151,6 +1175,11 @@ def main_path(card: str) -> dict:
                   encode_img_per_s=n / t_enc, decode_img_per_s=n / t_dec,
                   bits_per_img=rate, symbol_flips=flips, flip_bound=limit,
                   decode_max_abs_err=dec_err)
+    # what phase 16 encodes again: the same rate, images and tower seed
+    PHASE4.update(comp=comp, rate=(eb_params, scaling, biasing),
+                  batches=batches,
+                  file_bytes=file_bytes, s_f64=s_f64, flip_bound=limit,
+                  encode_img_per_s=n / t_enc)
     print(json.dumps({"main_path": result}), flush=True)
     hb = encode_head_batch_record(comp, batches, s_kernel, s_plain, card)
     summation_order_record(plain, x0, s_plain, s_f64, flips, hb, card)
@@ -2370,6 +2399,15 @@ def k1_k2_kernel(fn: str) -> str | None:
     return None
 
 
+def bf16_softmax_instance(fn: str) -> bool:
+    """Whether a compiled attention function (demangled) is a bf16-softmax
+    instantiation: its template's last argument, `kBf16Sm`, is true."""
+    import re
+
+    m = re.search(r"_kernel<([^<>]*)>", fn)
+    return bool(m) and m.group(1).split(",")[-1].strip() == "true"
+
+
 def k5_kernel(fn: str, name: str) -> bool:
     """Whether a compiled function, mangled or demangled, is one of the
     kernels wrapper `name` (K5a or K5b) launches: K1's two tiles, which
@@ -2791,8 +2829,8 @@ class CaptureEpochs:
         self.logs, self.seconds, self.steps = [], [], 0
         self.saved = run.make_generative_epoch
 
-        def make(sample_fn, n_steps):
-            epoch = self.saved(sample_fn, n_steps)
+        def make(sample_fn, n_steps, *args):
+            epoch = self.saved(sample_fn, n_steps, *args)
 
             def timed(state, seed):
                 sync()
@@ -3910,6 +3948,529 @@ def ssl_path(card: str) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the tower knobs and data parallelism
+# ---------------------------------------------------------------------------
+
+PHASE4 = {}    # phase 4's rate, batches, file bytes and float64 symbols
+BF16_SOFTMAX = ("fused_attention_bf16_softmax",
+                "fused_attention_cls_bf16_softmax")
+REMAT_BATCH, REMAT_STEPS = 128, 5
+# the distributed runs: featurizer stages at full width, cut in length
+DP_RUNS = {
+    "banana_viz_VIC": ["rate.eb_use_pallas=True", "data_feat.n_epochs=1",
+                       "data_feat.kwargs.length=20480",
+                       "trainer.log_every=1",
+                       "trainer.limit_eval_batches=0.2"],
+    "stl10_bince": ["rate.eb_use_pallas=True",
+                    "data_feat.kwargs.synthetic=True",
+                    "data_feat.kwargs.synthetic_n=2048",
+                    "data_feat.n_epochs=1", "trainer.log_every=1",
+                    "trainer.limit_eval_batches=0.2"]}
+DP_REDUCED = {
+    "banana_viz_VIC": "1 epoch of 20 steps (20,480 samples) of the "
+                      "recipe's 100 of 1000; widths not cut (batch 1024)",
+    "stl10_bince": "1 epoch of 7 steps over 2,048 seeded synthetic images "
+                   "(STL10_REDUCED's widths: ResNet-18, batch 256)",
+    "evaluation": "the featurizer stage only; 20% of its evaluation "
+                  "batches"}
+
+
+def nearer_check(name: str, case, share: float, share32: float,
+                 plains_equal: bool):
+    """A bf16-softmax instantiation must be nearer its plain version under
+    the same knob than the fp32-softmax plain version: a strictly smaller
+    share of its outputs differs (an instantiation that ignored the knob
+    would sit nearer the fp32 one). Vacuous where the two plain versions
+    agree bit for bit (one key: the softmax is 1 in both chains)."""
+    if not plains_equal and not share < share32:
+        raise AssertionError(
+            f"{name} with a bf16 softmax at {case}: {share} of its outputs "
+            f"differ from the bf16-softmax plain version, {share32} from "
+            f"the fp32 one: the knob did not reach the kernel")
+
+
+def bf16_softmax_checks(fp32: dict | None = None) -> dict:
+    """Phase 16a: K1 (every design `k1_plan` picks) and K2 (bf16 and fp32
+    io) with `SOFTMAX_DTYPE=bfloat16` against their plain versions under
+    the same knob (atol 2e-2, the share of outputs that differ, which must
+    be below the share that differ from the fp32-softmax plain version:
+    `nearer_check`), at every `K1_CHECKS` / `K2_CHECKS` case; then at
+    ViT-B/32's width (B = 512 and 256) and the RN50 pool's fp32 shape,
+    also held by `nearer_check` (K1's row code bit-exact), the times
+    beside phase 3's
+    fp32-softmax times (the same bytes, the same bound), K1's designs side
+    by side. `fp32`: phase 3's timings, whose device ms each row shows
+    beside its own."""
+    import torch
+
+    from lossyless_tpu_torch.nn import flash_attn as fa
+
+    fp32 = fp32 or {}
+    lib = fa._get_lib()
+    cases = {"fused_attention": (k1_inputs, fa.fused_attention,
+                                 fa.attention_plain, K1_CHECKS),
+             "fused_attention_cls": (k2_inputs, fa.fused_attention_cls,
+                                     fa.attention_cls_plain, K2_CHECKS)}
+    out = {}
+    with Knobs(SOFTMAX_DTYPE=torch.bfloat16), torch.inference_mode():
+        designs = set()
+        for name, (make, kernel, plain, shapes) in cases.items():
+            worst = 0.0
+            for i, (B, N, h, d, dt, _, opt) in enumerate(shapes):
+                args = make(B, N, h, d, getattr(torch, dt), seed=i,
+                            unaligned=opt.get("unaligned", False))
+                if name == "fused_attention":
+                    designs.add(fa.k1_plan(
+                        B, N, h, d, args[0].dtype,
+                        all(a.data_ptr() % 16 == 0 for a in args)).design)
+                got, want = kernel(*args, h), plain(*args, h)
+                want32 = plain(*args, h, softmax=torch.float32)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                share = float((got != want).float().mean())
+                share32 = float((got != want32).float().mean())
+                if not (bool(torch.isfinite(got).all()) and err <= 2e-2):
+                    raise AssertionError(
+                        f"{name} with a bf16 softmax at B={B} N={N} h={h} "
+                        f"d={d} {dt} {opt}: {err} off its plain version")
+                nearer_check(name, (B, N, h, d, dt, opt), share, share32,
+                             bool(torch.equal(want, want32)))
+                worst = max(worst, err)
+                print(f"check {name} bf16 softmax B={B} N={N} h={h} d={d} "
+                      f"{dt}{' (unaligned input)' if opt.get('unaligned') else ''}"
+                      f": max_abs_err={err!r} share_differing={share!r} "
+                      f"share_differing_vs_fp32_softmax={share32!r} ok",
+                      flush=True)
+            out[name] = dict(max_abs_err_over_checks=worst)
+        if designs != {"wgmma", "onepass", "rows"}:
+            raise AssertionError(f"K1's checks ran designs {designs}")
+        N, h, d = SLICE["N"], SLICE["heads"], SLICE["d"]
+        for name, (make, kernel, plain, _) in cases.items():
+            for B in (512, BATCH):
+                row = time_attention(name, make, kernel, plain, B, N, h, d)
+                args = make(B, N, h, d, torch.bfloat16, seed=100)
+                got, want = kernel(*args, h), plain(*args, h)
+                want32 = plain(*args, h, softmax=torch.float32)
+                plains_equal = bool(torch.equal(want, want32))
+                row.update(max_abs_err=(got.float() - want.float()).abs()
+                           .max().item(),
+                           share_differing=float((got != want).float()
+                                                 .mean()),
+                           share_differing_vs_fp32_softmax=float(
+                               (got != want32).float().mean()))
+                nearer_check(name, (B, N, h, d), row["share_differing"],
+                             row["share_differing_vs_fp32_softmax"],
+                             plains_equal)
+                if name == "fused_attention":
+                    runs = {}
+                    for design, run in k1_design_runs(lib, args[0],
+                                                      h).items():
+                        o = run()
+                        err = (o.float() - want.float()).abs().max().item()
+                        if not err <= 2e-2:
+                            raise AssertionError(
+                                f"K1's {design} design with a bf16 softmax "
+                                f"off its plain version by {err}")
+                        share = float((o != want).float().mean())
+                        share32 = float((o != want32).float().mean())
+                        nearer_check(f"K1's {design} design", (B, N, h, d),
+                                     share, share32, plains_equal)
+                        # the row code sums the exps in the plain version's
+                        # order: bit-exact (phase 16's first runs)
+                        if design == "rows" and share:
+                            raise AssertionError(
+                                f"K1's row code with a bf16 softmax at "
+                                f"B={B}: {share} of its outputs off its "
+                                f"plain version, which it matched bit for "
+                                f"bit")
+                        runs[design] = dict(
+                            max_abs_err=err, share_differing=share,
+                            share_differing_vs_fp32_softmax=share32,
+                            ms=median_ms(run),
+                            device_ms=device_ms(run, (DESIGN_KERNELS[
+                                design],)))
+                    row["designs"] = runs
+                    print(f"time fused_attention bf16 softmax B={B} "
+                          f"designs: {runs}", flush=True)
+                base = fp32.get(name, {})
+                base = base if B == 512 else base.get(f"at_b{B}", {})
+                row["fp32_softmax_device_ms"] = base.get("device_ms")
+                out[name][f"b{B}"] = row
+        pool = RN50_POOL
+        (q0, kv) = k2_inputs(pool["B"], pool["Ns"][0], pool["heads"],
+                             pool["d"], torch.float32, seed=100)
+        want = fa.attention_cls_plain(q0, kv, pool["heads"])
+        want32 = fa.attention_cls_plain(q0, kv, pool["heads"],
+                                        softmax=torch.float32)
+        got = fa.fused_attention_cls(q0, kv, pool["heads"])
+        row = time_attention("fused_attention_cls", k2_inputs,
+                             fa.fused_attention_cls, fa.attention_cls_plain,
+                             pool["B"], pool["Ns"][0], pool["heads"],
+                             pool["d"], "float32")
+        row.update(max_abs_err=(got - want).abs().max().item(),
+                   share_differing=float((got != want).float().mean()),
+                   share_differing_vs_fp32_softmax=float(
+                       (got != want32).float().mean()),
+                   fp32_softmax_device_ms=fp32.get(
+                       "fused_attention_cls", {}).get(
+                       f"rn50_pool_n{pool['Ns'][0]}_fp32", {}).get(
+                       "device_ms"))
+        nearer_check("fused_attention_cls", "the RN50 pool",
+                     row["share_differing"],
+                     row["share_differing_vs_fp32_softmax"],
+                     bool(torch.equal(want, want32)))
+        out["fused_attention_cls"]["rn50_pool_fp32"] = row
+    print(json.dumps({"bf16_softmax": out}), flush=True)
+    return out
+
+
+def encode_under_knobs(card: str) -> dict:
+    """Phase 16a: phase 4's 8 x 256 raw images encoded again with the
+    same seeded tower and rate, (1) under `SOFTMAX_DTYPE=bfloat16`, its
+    K1 and K2 launches counted around that run (the bf16 instantiations'
+    main path; its file must differ from phase 4's, else the knob did not
+    reach the kernels; its symbols against phase 4's as a record) and (2)
+    with the
+    tower built with `ln_dtype=bfloat16`: the file must equal phase 4's
+    byte for byte (flax's LayerNorm rounds only its output, which the
+    bf16 tower rounds anyway)."""
+    import torch
+
+    from lossyless_tpu_torch.hub.compressor import ClipCompressor
+    from lossyless_tpu_torch.nn.vit import vit_b32
+
+    comp, rate, batches = PHASE4["comp"], PHASE4["rate"], PHASE4["batches"]
+    out = {}
+    x0 = batches[0][0]
+    s_fp32 = comp.codec.decode_batch(comp.compress(x0), comp.indexes)
+    with tempfile.TemporaryDirectory() as tmp:
+        with Knobs(SOFTMAX_DTYPE=torch.bfloat16):
+            s_bf16 = comp.codec.decode_batch(comp.compress(x0),
+                                             comp.indexes)
+            sync()
+            reset_launches()
+            t0 = time.perf_counter()
+            comp.compress_dataset(iter(batches), Path(tmp) / "sm.bin",
+                                  is_info=False)
+            t_enc = time.perf_counter() - t0
+            launches = read_launches()
+        n_layers = len(comp.model.blocks)
+        want = dict(fused_attention=(n_layers - 1) * N_BATCHES,
+                    fused_attention_cls=N_BATCHES)
+        if {k: launches[k] for k in want} != want:
+            raise AssertionError(f"the bf16-softmax encode launched "
+                                 f"{launches}, expected {want}")
+        sm_bytes = (Path(tmp) / "sm.bin").read_bytes()
+        ln = ClipCompressor(*rate, clip_params=comp.model.state_dict(),
+                            model=vit_b32(ln_dtype=torch.bfloat16),
+                            raw_input_hw=RAW_HW, device=DEVICE)
+        ln.compress_dataset(iter(batches), Path(tmp) / "ln.bin",
+                            is_info=False)
+        ln_equal = (Path(tmp) / "ln.bin").read_bytes() == \
+            PHASE4["file_bytes"]
+        del ln
+    out.update(bf16_softmax=dict(
+        launches=launches, encode_img_per_s=len(batches) * BATCH / t_enc,
+        default_encode_img_per_s=PHASE4["encode_img_per_s"],
+        file_equal_to_fp32_softmax=sm_bytes == PHASE4["file_bytes"],
+        symbol_flips_vs_fp32_softmax=float((s_bf16 != s_fp32).mean()),
+        symbol_flips_vs_float64=float((s_bf16 != PHASE4["s_f64"]).mean())),
+        ln_dtype_bf16_file_equal=ln_equal)
+    print(json.dumps({"encode_under_knobs": out}), flush=True)
+    if out["bf16_softmax"]["file_equal_to_fp32_softmax"]:
+        raise AssertionError("the bf16-softmax encode wrote phase 4's file: "
+                             "the knob did not reach K1 and K2")
+    if not ln_equal:
+        raise AssertionError("ln_dtype=bfloat16 changed the bf16 tower's "
+                             "streams")
+    return out
+
+
+def remat_step(card: str) -> dict:
+    """Phase 16a: one fine-tuning step (forward, backward) of the ViT-B/32
+    tower (bf16 compute, fp32 parameters, K1, K2 and K4) at batch 128 with
+    `remat` off and on: the gradients equal (JAX's test_vit.py
+    tolerances, rtol 1e-5 / atol 1e-6), the peak memory and the median
+    step time of each, and the launches a step (remat recomputes each
+    block's forward: K1 and K4 22 a step, K2 2)."""
+    import torch
+
+    from lossyless_tpu_torch.nn.vit import vit_b32
+
+    (x, _, _), = train_images(1, seed=16, batch=REMAT_BATCH)
+    out, grads = {}, {}
+    for remat in (False, True):
+        model = vit_b32(mlp_impl="kernel", remat=remat).init_weights(
+            torch.Generator().manual_seed(0)).to(DEVICE)
+
+        def step():
+            model.zero_grad(set_to_none=True)
+            (model(x).float() ** 2).mean().backward()
+
+        step()
+        sync()
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        step()
+        sync()
+        peak = torch.cuda.max_memory_allocated()
+        launches = read_launches()
+        times = []
+        for _ in range(REMAT_STEPS):
+            t0 = time.perf_counter()
+            step()
+            sync()
+            times.append(time.perf_counter() - t0)
+        grads[remat] = [p.grad.float() for p in model.parameters()]
+        k = 2 if remat else 1
+        want = dict(fused_attention=11 * k, fused_attention_cls=k,
+                    fused_mlp_block=11 * k)
+        if {n: launches[n] for n in want} != want:
+            raise AssertionError(f"remat={remat}: launches {launches}, "
+                                 f"expected {want}")
+        out[f"remat_{remat}"] = dict(
+            peak_gib=peak / 2**30, step_ms=float(np.median(times)) * 1e3,
+            launches={n: launches[n] for n in want})
+        del model
+        torch.cuda.empty_cache()
+    diff = max(float(((a - b).abs() - 1e-5 * b.abs()).max())
+               for a, b in zip(grads[True], grads[False]))
+    out["gradients_bit_equal"] = all(torch.equal(a, b) for a, b in
+                                     zip(grads[True], grads[False]))
+    out["gradient_excess_over_rtol"] = diff
+    print(json.dumps({"remat_step": out}), flush=True)
+    if not diff <= 1e-6:
+        raise AssertionError(f"remat moved the gradients: {diff}")
+    return out
+
+
+def hub_mesh(card: str) -> dict:
+    """Phase 16b: `compress_dataset` of phase 4's images over a mesh of two
+    replicas on cuda:0 and over `make_mesh(0)` (every visible card), each
+    with the same seeded tower and rate: the file against phase 4's
+    (`mesh=None`) byte for byte; where they differ, the symbol-flip share
+    on the first batch against phase 4's, and against the float64 tower
+    held to phase 4's bound; encode img/s and the K1 and K2 launches."""
+    from lossyless_tpu_torch.core.mesh import make_mesh
+    from lossyless_tpu_torch.hub.compressor import ClipCompressor
+    from lossyless_tpu_torch.nn.vit import vit_b32
+
+    rate, batches = PHASE4["rate"], PHASE4["batches"]
+    weights = PHASE4["comp"].model.state_dict()
+    out = {}
+    for label, m in (("two_replicas_cuda0",
+                      make_mesh(devices=["cuda:0"] * 2)),
+                     ("make_mesh_0", make_mesh(0))):
+        comp = ClipCompressor(*rate, clip_params=weights, model=vit_b32(),
+                              raw_input_hw=RAW_HW, mesh=m)
+        comp.compress(batches[0][0])
+        sync()
+        with tempfile.TemporaryDirectory() as tmp:
+            reset_launches()
+            t0 = time.perf_counter()
+            comp.compress_dataset(iter(batches), Path(tmp) / "m.bin",
+                                  is_info=False)
+            t_enc = time.perf_counter() - t0
+            launches = read_launches()
+            equal = (Path(tmp) / "m.bin").read_bytes() == \
+                PHASE4["file_bytes"]
+        row = dict(mesh_size=m.size, file_equal_to_one_device=equal,
+                   encode_img_per_s=len(batches) * BATCH / t_enc,
+                   one_device_encode_img_per_s=PHASE4["encode_img_per_s"],
+                   launches={k: launches[k] for k in
+                             ("fused_attention", "fused_attention_cls")})
+        want = dict(fused_attention=11 * m.size * N_BATCHES,
+                    fused_attention_cls=m.size * N_BATCHES)
+        if row["launches"] != want:
+            raise AssertionError(f"mesh {label}: launches {launches}, "
+                                 f"expected {want}")
+        if not equal:
+            s = comp.codec.decode_batch(comp.compress(batches[0][0]),
+                                        comp.indexes)
+            row["symbol_flips_vs_float64"] = float(
+                (s != PHASE4["s_f64"]).mean())
+            row["flip_bound"] = PHASE4["flip_bound"]
+            if row["symbol_flips_vs_float64"] > PHASE4["flip_bound"]:
+                raise AssertionError(f"mesh {label}: {row}")
+        out[label] = row
+        del comp
+    print(json.dumps({"hub_mesh": out}), flush=True)
+    return out
+
+
+DP_CALLS = ("global_draw", "all_reduce_sum", "all_gather_rows",
+            "average_gradients", "reduce_logs")
+
+
+def count_dp_calls(mesh) -> dict:
+    """Wrap `core.mesh`'s data-parallel functions (every caller reaches
+    them as `mesh.<name>`) to count their calls inside a data-parallel
+    step; the counts, filled as the stage runs."""
+    counts = dict.fromkeys(DP_CALLS, 0)
+
+    def wrap(name):
+        fn = getattr(mesh, name)
+
+        def counted(*args, **kwargs):
+            if mesh.active() is not None:
+                counts[name] += 1
+            return fn(*args, **kwargs)
+        setattr(mesh, name, counted)
+
+    for name in DP_CALLS:
+        wrap(name)
+    return counts
+
+
+def dp_child(spec: str):
+    """One featurizer stage in a subprocess (phase 16c): with `group`, as
+    rank 0 of a world of one under torchrun's environment, joined through
+    `core.mesh.init_distributed` (NCCL), which first runs the
+    differentiable collectives on the card, then trains through the
+    data-parallel step (`core.mesh.data_parallel` is on in a group of any
+    size), its collectives' calls counted; the fused epochs' logs, the
+    launches and ms a step, one JSON line."""
+    import os
+
+    import torch
+
+    from lossyless_tpu_torch.core import mesh
+    from lossyless_tpu_torch.pipeline import config, run
+
+    global DEVICE
+    spec = json.loads(spec)
+    DEVICE = spec["device"]
+    if spec["group"]:
+        os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                          MASTER_ADDR="localhost",
+                          MASTER_PORT=str(mesh.free_port()))
+    joined = mesh.init_distributed(DEVICE)
+    info = dict(group=joined)
+    if joined:
+        import torch.distributed as dist
+
+        t = torch.arange(6.0, device=DEVICE).reshape(3, 2).requires_grad_()
+        s = mesh.all_reduce_sum(t)
+        gathered = mesh.all_gather_rows(t)
+        (s.sum() + gathered.sum()).backward()
+        info.update(backend=str(dist.get_backend()),
+                    world=dist.get_world_size(),
+                    collectives_ok=bool(torch.equal(s, t) and torch.equal(
+                        gathered, t) and torch.equal(
+                        t.grad, torch.full_like(t, 2.0))))
+    # the same algorithms in both runs: the comparison is of the group
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    cfg = config.apply_precision(config.apply_overrides(
+        config.preset(spec["preset"]), spec["overrides"]))
+    dp_calls = count_dp_calls(mesh)
+    reset_launches()
+    with CaptureEpochs() as fused:
+        run.run_featurizer_stage(cfg, DEVICE)
+    info.update(launches=read_launches(), steps=fused.steps,
+                dp_calls=dp_calls,
+                ms_per_step=fused.seconds[-1] * 1e3 / fused.steps,
+                logs={k: [float(v) for v in vals]
+                      for k, vals in fused.logs[0].items()})
+    if joined:
+        torch.distributed.destroy_process_group()
+    print(json.dumps({"dp_child": info}), flush=True)
+
+
+def dp_run(name: str, group: bool, tmp: str) -> dict:
+    spec = json.dumps(dict(preset=name, group=group, device=DEVICE,
+                           overrides=DP_RUNS[
+        name] + [f"out_dir={tmp}/{int(group)}/out",
+                 f"ckpt_dir={tmp}/{int(group)}/ck"]))
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke;"
+            " chip_smoke.dp_child(sys.argv[2])")
+    res = subprocess.run([sys.executable, "-c", code, str(ROOT), spec],
+                         capture_output=True, text=True, timeout=600,
+                         cwd=ROOT)
+    if res.returncode != 0:
+        raise AssertionError(f"{name} (group={group}) failed: "
+                             f"{res.stderr[-4000:]}")
+    line = [ln for ln in res.stdout.splitlines()
+            if ln.startswith('{"dp_child"')][-1]
+    return json.loads(line)["dp_child"]
+
+
+# the data-parallel calls each run must make: every step's gradient
+# average and log reduction, draws; BatchNorm's statistics and the
+# contrastive gather where the model has them
+DP_NEEDS = {"banana_viz_VIC": ("global_draw", "average_gradients",
+                               "reduce_logs"),
+            "stl10_bince": DP_CALLS}
+
+
+def distributed_path(card: str) -> dict:
+    """Phase 16c: `stl10_bince` and `banana_viz_VIC` featurizer stages at
+    full width (`DP_REDUCED`), each in a subprocess as a world of one
+    NCCL rank (torchrun's environment, `init_distributed`), which trains
+    through the data-parallel step (the global draws, BatchNorm's
+    all-reduced statistics, the contrastive all-gather, the gradient
+    average and the log reduction, each call counted: `DP_NEEDS`), and in
+    one with no process group: every logged step equal bit for bit (in a
+    world of one each collective is an identity and BatchNorm's mean of
+    the ranks' means is the mean: no arithmetic changes; the bf16 towers
+    would turn a last-bit difference into bf16 ulps within a step), the
+    K3 launches and ms a step of each."""
+    out = dict(card=card, reduced=DP_REDUCED)
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in DP_RUNS:
+            runs = {g: dp_run(name, g, f"{tmp}/{name}") for g in (False,
+                                                               True)}
+            grp, alone = runs[True], runs[False]
+            backend = "nccl" if DEVICE == "cuda" else "gloo"
+            if not (grp["group"] and grp["backend"] == backend
+                    and grp["world"] == 1 and grp["collectives_ok"]):
+                raise AssertionError(f"{name}: the group {grp}")
+            steps = grp["steps"]
+            calls = grp["dp_calls"]
+            if not (calls["average_gradients"] == steps
+                    and calls["reduce_logs"] == steps
+                    and all(calls[k] for k in DP_NEEDS[name])):
+                raise AssertionError(f"{name}: the group's run made the "
+                                     f"data-parallel calls {calls} in "
+                                     f"{steps} steps")
+            if set(grp["logs"]) != set(alone["logs"]):
+                raise AssertionError(f"{name}: logged {sorted(grp['logs'])}"
+                                     f" vs {sorted(alone['logs'])}")
+            differ = {k: (v, alone["logs"][k])
+                      for k, v in grp["logs"].items()
+                      if v != alone["logs"][k]}
+            row = dict(steps=steps, dp_calls=calls,
+                       logs_bit_equal=not differ,
+                       max_abs_log_diff=max(
+                           float(np.abs(np.subtract(v, alone["logs"][k]))
+                                 .max()) for k, v in grp["logs"].items()),
+                       k3_launches={k: grp["launches"][k] for k in
+                                    ("eb_likelihood", "eb_likelihood_bwd")},
+                       ms_per_step_group=grp["ms_per_step"],
+                       ms_per_step_alone=alone["ms_per_step"])
+            out[name] = row
+            print(f"distributed {name}: {row}", flush=True)
+            if differ:
+                raise AssertionError(f"{name}: the data-parallel step in a "
+                                     f"world of one changed the logs: "
+                                     f"{differ}")
+            check_launches(grp["launches"], f"{name} in a world of one")
+    print(json.dumps({"distributed_path": out}), flush=True)
+    return out
+
+
+def knobs_and_mesh_path(card: str, timings: dict) -> dict:
+    """Phase 16: the knobs (16a; `timings`: phase 3's), the hub mesh
+    (16b), the distributed training (16c)."""
+    t0 = time.perf_counter()
+    out = dict(bf16_softmax=bf16_softmax_checks(timings),
+               encode=encode_under_knobs(card), remat=remat_step(card),
+               hub_mesh=hub_mesh(card), distributed=distributed_path(card))
+    print(f"phase 16: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3934,7 +4495,7 @@ def main() -> int:
             print(f"ptxas {name} {fn}: {info}", flush=True)
     # the RN50 pool's instantiation: K2 in fp32 on the 16-byte path
     for fn, info in ptxas["attention"].items():
-        if "k2_attention_kernel<float, true>" in fn:
+        if "k2_attention_kernel<float, true, false>" in fn:
             print(f"ptxas K2 fp32 16-byte path: {info.get('registers')} "
                   f"registers, {info.get('spill_stores', 0)} bytes spill "
                   f"stores, {info.get('spill_loads', 0)} bytes spill loads, "
@@ -3963,6 +4524,7 @@ def main() -> int:
     image_launches = image_path(card)
     stl10_launches = stl10_path(card)
     ssl_launches = ssl_path(card)
+    knobs = knobs_and_mesh_path(card, timings)
 
     attention_cu = "lossyless_tpu_torch/nn/csrc/attention.cu"
     eb_cu = "lossyless_tpu_torch/coding/csrc/eb_likelihood.cu"
@@ -4012,8 +4574,10 @@ def main() -> int:
                    replaces=replaces[name], **counts, **timings[name])
         # registers and spills of the kernel's instantiations
         if name in ("fused_attention", "fused_attention_cls"):
+            # the fp32-softmax instantiations (the bf16 ones: their rows)
             row["ptxas"] = {fn: info for fn, info in ptxas["attention"].items()
-                            if k1_k2_kernel(fn) == name}
+                            if k1_k2_kernel(fn) == name
+                            and not bf16_softmax_instance(fn)}
         elif name in NO_K5:
             row["ptxas"] = {fn: info for fn, info in ptxas["attention"].items()
                             if k5_kernel(fn, name)}
@@ -4024,6 +4588,23 @@ def main() -> int:
             row["ptxas"] = {fn: info for fn, info in
                             ptxas["eb_likelihood"].items()
                             if ("eb_likelihood_bwd_kernel" in fn) == bwd}
+        kernels.append(row)
+    # phase 16: K1's and K2's bf16-softmax instantiations, launched on the
+    # encode under SOFTMAX_DTYPE=bfloat16
+    bf16_launches = knobs["encode"]["bf16_softmax"]["launches"]
+    for name, base in zip(BF16_SOFTMAX, ("fused_attention",
+                                         "fused_attention_cls")):
+        timed = knobs["bf16_softmax"][base]
+        row = dict(name=name, route="cuda", source=attention_cu,
+                   replaces=replaces[base] + " (SOFTMAX_DTYPE=bfloat16)",
+                   launches=bf16_launches[base], **timed["b512"])
+        row["at_b256"] = timed[f"b{BATCH}"]
+        row["max_abs_err_over_checks"] = timed["max_abs_err_over_checks"]
+        if base == "fused_attention_cls":
+            row["rn50_pool_fp32"] = timed["rn50_pool_fp32"]
+        row["ptxas"] = {fn: info for fn, info in ptxas["attention"].items()
+                        if k1_k2_kernel(fn) == base
+                        and bf16_softmax_instance(fn)}
         kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -4,6 +4,7 @@ CUDA card.
     python -m lossyless_tpu_torch.bench               # device-resident
     python -m lossyless_tpu_torch.bench --host-fed    # compress_dataset
     python -m lossyless_tpu_torch.bench --folder-fed  # JPEG folder (PIL)
+    python -m lossyless_tpu_torch.bench --softmax-dtype bfloat16  # knobs
 
 Counterpart of the JAX package's root `bench.py`, with its protocol and
 its JSON keys where they mean the same thing on this card. It prints the
@@ -35,6 +36,13 @@ card's name and power limit on a line of its own, then ONE JSON line.
   temporary directory (`BENCH_FOLDER_DIR` to keep them), decoded by the
   prefetching loader, then the host-fed path. Needs PIL.
 
+Opt-in knob, for an A/B against the default line (it adds its key to
+the record; the default line and its keys are unchanged without it):
+`--softmax-dtype bfloat16` sets `nn.flash_attn.SOFTMAX_DTYPE` (K1's and
+K2's bf16 softmax chain). The bench's tower is bf16, where the tower's
+`ln_dtype=bfloat16` gives the default's output bit for bit, so it has no
+flag.
+
 The rate model is synthetic (seeded entropy-bottleneck parameters, no
 published weights in the checkout) and the tower's weights are random:
 `rate_is_synthetic` is true and `bits_per_img` is not a published rate.
@@ -45,6 +53,7 @@ implementation's own 347.82 img/s encode (its README).
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -418,14 +427,27 @@ def main_folder_fed(device=None) -> dict:
 
 
 def main(argv=None) -> int:
-    argv = sys.argv[1:] if argv is None else argv
-    if "--host-fed" in argv:
-        fn = main_host_fed
-    elif "--folder-fed" in argv:
-        fn = main_folder_fed
-    else:
-        fn = main_device_resident
-    record = fn()
+    from .nn import flash_attn
+
+    p = argparse.ArgumentParser(prog="python -m lossyless_tpu_torch.bench")
+    mode = p.add_mutually_exclusive_group()
+    mode.add_argument("--host-fed", action="store_true")
+    mode.add_argument("--folder-fed", action="store_true")
+    p.add_argument("--softmax-dtype", choices=["float32", "bfloat16"],
+                   help="K1's and K2's softmax chain (SOFTMAX_DTYPE)")
+    args = p.parse_args(sys.argv[1:] if argv is None else argv)
+    fn = main_host_fed if args.host_fed else \
+        main_folder_fed if args.folder_fed else main_device_resident
+    knobs = {"softmax_dtype": args.softmax_dtype} if args.softmax_dtype \
+        else {}
+    saved = flash_attn.SOFTMAX_DTYPE
+    if args.softmax_dtype:
+        flash_attn.SOFTMAX_DTYPE = getattr(torch, args.softmax_dtype)
+    try:
+        record = fn()
+    finally:
+        flash_attn.SOFTMAX_DTYPE = saved
+    record.update(knobs)
     print(card_line(), flush=True)
     print(json.dumps(record), flush=True)
     return 0

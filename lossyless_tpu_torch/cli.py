@@ -17,6 +17,12 @@ Modes: `--dev` caps the epochs at 2 and the batches at 10% (train) and
 anomaly detection on (it raises at the op that made a NaN); `--overfit`
 10% of the batches. Not ported: `--classical` (ROADMAP queue 1 item 11)
 and `--profile-dir` (item 10, `core/profiling`).
+
+Data parallelism: `trainer.n_devices=N` trains over N ranks, spawned by
+the pipeline (one a card, or N gloo processes with `--device cpu`); under
+torchrun (`torchrun --nproc-per-node N -m lossyless_tpu_torch.cli ...
+trainer.n_devices=N`) each process joins the group torchrun describes
+before anything touches a device, and only rank 0 prints.
 """
 
 from __future__ import annotations
@@ -61,11 +67,15 @@ def _parser(presets: list[str]) -> argparse.ArgumentParser:
 
 
 def main(argv=None):
+    from .core.mesh import init_distributed, rank_world
     from .pipeline.config import (ExperimentConfig, apply_overrides,
                                   available_presets, preset)
 
     # options may come between the overrides (`banana_RD -m --dev a=1 b=2`)
     args = _parser(available_presets()).parse_intermixed_args(argv)
+    # torchrun's group (a no-op without its environment), before any use
+    # of a device
+    init_distributed(args.device)
     if args.classical:
         raise NotImplementedError(
             "--classical (the classical codec baselines) is not ported yet "
@@ -94,8 +104,9 @@ def main(argv=None):
 
     cfg = apply_overrides(cfg, args.overrides)
     metrics = _run(cfg, args)
-    print(json.dumps({k: (round(v, 6) if isinstance(v, float) else v)
-                      for k, v in metrics.items()}, indent=2))
+    if rank_world()[0] == 0:
+        print(json.dumps({k: (round(v, 6) if isinstance(v, float) else v)
+                          for k, v in metrics.items()}, indent=2))
     return metrics
 
 

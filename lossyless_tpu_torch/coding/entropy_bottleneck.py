@@ -22,6 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core import mesh
 from ..core.math import abs_jax, lower_bound
 
 LIKELIHOOD_BOUND = 1e-9
@@ -144,9 +145,11 @@ def forward(params: dict, z: torch.Tensor, *, training: bool,
     if training:
         if generator is None:
             raise ValueError("training=True needs a generator for the noise")
-        # U(-0.5, 0.5), drawn from the caller's generator
-        noise = torch.rand(z.shape, generator=generator,
-                           dtype=torch.float32, device=z.device) - 0.5
+        # U(-0.5, 0.5), drawn from the caller's generator (the global
+        # batch's draw in a data-parallel step)
+        noise = mesh.global_draw(
+            lambda s: torch.rand(s, generator=generator, dtype=torch.float32,
+                                 device=z.device), tuple(z.shape)) - 0.5
     z_hat = quantize(params, z, "noise" if training else "dequantize", noise)
     lik = likelihood(params, z_hat)
     lik = lower_bound(lik, LIKELIHOOD_BOUND)

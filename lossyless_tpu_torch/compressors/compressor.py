@@ -44,6 +44,7 @@ from typing import Any, Sequence
 import torch
 from torch import nn
 
+from ..core import mesh
 from ..core.annealer import Annealer
 from ..nn.layers import merge_stats as _merge_stats
 from ..nn.layers import params_from_flax as tree_params_from_flax
@@ -224,6 +225,18 @@ class LearnableCompressor(nn.Module):
         two-view step takes each as the pair (anchor's, positive's), and
         `concat_views` concatenates each pair into the 2B batch's.
         """
+        c = self.cfg
+        fuse_views = (c.distortion.mode == "contrastive"
+                      and not c.distortion.is_already_featurized
+                      and c.distortion.concat_views)
+        # a data-parallel step's draws over the two views' 2B batch
+        with mesh.views(2 if fuse_views else 1):
+            return self._step(x, targets, aux_target, training=training,
+                              step=step, generator=generator, noise=noise,
+                              eps=eps, is_rate_only=is_rate_only)
+
+    def _step(self, x, targets, aux_target, *, training: bool, step: int,
+              generator, noise, eps, is_rate_only: bool):
         c = self.cfg
         is_two_view = (c.distortion.mode == "contrastive"
                        and not c.distortion.is_already_featurized)

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core import mesh
 from ..core.math import abs_jax
 from ..nn.mlp import MLP
 from ..nn.registry import get_architecture
@@ -142,7 +143,13 @@ class ContrastiveDistortion(nn.Module):
     temperature is 1 / min(exp(logit_scale), 1 / temperature), written
     with `torch.minimum` so that the bound splits the gradient in half as
     `jnp.clip` does; the self-similarity is masked with -inf after the
-    division, so the mask never reaches the temperature's gradient."""
+    division, so the mask never reaches the temperature's gradient.
+
+    In a data-parallel step (`core.mesh.data_parallel`) the batch is the
+    global one, as under JAX's pjit: each view's rows are gathered from
+    every rank in rank order (`all_gather_rows`, the reference's
+    `GatherFromGpus`), which rebuilds the one-device batch as the keys;
+    the rank's own rows are the queries."""
 
     def __init__(self, z_dim: int, cfg: DistortionConfig = DistortionConfig(
             mode="contrastive"), generator: torch.Generator | None = None):
@@ -167,9 +174,20 @@ class ContrastiveDistortion(nn.Module):
             # projector's output) gets a finite, zero gradient
             zs = zs / torch.sqrt((zs * zs).sum(-1, keepdim=True) + 1e-12)
 
-        n = 2 * batch_size
-        logits = zs @ zs.T
-        pos_idx = (torch.arange(n, device=zs.device) + batch_size) % n
+        dp = mesh.active()
+        if dp is None:
+            keys = zs
+            q_idx = torch.arange(2 * batch_size, device=zs.device)
+        else:       # the global batch's rows as keys, this rank's as queries
+            rank, world = dp[:2]
+            keys = torch.cat([mesh.all_gather_rows(zs[:batch_size]),
+                              mesh.all_gather_rows(zs[batch_size:])])
+            mine = torch.arange(rank * batch_size, (rank + 1) * batch_size,
+                                device=zs.device)
+            q_idx = torch.cat([mine, mine + world * batch_size])
+        n = keys.shape[0]
+        logits = zs @ keys.T
+        pos_idx = (q_idx + n // 2) % n
         n_classes = n - 1
         if c.effective_batch_size is not None:
             effective_n_classes = 2 * c.effective_batch_size - 1
@@ -185,7 +203,7 @@ class ContrastiveDistortion(nn.Module):
         else:
             temperature = c.temperature
         logits = logits / temperature
-        self_mask = torch.eye(n, dtype=torch.bool, device=zs.device)
+        self_mask = q_idx[:, None] == torch.arange(n, device=zs.device)
         logits = logits.masked_fill(self_mask, -math.inf)
 
         logp = F.log_softmax(logits, dim=-1)

@@ -17,6 +17,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..core import mesh
+
 MIN_STD = 1e-5
 
 
@@ -54,9 +56,12 @@ class DiagGaussian:
     n_param = 2
 
     def rsample(self, generator: torch.Generator | None = None, eps=None):
-        if eps is None:
-            eps = torch.randn(self.loc.shape, generator=generator,
-                              dtype=self.loc.dtype, device=self.loc.device)
+        if eps is None:   # the global batch's draw in a data-parallel step
+            eps = mesh.global_draw(
+                lambda s: torch.randn(s, generator=generator,
+                                      dtype=self.loc.dtype,
+                                      device=self.loc.device),
+                tuple(self.loc.shape))
         return self.loc + self.scale * eps
 
     @property

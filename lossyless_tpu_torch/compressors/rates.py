@@ -32,6 +32,7 @@ from ..coding import eb_kernel
 from ..coding import entropy_bottleneck as eb
 from ..coding import gaussian_conditional as gc
 from ..coding.rans import RansCodec
+from ..core import mesh
 from ..core.math import lower_bound
 from ..nn.mlp import MLP
 from .distributions import DiagGaussian, detach, kl_unit_gaussian
@@ -58,11 +59,14 @@ class RateConfig:
 
 def uniform_noise(shape, generator: torch.Generator | None,
                   device) -> torch.Tensor:
-    """U(-0.5, 0.5) fp32 noise from `generator` (on `device`)."""
+    """U(-0.5, 0.5) fp32 noise from `generator` (on `device`); in a
+    data-parallel step, this rank's rows of the global batch's draw
+    (`core.mesh.global_draw`)."""
     if generator is None:
         raise ValueError("training needs a generator (or the noise tensor)")
-    return torch.rand(shape, generator=generator, dtype=torch.float32,
-                      device=device) - 0.5
+    return mesh.global_draw(
+        lambda s: torch.rand(s, generator=generator, dtype=torch.float32,
+                             device=device), tuple(shape)) - 0.5
 
 
 class EntropyBottleneckModule(nn.Module):

@@ -37,6 +37,8 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
+from ..core import mesh
+
 # (degrees, translate (x, y) fractions, scale range, shear degrees) of
 # each affine-family augmentation
 _AFFINE_PARAMS = {
@@ -54,8 +56,10 @@ _AFFINE_PARAMS = {
 
 
 def _uniform(generator: torch.Generator, b: int, lo=0.0, hi=1.0):
-    """(b,) fp32 draws from U(lo, hi) on the generator's device."""
-    u = torch.rand(b, generator=generator, device=generator.device)
+    """(b,) fp32 draws from U(lo, hi) on the generator's device (in a
+    data-parallel epoch, this rank's rows of the global batch's draw)."""
+    u = mesh.global_draw(lambda s: torch.rand(
+        s, generator=generator, device=generator.device), (b,))
     return u * (hi - lo) + lo
 
 

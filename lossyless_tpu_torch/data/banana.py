@@ -28,6 +28,8 @@ import math
 import numpy as np
 import torch
 
+from ..core import mesh
+
 # uniform translation ranges of the device sampler (the 10% and 90%
 # quantiles of the source along x and y, precomputed from 1e6 samples)
 TRANSLATION_RANGE = {0: (-3.30, 2.59), 1: (-3.03, 1.93)}
@@ -82,11 +84,14 @@ def device_sample_batch(generator: torch.Generator, batch_size: int,
 
     Draws, in order: the base normals, then one uniform a sample for the
     resampled input ("representative") or the positive ("equiv_x"). The
-    constants enter as Python scalars: nothing is copied to the device.
+    constants enter as Python scalars: nothing is copied to the device. In
+    a data-parallel epoch `batch_size` is a rank's rows: each draw is the
+    global batch's, this rank's rows kept (`core.mesh.global_draw`).
     """
     device = generator.device
     d = BananaDistribution()
-    n = torch.randn(batch_size, 2, generator=generator, device=device)
+    n = mesh.global_draw(lambda s: torch.randn(
+        s, generator=generator, device=device), (batch_size, 2))
     curv, fac = d.curvature / d.scale, d.factor * d.scale
     x0 = n[:, 0] * fac
     x1 = n[:, 1] * d.scale + curv * (x0 ** 2 - fac ** 2)
@@ -95,7 +100,8 @@ def device_sample_batch(generator: torch.Generator, batch_size: int,
                      s * x0 + c * x1 + d.location[1] * d.scale], -1)
 
     def uniform(lo: float, hi: float):
-        u = torch.rand(batch_size, generator=generator, device=device)
+        u = mesh.global_draw(lambda s: torch.rand(
+            s, generator=generator, device=device), (batch_size,))
         return u * (hi - lo) + lo
 
     if equivalence == "rotation":

@@ -37,6 +37,7 @@ from typing import ClassVar, Sequence
 import numpy as np
 import torch
 
+from ..core import mesh
 from .augmentations import make_augmenter
 from .label_augment import EquivariantRandomResizedCrop
 
@@ -347,7 +348,9 @@ class ImageSampler:
     chain, the label augmentation, an equiv_x positive's chain), all from
     the caller's generator on that device; `build` turns given draws into
     the batch, so a test can hand it JAX's. The normalization contract is
-    `batches()`'s."""
+    `batches()`'s. In a data-parallel epoch (`core.mesh.data_parallel`)
+    `batch_size` is a rank's rows: every draw is the global batch's, and
+    the rank keeps its rows of each (`core.mesh.global_draw`)."""
 
     def __init__(self, ds: ImageDataset, batch_size: int):
         self.ds, self.batch_size = ds, batch_size
@@ -363,8 +366,9 @@ class ImageSampler:
 
     def __call__(self, generator: torch.Generator):
         data, _ = self._stage(generator.device)
-        idx = torch.randint(0, len(data), (self.batch_size,),
-                            generator=generator, device=generator.device)
+        idx = mesh.global_draw(lambda s: torch.randint(
+            0, len(data), s, generator=generator, device=generator.device),
+            (self.batch_size,))
         x_draw, label_draw, aux_draw = self.ds.draws(
             generator, (self.batch_size,) + tuple(data.shape[1:]))
         return self.build(idx, x_draw, aux_draw, label_draw)

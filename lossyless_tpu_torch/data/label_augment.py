@@ -22,6 +22,7 @@ import dataclasses
 
 import torch
 
+from ..core import mesh
 from .augmentations import ResizedCrop, _bernoulli, _uniform
 
 
@@ -61,9 +62,9 @@ class EquivariantRandomResizedCrop:
         return {"which": which,
                 "crops": [c.draw(generator, shape) for c in self.crops],
                 "flip": _bernoulli(generator, b, self.p),
-                "new_y": torch.randint(0, self.num_classes, (b,),
-                                       generator=generator,
-                                       device=generator.device)}
+                "new_y": mesh.global_draw(lambda s: torch.randint(
+                    0, self.num_classes, s, generator=generator,
+                    device=generator.device), (b,))}
 
     def apply(self, batch: torch.Tensor, labels: torch.Tensor,
               draw: dict):

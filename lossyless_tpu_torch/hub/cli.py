@@ -27,7 +27,8 @@ resize and normalize run on the card with `--device-preprocess H W`.
 `convert_openai_clip_weights`; without it the tower is randomly
 initialized (features are then not CLIP embeddings). `--beta` names a
 published rate model (`hub/load_reference.py`). The compressor runs on the
-card unless `--device` names another device.
+card unless `--device` names another device; `--mesh N` encodes over N
+cards (`ClipCompressor(mesh=...)`), with the same streams.
 """
 
 from __future__ import annotations
@@ -99,10 +100,6 @@ def _build_compressor(args):
 
     from .compressor import load_pretrained
 
-    if getattr(args, "mesh", 0) > 1:
-        raise SystemExit(
-            f"--mesh {args.mesh}: multi-GPU encode is not ported yet "
-            f"(ROADMAP queue 1 order 8); use --mesh 0 (one card)")
     dtype = getattr(torch, args.dtype)
     clip_sd = None
     if args.clip_weights:
@@ -111,6 +108,12 @@ def _build_compressor(args):
         if isinstance(clip_sd, dict) and "state_dict" in clip_sd:
             clip_sd = clip_sd["state_dict"]
     kwargs = {"device": args.device}
+    if getattr(args, "mesh", 0):
+        # N CUDA devices, or N replicas on the CPU with --device cpu
+        from ..core.mesh import make_mesh
+
+        kwargs["mesh"] = (make_mesh(devices=["cpu"] * args.mesh)
+                          if args.device == "cpu" else make_mesh(args.mesh))
     if args.arch == "tiny":
         # smoke-test tower (512-d output so the published rate weights fit)
         from ..nn.vit import VisionTransformer
@@ -256,8 +259,9 @@ def main(argv=None) -> int:
                          "slightly different pixels than full-resolution "
                          "decode)")
     pc.add_argument("--mesh", type=int, default=0,
-                    help="shard encode batches over N cards (0 = one "
-                         "card; N > 1 is not ported yet)")
+                    help="shard encode batches over N cards (N CPU "
+                         "replicas with --device cpu; 0 = one device); "
+                         "streams are identical for any mesh size")
     _add_model_flags(pc)
     pc.set_defaults(fn=cmd_compress)
 

@@ -16,12 +16,24 @@ symbols are copied into pinned host memory asynchronously behind a CUDA
 event, the previous batch is drained with `event.synchronize()` (a blocking
 `.cpu()` would also wait for the batch queued after it on the same stream),
 and rANS runs on a one-thread pool while the card computes.
+
+With `mesh=` (`core/mesh.py::make_mesh`) one process encodes over several
+devices, as JAX's `shard_map` body does, with no collectives: a replica of
+the tower (and of the rate's parameters) per mesh entry, a batch padded to
+a multiple of the mesh size by repeating its last row (JAX's
+`_pad_for_mesh`), split in order, each shard launched on its replica's
+device and stream, the symbols (or features) gathered in order on the
+first device and the pad dropped; rANS codes the whole batch as before.
+`__call__`, `compress`, `compress_dataset` and `get_rate` take that path;
+decode is host work and does not change.
 """
 
 from __future__ import annotations
 
+import copy
 import time
 from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
 from pathlib import Path
 from typing import Iterable
 
@@ -59,14 +71,21 @@ class ClipCompressor:
     table_arithmetic : "compressai" (default; CompressAI's fp32 table build,
         so streams cross-decode with the reference) or "float64".
     device : "cuda" unless given; raises if CUDA is absent and no device
-        was asked for.
+        was asked for. With a mesh, its first device unless given.
+    mesh : a `core.mesh.Mesh`: encode over its devices (module docstring);
+        the streams equal one device's.
     """
 
     def __init__(self, eb_params, scaling, biasing, clip_params=None,
                  dtype=torch.bfloat16, seed: int = 0, model=None,
                  raw_input_hw: tuple | None = None,
-                 table_arithmetic: str = "compressai", device=None):
+                 table_arithmetic: str = "compressai", device=None,
+                 mesh=None):
+        self.mesh = mesh
+        if device is None and mesh is not None:
+            device = mesh.devices[0]
         self.device = resolve_device(device)
+        self._replicas = None
         self.z_dim = 512
         self.raw_input_hw = tuple(raw_input_hw) if raw_input_hw else None
         if model is None:
@@ -115,11 +134,36 @@ class ClipCompressor:
         self._tower_ready = True
 
     def _ensure_tower(self):
-        """Random-init the tower (seeded, on the CPU) at first encode use."""
+        """Random-init the tower (seeded, on the CPU) at first encode use;
+        then the mesh's replicas."""
         if not self._tower_ready:
             self._materialize()
             self.model.init_weights(torch.Generator().manual_seed(self._seed))
             self._place_tower()
+        if self._replicas is None:
+            self._replicas = [_Replica(self.model, self.eb_params,
+                                       self.scaling, self.biasing,
+                                       self.device, None)]
+            if self.mesh is not None:
+                devices = [resolve_device(d) for d in self.mesh.devices]
+                # the first entry on `self.device` runs the tower itself
+                own = devices.index(self.device) \
+                    if self.device in devices else -1
+                self._replicas = [self._replica(d, i == own)
+                                  for i, d in enumerate(devices)]
+
+    def _replica(self, device, own: bool) -> "_Replica":
+        """The tower and the rate's parameters on `device` (`own`: this
+        compressor's, else a copy), with a CUDA stream of its own there."""
+        stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+        if own:
+            return _Replica(self.model, self.eb_params, self.scaling,
+                            self.biasing, device, stream)
+        return _Replica(
+            copy.deepcopy(self.model).to(device),
+            {k: v.to(device) for k, v in self.eb_params.items()},
+            self.scaling.to(device), self.biasing.to(device), device,
+            stream)
 
     def _to_device(self, x) -> torch.Tensor:
         t = x if isinstance(x, torch.Tensor) else \
@@ -132,21 +176,57 @@ class ClipCompressor:
     def _maybe_preprocess(self, x):
         return x if self.raw_input_hw is None else self.preprocess_batch(x)
 
-    def _process_z_in(self, z):
-        return (z.float() + self.biasing) * torch.exp(self.scaling)
+    def _z_in(self, x, r: "_Replica"):
+        """The tower's embedding of x on replica r, through the affine."""
+        z = r.model(self._maybe_preprocess(x))
+        return (z.float() + r.biasing) * torch.exp(r.scaling)
 
-    def _process_z_out(self, z_hat):
-        return z_hat / torch.exp(self.scaling) - self.biasing
+    def _symbols_on(self, x, r: "_Replica"):
+        med = eb.medians(r.eb_params)[None, :]
+        return torch.round(self._z_in(x, r) - med).to(torch.int32)
+
+    def _features_on(self, x, r: "_Replica"):
+        z_hat = eb.quantize(r.eb_params, self._z_in(x, r), "dequantize")
+        return z_hat / torch.exp(r.scaling) - r.biasing
 
     def _encode_symbols(self, x):
-        z_in = self._process_z_in(self.model(self._maybe_preprocess(x)))
-        med = eb.medians(self.eb_params)[None, :]
-        return torch.round(z_in - med).to(torch.int32)
+        """int32 symbols of a device batch (over the mesh when there is
+        one)."""
+        return self._over_mesh(self._symbols_on, x)
 
     def _features(self, x):
-        z_in = self._process_z_in(self.model(self._maybe_preprocess(x)))
-        z_hat = eb.quantize(self.eb_params, z_in, "dequantize")
-        return self._process_z_out(z_hat)
+        return self._over_mesh(self._features_on, x)
+
+    def _over_mesh(self, fn, x):
+        """`fn(shard, replica)` over the replicas: x padded to a multiple
+        of the mesh size with its last row, split in order, each shard on
+        its replica's device and stream; the outputs gathered in order on
+        the first device, the pad dropped. One replica: `fn(x)`."""
+        if len(self._replicas) == 1:
+            return fn(x, self._replicas[0])
+        n, B = len(self._replicas), x.shape[0]
+        pad = (-B) % n
+        if pad:
+            x = torch.cat([x, x[-1:].expand(pad, *x.shape[1:])])
+        per = x.shape[0] // n
+        cuda = x.device.type == "cuda"
+        main = torch.cuda.current_stream(x.device) if cuda else None
+        outs = []
+        for i, r in enumerate(self._replicas):
+            shard = x[i * per:(i + 1) * per]
+            if r.stream is None:
+                outs.append(fn(shard.to(r.device), r))
+                continue
+            r.stream.wait_stream(main)       # x is ready
+            x.record_stream(r.stream)        # and read there
+            with torch.cuda.stream(r.stream):
+                outs.append(fn(shard.to(r.device, non_blocking=True), r))
+        for r, out in zip(self._replicas, outs):
+            if r.stream is not None:
+                main.wait_stream(r.stream)
+                out.record_stream(main)
+        out = torch.cat([o.to(self.device, non_blocking=True) for o in outs])
+        return out[:B]
 
     def _start_readback(self, dev: torch.Tensor):
         """Copy device symbols into pinned host memory without blocking."""
@@ -273,6 +353,18 @@ class ClipCompressor:
         on the input's device."""
         x = torch.as_tensor(x_uint8_nhwc).float() / 255.0
         return clip_preprocess(x)
+
+
+@dataclass
+class _Replica:
+    """One mesh entry's tower and rate parameters, device and stream."""
+
+    model: torch.nn.Module
+    eb_params: dict
+    scaling: torch.Tensor
+    biasing: torch.Tensor
+    device: torch.device
+    stream: "torch.cuda.Stream | None"
 
 
 def load_pretrained(beta: str = "b005", clip_state_dict=None,

@@ -27,7 +27,11 @@
 // p / sum, rounded to the io dtype, then P.V accumulated in fp32 and stored
 // in the io dtype. No flash-style rescaling of an unnormalized accumulator:
 // that would move the rounding point. io dtype is bf16 or fp32, head dim
-// d <= 128, N limited only by shared memory.
+// d <= 128, N limited only by shared memory. With SOFTMAX_DTYPE=bfloat16
+// K1's three designs and K2 (both io dtypes) instantiate the TPU kernels'
+// bf16 softmax chain instead (kBf16Sm, `sm_logit` below); the bytes, and
+// so the bounds, are the same. K5a and K5b keep fp32: JAX refuses a bf16
+// softmax there, and so does the host.
 //
 // Bounds on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense) at the CLIP
 // ViT-B/32 shapes B=512, N=50, h=12, d=64, bf16:
@@ -207,6 +211,42 @@ __device__ __forceinline__ bf16 from_f32<bf16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
+// SOFTMAX_DTYPE (flash_attn.py's knob, JAX flash_attn.py:99-108). The
+// designs of K1 and K2 take it as the compile-time flag kBf16Sm, which runs
+// the TPU kernels' bf16 chain (_attn_kernel :55-69, _attn_cls_kernel
+// :330-343) at each of its rounding points: the fp32 logit rounded to
+// bf16, times the bf16-rounded scale, rounded; the row max; l - max
+// rounded, its exp rounded; the exps summed in fp32 (jnp.sum upcasts bf16)
+// and the sum rounded once; e / s rounded. The sum's order is the design's
+// own. Without the flag every step is fp32 (the parity default).
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+template <bool kBf16Sm>
+__device__ __forceinline__ float sm_logit(float acc, float scale) {
+  if constexpr (kBf16Sm)
+    return bf16_round(bf16_round(acc) * bf16_round(scale));
+  else
+    return acc * scale;
+}
+
+template <bool kBf16Sm>
+__device__ __forceinline__ float sm_exp(float l, float m) {
+  if constexpr (kBf16Sm)
+    return bf16_round(expf(bf16_round(l - m)));
+  else
+    return expf(l - m);
+}
+
+template <bool kBf16Sm>
+__device__ __forceinline__ float sm_round(float x) {
+  if constexpr (kBf16Sm)
+    return bf16_round(x);
+  else
+    return x;
+}
+
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = kWarp / 2; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -280,7 +320,7 @@ __device__ void stage(float* dst, int ld, const T* __restrict__ src,
 // multiple of 4 columns); ps is this warp's kRows x n4 buffer. kMasked
 // (K5a): queries and keys are `seg`-token images stacked, and a logit whose
 // key lies in another image than its query gets -1e9 after the scale.
-template <typename T, bool kMasked>
+template <typename T, bool kMasked, bool kBf16Sm>
 __device__ __forceinline__ void attend_rows(const float* qr, const float* ks,
                                             const float* vs, int ld,
                                             float* ps, int n4, int N, int d,
@@ -310,7 +350,7 @@ __device__ __forceinline__ void attend_rows(const float* qr, const float* ks,
     }
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
-      float l = acc[r] * scale;
+      float l = sm_logit<kBf16Sm>(acc[r], scale);
       if (kMasked && (i0 + r) / seg != j / seg) l += -1e9f;
       ps[r * n4 + j] = l;
       m[r] = fmaxf(m[r], l);
@@ -325,19 +365,20 @@ __device__ __forceinline__ void attend_rows(const float* qr, const float* ks,
   for (int j = lane; j < N; j += kWarp) {
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
-      const float e = expf(ps[r * n4 + j] - m[r]);
+      const float e = sm_exp<kBf16Sm>(ps[r * n4 + j], m[r]);
       ps[r * n4 + j] = e;
       s[r] += e;
     }
   }
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) s[r] = warp_sum(s[r]);
+  for (int r = 0; r < kRows; ++r) s[r] = sm_round<kBf16Sm>(warp_sum(s[r]));
   // normalize, round to the io dtype; the padding keys get probability 0
   for (int j = lane; j < n4; j += kWarp) {
 #pragma unroll
     for (int r = 0; r < kRows; ++r)
       ps[r * n4 + j] =
-          j < N ? to_f32(from_f32<T>(ps[r * n4 + j] / s[r])) : 0.f;
+          j < N ? to_f32(from_f32<T>(sm_round<kBf16Sm>(ps[r * n4 + j] / s[r])))
+                : 0.f;
   }
   __syncwarp();
 
@@ -384,7 +425,7 @@ __device__ __forceinline__ void attend_rows(const float* qr, const float* ks,
 // warp takes 4 query rows at a time. blockIdx.x = image (group), blockIdx.y
 // = head h. q/k/v/out point at head 0 of image 0; the *_batch strides step
 // images, the *_row strides tokens.
-template <typename T, bool kMasked>
+template <typename T, bool kMasked, bool kBf16Sm>
 __device__ __forceinline__ void attention_block(
     const T* __restrict__ q, int64_t q_batch, int64_t q_row, int n_q,
     const T* __restrict__ k, const T* __restrict__ v, int64_t kv_batch,
@@ -410,12 +451,13 @@ __device__ __forceinline__ void attention_block(
   __syncthreads();
   T* ob = out + b * out_batch + hd;
   for (int i0 = warp * kRows; i0 < n_q; i0 += n_warps * kRows)
-    attend_rows<T, kMasked>(qs + i0 * L.ld, ks, vs, L.ld, ps, L.n4, N, d,
+    attend_rows<T, kMasked, kBf16Sm>(qs + i0 * L.ld, ks, vs, L.ld, ps, L.n4,
+                                     N, d,
                             scale, i0, n_q, seg, ob, out_row);
 }
 
 // K1.
-template <typename T>
+template <typename T, bool kBf16Sm>
 __global__ void attention_kernel(const T* __restrict__ q, int64_t q_batch,
                                  int64_t q_row, int n_q,
                                  const T* __restrict__ k,
@@ -423,8 +465,9 @@ __global__ void attention_kernel(const T* __restrict__ q, int64_t q_batch,
                                  int64_t kv_row, T* __restrict__ out,
                                  int64_t out_batch, int64_t out_row, int N,
                                  int d, float scale, bool vec, int seg) {
-  attention_block<T, false>(q, q_batch, q_row, n_q, k, v, kv_batch, kv_row,
-                            out, out_batch, out_row, N, d, scale, vec, 0);
+  attention_block<T, false, kBf16Sm>(q, q_batch, q_row, n_q, k, v, kv_batch,
+                                     kv_row, out, out_batch, out_row, N, d,
+                                     scale, vec, 0);
 }
 
 // K5a on the CUDA cores (fp32): blockIdx.x is a group of images whose
@@ -435,8 +478,9 @@ __global__ void packed_attention_fma_kernel(
     const T* __restrict__ k, const T* __restrict__ v, int64_t kv_batch,
     int64_t kv_row, T* __restrict__ out, int64_t out_batch, int64_t out_row,
     int N, int d, float scale, bool vec, int seg) {
-  attention_block<T, true>(q, q_batch, q_row, n_q, k, v, kv_batch, kv_row,
-                           out, out_batch, out_row, N, d, scale, vec, seg);
+  attention_block<T, true, false>(q, q_batch, q_row, n_q, k, v, kv_batch,
+                                  kv_row, out, out_batch, out_row, N, d,
+                                  scale, vec, seg);
 }
 
 // K5b on the CUDA cores (fp32): blockIdx.x = image b. Passes of `hp`
@@ -474,7 +518,8 @@ __global__ void headbatched_attention_fma_kernel(const T* __restrict__ qkv,
       const int hh = it / groups;
       const int i0 = (it - hh * groups) * kRows;
       const float* r = smem + hh * L.p;
-      attend_rows<T, false>(r + i0 * L.ld, r + L.k, r + L.v, L.ld, ps, L.n4,
+      attend_rows<T, false, false>(r + i0 * L.ld, r + L.k, r + L.v, L.ld, ps,
+                                   L.n4,
                             N, d, scale, i0, N, 0,
                             ob + static_cast<int64_t>(h0 + hh) * d, D);
     }
@@ -869,7 +914,7 @@ __device__ __forceinline__ void onepass_stage(bf16* st, int ld, int tile,
 // (g = lane / 4, t = lane % 4). The output leaves through the warp's own Q
 // rows (its Q fragments are in registers by then): 16-byte stores where
 // `vec`, else element stores from the fragments.
-template <int kKC, int kD16>
+template <int kKC, int kD16, bool kBf16Sm>
 __device__ __forceinline__ void onepass_tile(bf16* qs, const bf16* ks,
                                              const bf16* vs, int N, int d,
                                              float scale, int r0,
@@ -904,14 +949,15 @@ __device__ __forceinline__ void onepass_tile(bf16* qs, const bf16* ks,
     }
   }
 
-  // fp32 softmax over the whole row: scale after the dot, padded keys -inf
+  // softmax over the whole row (fp32, or the bf16 chain): scale after the
+  // dot, padded keys -inf
   float m[2] = {-INFINITY, -INFINITY};
 #pragma unroll
   for (int j = 0; j < kNT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int col = 8 * j + 2 * t + (e & 1);
-      l[j][e] = col < N ? l[j][e] * scale : -INFINITY;
+      l[j][e] = col < N ? sm_logit<kBf16Sm>(l[j][e], scale) : -INFINITY;
       m[e >> 1] = fmaxf(m[e >> 1], l[j][e]);
     }
   float s[2] = {0.f, 0.f};
@@ -924,7 +970,7 @@ __device__ __forceinline__ void onepass_tile(bf16* qs, const bf16* ks,
   for (int j = 0; j < kNT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      l[j][e] = expf(l[j][e] - m[e >> 1]);
+      l[j][e] = sm_exp<kBf16Sm>(l[j][e], m[e >> 1]);
       s[e >> 1] += l[j][e];
     }
   float rs[2];
@@ -932,6 +978,7 @@ __device__ __forceinline__ void onepass_tile(bf16* qs, const bf16* ks,
   for (int h = 0; h < 2; ++h) {
     s[h] += __shfl_xor_sync(0xffffffffu, s[h], 1);
     s[h] += __shfl_xor_sync(0xffffffffu, s[h], 2);
+    s[h] = sm_round<kBf16Sm>(s[h]);
     rs[h] = __frcp_rn(s[h]);
   }
 
@@ -1010,7 +1057,7 @@ __device__ __forceinline__ void onepass_tile(bf16* qs, const bf16* ks,
 // the item. A ring of kStages stages, each Q, K and V of one item: the
 // copies of the next kStages - 1 items are in flight while the warps
 // compute the current one.
-template <int kKC, int kD16>
+template <int kKC, int kD16, bool kBf16Sm>
 __global__ void __launch_bounds__(kKC* kWarp, kD16 <= 4 ? 4 : 2)
     k5_onepass_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
                       int B, int N, int heads, int d, float scale,
@@ -1066,11 +1113,11 @@ __global__ void __launch_bounds__(kKC* kWarp, kD16 <= 4 ? 4 : 2)
     bf16* st = smem_bf16 + (i % kStages) * 3 * kTile;
     b = (first + i) / heads;
     h = first + i - b * heads;
-    onepass_tile<kKC, kD16>(st + warp * 16 * kLd, st + kTile, st + 2 * kTile,
-                            N, d, scale, warp * 16,
-                            out + static_cast<int64_t>(b) * N * D +
-                                static_cast<int64_t>(h) * d,
-                            D, vec);
+    onepass_tile<kKC, kD16, kBf16Sm>(st + warp * 16 * kLd, st + kTile,
+                                     st + 2 * kTile, N, d, scale, warp * 16,
+                                     out + static_cast<int64_t>(b) * N * D +
+                                         static_cast<int64_t>(h) * d,
+                                     D, vec);
     __syncthreads();  // the stage is free for item i + kStages
   }
 }
@@ -1110,7 +1157,7 @@ __host__ __device__ inline size_t tile_smem_bytes(int d) {
 // ...). A consumer waits for an item's stage only after the other has
 // seen the previous item's stage land (turn mbarriers), so every wait by
 // parity on the ring is within one phase of the barrier.
-template <int kDK>
+template <int kDK, bool kBf16Sm>
 __global__ void __launch_bounds__(kTileThreads, 1)
     attention_tile_kernel(const __grid_constant__ CUtensorMap qkv_map,
                           bf16* __restrict__ out, int items, int N,
@@ -1217,12 +1264,13 @@ __global__ void __launch_bounds__(kTileThreads, 1)
     wgmma_wait<0>();
     reg_fence(l);
 
-    // fp32 softmax over the whole row: scale after the dot, keys >= N -inf
+    // softmax over the whole row (fp32, or the bf16 chain): scale after the
+    // dot, keys >= N -inf
     float m[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const int key = 8 * (i >> 2) + 2 * t + (i & 1);
-      l[i] = key < N ? l[i] * scale : -INFINITY;
+      l[i] = key < N ? sm_logit<kBf16Sm>(l[i], scale) : -INFINITY;
       m[(i >> 1) & 1] = fmaxf(m[(i >> 1) & 1], l[i]);
     }
 #pragma unroll
@@ -1233,7 +1281,7 @@ __global__ void __launch_bounds__(kTileThreads, 1)
     float sum[2] = {0.f, 0.f};
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
-      l[i] = expf(l[i] - m[(i >> 1) & 1]);
+      l[i] = sm_exp<kBf16Sm>(l[i], m[(i >> 1) & 1]);
       sum[(i >> 1) & 1] += l[i];
     }
     float rs[2];
@@ -1241,6 +1289,7 @@ __global__ void __launch_bounds__(kTileThreads, 1)
     for (int hh = 0; hh < 2; ++hh) {
       sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 1);
       sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 2);
+      sum[hh] = sm_round<kBf16Sm>(sum[hh]);
       rs[hh] = __frcp_rn(sum[hh]);
     }
     // p = e / s (a reciprocal and one FMA correction: the quotient),
@@ -1366,7 +1415,7 @@ __device__ __forceinline__ void k2_load_pair(float (&v)[2][2],
 // memory; the row code's sum tree; p = e / s rounded to the io dtype; lane
 // l output columns 2l, 2l+1 (and +64), FMA chains over the keys, the V
 // loads of kK2Ahead keys issued together.
-template <typename T, bool kVec>
+template <typename T, bool kVec, bool kBf16Sm>
 __global__ void __launch_bounds__(kK2Warps* kWarp)
     k2_attention_kernel(const T* __restrict__ q0, const T* __restrict__ kv,
                         T* __restrict__ out, int N, int heads, int d,
@@ -1407,7 +1456,7 @@ __global__ void __launch_bounds__(kK2Warps* kWarp)
     } else {
       for (int c = 0; c < d; ++c) acc = fmaf(qs[c], to_f32(kr[c]), acc);
     }
-    const float l = acc * scale;
+    const float l = sm_logit<kBf16Sm>(acc, scale);
     ps[j] = l;
     m = fmaxf(m, l);
   }
@@ -1415,13 +1464,13 @@ __global__ void __launch_bounds__(kK2Warps* kWarp)
   __syncwarp();
   float s = 0.f;
   for (int j = lane; j < N; j += kWarp) {
-    const float e = expf(ps[j] - m);
+    const float e = sm_exp<kBf16Sm>(ps[j], m);
     ps[j] = e;
     s += e;
   }
-  s = warp_sum(s);
+  s = sm_round<kBf16Sm>(warp_sum(s));
   for (int j = lane; j < N; j += kWarp)
-    ps[j] = to_f32(from_f32<T>(ps[j] / s));
+    ps[j] = to_f32(from_f32<T>(sm_round<kBf16Sm>(ps[j] / s)));
   __syncwarp();
 
   float o[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
@@ -1489,9 +1538,11 @@ template <typename T>
 int launch(const void* q, int64_t q_batch, int64_t q_row, int n_q,
            const void* k, const void* v, int64_t kv_batch, int64_t kv_row,
            void* out, int64_t out_batch, int64_t out_row, int B, int N,
-           int heads, int d, float scale, int n_warps, int seg,
+           int heads, int d, float scale, int n_warps, int seg, bool bf16_sm,
            cudaStream_t stream) {
-  auto kernel = seg ? packed_attention_fma_kernel<T> : attention_kernel<T>;
+  auto kernel = seg       ? packed_attention_fma_kernel<T>
+                : bf16_sm ? attention_kernel<T, true>
+                          : attention_kernel<T, false>;
   const size_t smem = smem_bytes(n_q, N, d, n_warps);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1511,7 +1562,7 @@ int dispatch(int dtype, const void* q, int64_t q_batch, int64_t q_row,
              int n_q, const void* k, const void* v, int64_t kv_batch,
              int64_t kv_row, void* out, int64_t out_batch, int64_t out_row,
              int B, int N, int heads, int d, float scale, int n_warps,
-             int seg, int device, void* stream) {
+             int seg, bool bf16_sm, int device, void* stream) {
   if (d < 1 || d > kMaxD || N < 1 || B < 1 || heads < 1 || n_warps < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
@@ -1520,11 +1571,11 @@ int dispatch(int dtype, const void* q, int64_t q_batch, int64_t q_row,
   if (dtype == 0)
     return launch<float>(q, q_batch, q_row, n_q, k, v, kv_batch, kv_row, out,
                          out_batch, out_row, B, N, heads, d, scale, n_warps,
-                         seg, s);
+                         seg, bf16_sm, s);
   if (dtype == 1)
     return launch<bf16>(q, q_batch, q_row, n_q, k, v, kv_batch, kv_row, out,
                         out_batch, out_row, B, N, heads, d, scale, n_warps,
-                        seg, s);
+                        seg, bf16_sm, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1536,8 +1587,9 @@ size_t k2_smem_bytes(int N, int d, int warps) {  // q0 and p, each warp
 template <typename T, bool kVec>
 cudaError_t launch_k2(const void* q0, const void* kv, void* out, int B,
                       int N, int heads, int d, float scale, int warps,
-                      cudaStream_t stream) {
-  auto kernel = k2_attention_kernel<T, kVec>;
+                      bool bf16_sm, cudaStream_t stream) {
+  auto kernel = bf16_sm ? k2_attention_kernel<T, kVec, true>
+                        : k2_attention_kernel<T, kVec, false>;
   const size_t smem = k2_smem_bytes(N, d, warps);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -1556,8 +1608,9 @@ size_t onepass_smem_bytes(int N, int d) {
 template <int kKC, int kD16>
 cudaError_t launch_onepass(const bf16* qkv, bf16* out, int B, int N,
                            int heads, int d, float scale, int per_block,
-                           bool vec, cudaStream_t stream) {
-  auto kernel = k5_onepass_kernel<kKC, kD16>;
+                           bool vec, bool bf16_sm, cudaStream_t stream) {
+  auto kernel = bf16_sm ? k5_onepass_kernel<kKC, kD16, true>
+                        : k5_onepass_kernel<kKC, kD16, false>;
   const size_t smem = onepass_smem_bytes(N, d);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -1570,30 +1623,32 @@ cudaError_t launch_onepass(const bf16* qkv, bf16* out, int B, int N,
 template <int kKC>
 cudaError_t launch_onepass_d(const bf16* qkv, bf16* out, int B, int N,
                              int heads, int d, float scale, int per_block,
-                             bool vec, cudaStream_t s) {
+                             bool vec, bool bf16_sm, cudaStream_t s) {
   switch (onepass_d16(d)) {
     case 2:
       return launch_onepass<kKC, 2>(qkv, out, B, N, heads, d, scale,
-                                    per_block, vec, s);
+                                    per_block, vec, bf16_sm, s);
     case 4:
       return launch_onepass<kKC, 4>(qkv, out, B, N, heads, d, scale,
-                                    per_block, vec, s);
+                                    per_block, vec, bf16_sm, s);
     default:
       return launch_onepass<kKC, 8>(qkv, out, B, N, heads, d, scale,
-                                    per_block, vec, s);
+                                    per_block, vec, bf16_sm, s);
   }
 }
 
 template <int kDK>
 cudaError_t launch_tile(const CUtensorMap& map, bf16* out, int items, int N,
                         int heads, float scale, int blocks, size_t smem,
-                        cudaStream_t stream) {
+                        bool bf16_sm, cudaStream_t stream) {
+  auto kernel = bf16_sm ? attention_tile_kernel<kDK, true>
+                        : attention_tile_kernel<kDK, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      attention_tile_kernel<kDK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  attention_tile_kernel<kDK><<<blocks, kTileThreads, smem, stream>>>(
-      map, out, items, N, heads, scale);
+  kernel<<<blocks, kTileThreads, smem, stream>>>(map, out, items, N, heads,
+                                                 scale);
   return cudaGetLastError();
 }
 
@@ -1607,16 +1662,19 @@ size_t lossyless_attention_smem_bytes(int n_q, int N, int d, int n_warps) {
 }
 
 // K1. qkv (B, N, 3*heads*d) contiguous -> out (B, N, heads*d).
-// dtype: 0 = float32, 1 = bfloat16.
+// dtype: 0 = float32, 1 = bfloat16. softmax_bf16: SOFTMAX_DTYPE's bf16
+// chain (kBf16Sm), else fp32.
 int lossyless_fused_attention(const void* qkv, void* out, int B, int N,
                               int heads, int d, int dtype, float scale,
-                              int n_warps, int device, void* stream) {
+                              int n_warps, int softmax_bf16, int device,
+                              void* stream) {
   const int64_t D = static_cast<int64_t>(heads) * d;
   const size_t es = dtype == 0 ? 4 : 2;
   const char* base = static_cast<const char*>(qkv);
   return dispatch(dtype, base, N * 3 * D, 3 * D, N, base + D * es,
                   base + 2 * D * es, N * 3 * D, 3 * D, out, N * D, D, B, N,
-                  heads, d, scale, n_warps, 0, device, stream);
+                  heads, d, scale, n_warps, 0, softmax_bf16 != 0, device,
+                  stream);
 }
 
 // Shared memory one K2 block of `warps` warps uses.
@@ -1627,11 +1685,12 @@ size_t lossyless_attention_k2_smem_bytes(int N, int d, int warps) {
 // K2. q0 (B, 1, heads*d), kv (B, N, 2*heads*d) contiguous -> out
 // (B, 1, heads*d), one warp per (image, head), `warps` warps a block. vec
 // selects 16-byte loads (refused unless q0, kv and out are 16-byte aligned
-// and d is a whole number of 16-byte chunks).
+// and d is a whole number of 16-byte chunks). softmax_bf16 as K1's.
 int lossyless_fused_attention_cls(const void* q0, const void* kv, void* out,
                                   int B, int N, int heads, int d, int dtype,
                                   float scale, int warps, int vec,
-                                  int device, void* stream) {
+                                  int softmax_bf16, int device,
+                                  void* stream) {
   const int es = dtype == 0 ? 4 : 2;
   if (B < 1 || N < 1 || heads < 1 || d < 1 || d > kMaxD ||
       (dtype != 0 && dtype != 1) || warps < 1 || warps > kK2Warps ||
@@ -1641,16 +1700,17 @@ int lossyless_fused_attention_cls(const void* q0, const void* kv, void* out,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   auto s = static_cast<cudaStream_t>(stream);
+  const bool sm = softmax_bf16 != 0;
   if (dtype == 0)
     err = vec ? launch_k2<float, true>(q0, kv, out, B, N, heads, d, scale,
-                                       warps, s)
+                                       warps, sm, s)
               : launch_k2<float, false>(q0, kv, out, B, N, heads, d, scale,
-                                        warps, s);
+                                        warps, sm, s);
   else
     err = vec ? launch_k2<bf16, true>(q0, kv, out, B, N, heads, d, scale,
-                                      warps, s)
+                                      warps, sm, s)
               : launch_k2<bf16, false>(q0, kv, out, B, N, heads, d, scale,
-                                       warps, s);
+                                       warps, sm, s);
   return static_cast<int>(err);
 }
 
@@ -1675,7 +1735,8 @@ int lossyless_fused_attention_packed(const void* qkv, void* out, int B,
     const char* base = static_cast<const char*>(qkv);
     return dispatch(0, base, M * 3 * D, 3 * D, M, base + D * 4,
                     base + 2 * D * 4, M * 3 * D, 3 * D, out, M * D, D,
-                    B / pack, M, heads, d, scale, n_warps, N, device, stream);
+                    B / pack, M, heads, d, scale, n_warps, N, false, device,
+                    stream);
   }
   if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
@@ -1741,10 +1802,12 @@ size_t lossyless_attention_k5_onepass_smem_bytes(int N, int d) {
 // take runs of `per_block` (image, head) items in image-major order through
 // a ring of kStages stages. vec selects cp.async 16-byte copies and 16-byte
 // stores (refused unless qkv and out are 16-byte aligned and d % 8 == 0).
+// softmax_bf16 as K1's (K5a and K5b pass 0).
 int lossyless_fused_attention_k5_onepass(const void* qkv, void* out, int B,
                                          int N, int heads, int d,
                                          float scale, int per_block,
-                                         int vec, int device, void* stream) {
+                                         int vec, int softmax_bf16,
+                                         int device, void* stream) {
   if (B < 1 || N < 1 || N > kOnePassMaxN || d < 1 || d > kMaxD ||
       heads < 1 || per_block < 1 ||
       static_cast<int64_t>(B) * heads > INT32_MAX ||          // items
@@ -1759,19 +1822,19 @@ int lossyless_fused_attention_k5_onepass(const void* qkv, void* out, int B,
   switch ((N + 15) / 16) {
     case 1:
       err = launch_onepass_d<1>(q, o, B, N, heads, d, scale, per_block,
-                                vec, s);
+                                vec, softmax_bf16 != 0, s);
       break;
     case 2:
       err = launch_onepass_d<2>(q, o, B, N, heads, d, scale, per_block,
-                                vec, s);
+                                vec, softmax_bf16 != 0, s);
       break;
     case 3:
       err = launch_onepass_d<3>(q, o, B, N, heads, d, scale, per_block,
-                                vec, s);
+                                vec, softmax_bf16 != 0, s);
       break;
     default:
       err = launch_onepass_d<4>(q, o, B, N, heads, d, scale, per_block,
-                                vec, s);
+                                vec, softmax_bf16 != 0, s);
       break;
   }
   return static_cast<int>(err);
@@ -1785,10 +1848,11 @@ size_t lossyless_attention_tile_smem_bytes(int d) {
 // K1, K5a and K5b on the tile: qkv (B, N, 3*heads*d) bf16 contiguous ->
 // out (B, N, heads*d), both 16-byte aligned; N <= 64, d a multiple of 16
 // up to 128. The plan's geometry (`blocks` persistent blocks, `smem`
-// bytes) must be this file's.
+// bytes) must be this file's. softmax_bf16 as K1's (K5a and K5b pass 0).
 int lossyless_fused_attention_tile(const void* qkv, void* out, int B, int N,
                                    int heads, int d, float scale, int blocks,
-                                   size_t smem, int device, void* stream) {
+                                   size_t smem, int softmax_bf16, int device,
+                                   void* stream) {
   const int64_t items = static_cast<int64_t>(B) * heads;
   if (B < 1 || N < 1 || N > kTileMaxN || heads < 1 || d < 16 || d % 16 ||
       d > kMaxD || items > INT32_MAX ||
@@ -1806,30 +1870,39 @@ int lossyless_fused_attention_tile(const void* qkv, void* out, int B, int N,
   auto o = static_cast<bf16*>(out);
   auto st = static_cast<cudaStream_t>(stream);
   const int n = static_cast<int>(items);
+  const bool sm = softmax_bf16 != 0;
   switch (d / 16) {
     case 1:
-      err = launch_tile<1>(map, o, n, N, heads, scale, blocks, smem, st);
+      err = launch_tile<1>(map, o, n, N, heads, scale, blocks, smem, sm,
+                           st);
       break;
     case 2:
-      err = launch_tile<2>(map, o, n, N, heads, scale, blocks, smem, st);
+      err = launch_tile<2>(map, o, n, N, heads, scale, blocks, smem, sm,
+                           st);
       break;
     case 3:
-      err = launch_tile<3>(map, o, n, N, heads, scale, blocks, smem, st);
+      err = launch_tile<3>(map, o, n, N, heads, scale, blocks, smem, sm,
+                           st);
       break;
     case 4:
-      err = launch_tile<4>(map, o, n, N, heads, scale, blocks, smem, st);
+      err = launch_tile<4>(map, o, n, N, heads, scale, blocks, smem, sm,
+                           st);
       break;
     case 5:
-      err = launch_tile<5>(map, o, n, N, heads, scale, blocks, smem, st);
+      err = launch_tile<5>(map, o, n, N, heads, scale, blocks, smem, sm,
+                           st);
       break;
     case 6:
-      err = launch_tile<6>(map, o, n, N, heads, scale, blocks, smem, st);
+      err = launch_tile<6>(map, o, n, N, heads, scale, blocks, smem, sm,
+                           st);
       break;
     case 7:
-      err = launch_tile<7>(map, o, n, N, heads, scale, blocks, smem, st);
+      err = launch_tile<7>(map, o, n, N, heads, scale, blocks, smem, sm,
+                           st);
       break;
     default:
-      err = launch_tile<8>(map, o, n, N, heads, scale, blocks, smem, st);
+      err = launch_tile<8>(map, o, n, N, heads, scale, blocks, smem, sm,
+                           st);
       break;
   }
   return static_cast<int>(err);

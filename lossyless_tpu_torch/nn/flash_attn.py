@@ -42,6 +42,11 @@ geometry by `k1_plan`, K5a's and K5b's by `k5_plan`, and K4's by
 `k4_plan`; the CPU tests check each at every shape the card's checks
 run.
 
+The module knob `SOFTMAX_DTYPE` (JAX's, default float32) narrows K1's and
+K2's max / exp / sum chain to bfloat16 at the TPU kernels' rounding
+points, in the plain versions and in every design of the kernels; with
+`IMAGE_PACK > 1` or `HEAD_BATCH` a bf16 softmax raises, as in JAX.
+
 A CPU tensor goes to the plain version (`attention_plain`,
 `attention_packed_plain`, `attention_headbatched_plain`,
 `attention_cls_plain`, `mlp_block_plain`: plain torch with the kernel's
@@ -74,6 +79,11 @@ LAUNCHES = {"fused_attention": 0, "fused_attention_cls": 0,
 IMAGE_PACK = 1
 HEAD_BATCH = False
 BLOCK_LIMIT = 16
+# JAX's SOFTMAX_DTYPE (`flash_attn.py:99-108`): the dtype of K1's and K2's
+# max / exp / sum chain. float32 is the parity default; bfloat16 rounds
+# where the TPU kernels round (`_scaled_softmax_to`), in the plain versions
+# and in every design of the kernels. K5a and K5b refuse it, as JAX does.
+SOFTMAX_DTYPE = torch.float32
 
 MAX_D = 128
 MAX_SMEM = 232448          # bytes of shared memory a Hopper block can use
@@ -108,13 +118,13 @@ def _get_lib():
                 lib.lossyless_attention_smem_bytes.argtypes = [i, i, i, i]
                 lib.lossyless_fused_attention.restype = i
                 lib.lossyless_fused_attention.argtypes = [
-                    p, p, i, i, i, i, i, f, i, i, p]
+                    p, p, i, i, i, i, i, f, i, i, i, p]
                 lib.lossyless_attention_k2_smem_bytes.restype = \
                     ctypes.c_size_t
                 lib.lossyless_attention_k2_smem_bytes.argtypes = [i, i, i]
                 lib.lossyless_fused_attention_cls.restype = i
                 lib.lossyless_fused_attention_cls.argtypes = [
-                    p, p, p, i, i, i, i, i, f, i, i, i, p]
+                    p, p, p, i, i, i, i, i, f, i, i, i, i, p]
                 lib.lossyless_attention_packed_smem_bytes.restype = \
                     ctypes.c_size_t
                 lib.lossyless_attention_packed_smem_bytes.argtypes = [
@@ -135,13 +145,13 @@ def _get_lib():
                     i, i]
                 lib.lossyless_fused_attention_k5_onepass.restype = i
                 lib.lossyless_fused_attention_k5_onepass.argtypes = [
-                    p, p, i, i, i, i, f, i, i, i, p]
+                    p, p, i, i, i, i, f, i, i, i, i, p]
                 lib.lossyless_attention_tile_smem_bytes.restype = \
                     ctypes.c_size_t
                 lib.lossyless_attention_tile_smem_bytes.argtypes = [i]
                 lib.lossyless_fused_attention_tile.restype = i
                 lib.lossyless_fused_attention_tile.argtypes = [
-                    p, p, i, i, i, i, f, i, ctypes.c_size_t, i, p]
+                    p, p, i, i, i, i, f, i, ctypes.c_size_t, i, i, p]
                 _lib = lib
     return _lib
 
@@ -158,11 +168,40 @@ def _softmax_to(logits: torch.Tensor, dtype) -> torch.Tensor:
     return (p / p.sum(dim=-1, keepdim=True)).to(dtype)
 
 
-def attention_plain(qkv: torch.Tensor, heads: int) -> torch.Tensor:
+def softmax_dtype(softmax=None):
+    """The softmax chain's dtype: `softmax`, else the `SOFTMAX_DTYPE`
+    knob; float32 or bfloat16."""
+    sm = SOFTMAX_DTYPE if softmax is None else softmax
+    if sm not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"SOFTMAX_DTYPE must be torch.float32 or "
+                         f"torch.bfloat16, got {sm}")
+    return sm
+
+
+def _scaled_softmax_to(logits: torch.Tensor, scale: float, dtype,
+                       softmax=None) -> torch.Tensor:
+    """K1's and K2's softmax of the fp32 `logits` (the dot, unscaled), cast
+    to the io dtype. In fp32: scaled after the dot, `_softmax_to`. In bf16,
+    the TPU kernels' chain (JAX `_attn_kernel` :55-69): the logits rounded
+    to bf16 times the bf16 scale, rounded; the max; l - max and its exp,
+    each rounded; the exps summed in fp32 (`jnp.sum` upcasts bf16), the sum
+    rounded once; p / sum rounded."""
+    sm = softmax_dtype(softmax)
+    if sm == torch.float32:
+        return _softmax_to(logits * scale, dtype)
+    lg = logits.to(sm) * torch.tensor(scale, dtype=sm)
+    p = torch.exp(lg - lg.amax(dim=-1, keepdim=True))
+    s = p.sum(dim=-1, keepdim=True, dtype=torch.float32).to(sm)
+    return (p / s).to(dtype)
+
+
+def attention_plain(qkv: torch.Tensor, heads: int,
+                    softmax=None) -> torch.Tensor:
     """Plain K1: (B, N, 3D) -> (B, N, D).
 
     q.k accumulates in fp32 and is scaled by d^-1/2 after the dot; softmax
-    in fp32; probabilities cast to the io dtype before an fp32 P.V.
+    in `softmax` (default: the `SOFTMAX_DTYPE` knob; `_scaled_softmax_to`);
+    probabilities cast to the io dtype before an fp32 P.V.
     """
     B, N, threeD = qkv.shape
     D = threeD // 3
@@ -171,8 +210,8 @@ def attention_plain(qkv: torch.Tensor, heads: int) -> torch.Tensor:
     q = q.reshape(B, N, heads, d)
     k = k.reshape(B, N, heads, d)
     v = v.reshape(B, N, heads, d)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * d**-0.5
-    attn = _softmax_to(logits, qkv.dtype).float()
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k)
+    attn = _scaled_softmax_to(logits, d**-0.5, qkv.dtype, softmax).float()
     out = torch.einsum("bhqk,bkhd->bqhd", attn, v)
     return out.reshape(B, N, D).to(qkv.dtype)
 
@@ -255,9 +294,10 @@ def effective_pack(B: int, N: int, threeD: int, itemsize: int) -> int:
     return pack
 
 
-def attention_cls_plain(q0: torch.Tensor, kv: torch.Tensor,
-                        heads: int) -> torch.Tensor:
-    """Plain K2: q0 (B, 1, D), kv (B, N, 2D) -> (B, 1, D)."""
+def attention_cls_plain(q0: torch.Tensor, kv: torch.Tensor, heads: int,
+                        softmax=None) -> torch.Tensor:
+    """Plain K2: q0 (B, 1, D), kv (B, N, 2D) -> (B, 1, D); the softmax
+    chain as `attention_plain`'s."""
     B, N, twoD = kv.shape
     D = twoD // 2
     d = D // heads
@@ -265,8 +305,8 @@ def attention_cls_plain(q0: torch.Tensor, kv: torch.Tensor,
     q = q0.float().reshape(B, 1, heads, d)
     k = k.reshape(B, N, heads, d)
     v = v.reshape(B, N, heads, d)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * d**-0.5
-    attn = _softmax_to(logits, kv.dtype).float()
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k)
+    attn = _scaled_softmax_to(logits, d**-0.5, kv.dtype, softmax).float()
     out = torch.einsum("bhqk,bkhd->bqhd", attn, v)
     return out.reshape(B, 1, D).to(kv.dtype)
 
@@ -567,20 +607,28 @@ def _raise_on(rc: int, name: str):
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
-def _launch_tile_designs(lib, qkv, out, heads: int, plan) -> int | None:
+def _bf16_softmax() -> int:
+    """The libraries' softmax flag for the `SOFTMAX_DTYPE` knob."""
+    return int(softmax_dtype() == torch.bfloat16)
+
+
+def _launch_tile_designs(lib, qkv, out, heads: int, plan,
+                         bf16_softmax: int = 0) -> int | None:
     """Launch the design `plan` picked if it is one of the tiles K1, K5a
-    and K5b share (their item order is one); None for any other design."""
+    and K5b share (their item order is one); None for any other design.
+    `bf16_softmax`: the bf16 chain (K1 under `SOFTMAX_DTYPE=bfloat16`)."""
     B, N, threeD = qkv.shape
     d = threeD // (3 * heads)
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     if plan.design == "wgmma":
         return lib.lossyless_fused_attention_tile(
             qkv.data_ptr(), out.data_ptr(), B, N, heads, d, d**-0.5,
-            plan.blocks, plan.smem, qkv.device.index, stream)
+            plan.blocks, plan.smem, bf16_softmax, qkv.device.index, stream)
     if plan.design == "onepass":
         return lib.lossyless_fused_attention_k5_onepass(
             qkv.data_ptr(), out.data_ptr(), B, N, heads, d, d**-0.5,
-            plan.per_block, int(plan.vec), qkv.device.index, stream)
+            plan.per_block, int(plan.vec), bf16_softmax, qkv.device.index,
+            stream)
     return None
 
 
@@ -594,13 +642,14 @@ def _launch_attention(qkv: torch.Tensor, heads: int) -> torch.Tensor:
     out = torch.empty((B, N, D), dtype=qkv.dtype, device=qkv.device)
     plan = k1_plan(B, N, heads, d, qkv.dtype, _aligned(qkv, out))
     lib = _get_lib()
-    rc = _launch_tile_designs(lib, qkv, out, heads, plan)
+    sm = _bf16_softmax()
+    rc = _launch_tile_designs(lib, qkv, out, heads, plan, sm)
     if rc is None:   # the row code
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         rc = lib.lossyless_fused_attention(
             qkv.data_ptr(), out.data_ptr(), B, N, heads, d,
-            _DTYPE_CODE[qkv.dtype], d**-0.5, K1_WARPS, qkv.device.index,
-            stream)
+            _DTYPE_CODE[qkv.dtype], d**-0.5, K1_WARPS, sm,
+            qkv.device.index, stream)
     _raise_on(rc, "fused_attention")
     LAUNCHES["fused_attention"] += 1
     return out
@@ -660,7 +709,7 @@ def _launch_attention_cls(q0: torch.Tensor, kv: torch.Tensor,
     rc = _get_lib().lossyless_fused_attention_cls(
         q0.data_ptr(), kv.data_ptr(), out.data_ptr(), B, N, heads, d,
         _DTYPE_CODE[kv.dtype], d**-0.5, plan.warps, int(plan.vec),
-        kv.device.index, stream)
+        _bf16_softmax(), kv.device.index, stream)
     _raise_on(rc, "fused_attention_cls")
     LAUNCHES["fused_attention_cls"] += 1
     return out
@@ -678,9 +727,14 @@ def _on_cpu(*tensors) -> bool:
 
 def attention_variant(qkv: torch.Tensor) -> tuple[str, int]:
     """("packed", pack), ("headbatched", 1) or ("k1", 1): the variant the
-    knobs select for this input, in JAX's order (pack > 1 wins)."""
+    knobs select for this input, in JAX's order (pack > 1 wins). K5a and
+    K5b refuse a bf16 `SOFTMAX_DTYPE` with JAX's error (`:228-234`)."""
     B, N, threeD = qkv.shape
     pack = effective_pack(B, N, threeD, qkv.element_size())
+    if (pack > 1 or HEAD_BATCH) and softmax_dtype() != torch.float32:
+        raise NotImplementedError(
+            "SOFTMAX_DTYPE != float32 is only honored by the per-head and "
+            "cls kernels; unset IMAGE_PACK/HEAD_BATCH or keep fp32 softmax")
     if pack > 1:
         return "packed", pack
     return ("headbatched", 1) if HEAD_BATCH else ("k1", 1)
@@ -708,7 +762,10 @@ class _FusedAttention(torch.autograd.Function):
         (qkv,) = ctx.saved_tensors
         with torch.enable_grad():
             t = qkv.detach().requires_grad_()
-            (dqkv,) = torch.autograd.grad(attention_plain(t, ctx.heads), t, g)
+            # fp32 softmax whatever the knob, as JAX's backward recomputes
+            # through `_reference_attention`
+            (dqkv,) = torch.autograd.grad(
+                attention_plain(t, ctx.heads, torch.float32), t, g)
         return dqkv, None
 
 
@@ -727,7 +784,7 @@ class _FusedAttentionCls(torch.autograd.Function):
         with torch.enable_grad():
             tq = q0.detach().requires_grad_()
             tkv = kv.detach().requires_grad_()
-            out = attention_cls_plain(tq, tkv, ctx.heads)
+            out = attention_cls_plain(tq, tkv, ctx.heads, torch.float32)
             dq, dkv = torch.autograd.grad(out, (tq, tkv), g)
         return dq, dkv, None
 

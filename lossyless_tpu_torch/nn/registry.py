@@ -16,7 +16,10 @@ takes it through `init_weights`).
 The JAX config vocabulary is translated, so a JAX preset or override
 string works unchanged: `mlp_impl` "pallas" -> "kernel", "xla" -> "ops";
 `attn_impl` "pallas"/"auto" -> "kernel", "einsum" -> "plain"; a dtype
-given by name ("bfloat16", "float32") becomes the torch dtype.
+given by name ("bfloat16", "float32"), `dtype` or the tower's `ln_dtype`,
+becomes the torch dtype, and the tower's `remat` given as a string
+("true", "false") a bool, so `encoder.arch_kwargs.ln_dtype=bfloat16` and
+`encoder.arch_kwargs.remat=true` reach the tower.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ _ATTN_IMPL = {"pallas": "kernel", "auto": "kernel", "einsum": "plain",
               "kernel": "kernel", "plain": "plain"}
 _DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
            "float32": torch.float32, "fp32": torch.float32}
+_BOOLS = {"true": True, "1": True, "false": False, "0": False}
 
 
 def _translate(kwargs: dict) -> dict:
@@ -43,8 +47,11 @@ def _translate(kwargs: dict) -> dict:
         kwargs["mlp_impl"] = _MLP_IMPL[kwargs["mlp_impl"]]
     if "attn_impl" in kwargs:
         kwargs["attn_impl"] = _ATTN_IMPL[kwargs["attn_impl"]]
-    if isinstance(kwargs.get("dtype"), str):
-        kwargs["dtype"] = _DTYPES[kwargs["dtype"]]
+    for key in ("dtype", "ln_dtype"):
+        if isinstance(kwargs.get(key), str):
+            kwargs[key] = _DTYPES[kwargs[key]]
+    if isinstance(kwargs.get("remat"), str):
+        kwargs["remat"] = _BOOLS[kwargs["remat"].lower()]
     return kwargs
 
 

@@ -4,6 +4,14 @@ Counterpart of `lossyless_tpu/nn/vit.py`, with the same arithmetic:
 
 * the compute dtype (bf16 by default) for activations and matmuls, with
   every LayerNorm computed in fp32 (eps 1e-5, OpenAI CLIP's) and cast back;
+  `ln_dtype` (JAX's knob, fp32 by default) rounds the output of `ln_pre`
+  and of each block's LayerNorms to that dtype first, as flax's
+  `LayerNorm(dtype=ln_dtype)` does: flax keeps the statistics and the
+  normalization in fp32 and rounds only its output, so in a bf16 tower
+  `ln_dtype=bfloat16` changes nothing; `ln_post` stays fp32;
+* `remat=True` recomputes each block in the backward
+  (`torch.utils.checkpoint`, JAX's `nn.remat`): the attention and K4
+  kernels then launch twice a training forward;
 * patchify as one block-reshape + matmul against the HWIO kernel;
 * pre-LN blocks with QuickGELU (x * sigmoid(1.702x));
 * final LayerNorm on the class token (fp32) + projection to 512-d;
@@ -33,6 +41,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .flash_attn import (attention_cls_plain, attention_plain,
                          fused_attention, fused_attention_cls,
@@ -56,16 +65,18 @@ class Dense(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    """LayerNorm with flax's `scale`/`bias` names, computed in fp32."""
+    """LayerNorm with flax's `scale`/`bias` names, computed in fp32; the
+    output rounded to `dtype` (flax's `LayerNorm(dtype=...)`)."""
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, dtype=torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x):
         return F.layer_norm(x.float(), (x.shape[-1],), self.scale.float(),
-                            self.bias.float(), LN_EPS)
+                            self.bias.float(), LN_EPS).to(self.dtype)
 
 
 class MHSA(nn.Module):
@@ -137,15 +148,16 @@ class Block(nn.Module):
     """
 
     def __init__(self, width: int, heads: int, dtype, attn_impl: str,
-                 cls_only: bool = False, mlp_impl: str = "ops"):
+                 cls_only: bool = False, mlp_impl: str = "ops",
+                 ln_dtype=torch.float32):
         super().__init__()
         if mlp_impl not in ("ops", "kernel"):
             raise ValueError(f"unknown mlp_impl={mlp_impl!r}")
         self.dtype, self.cls_only = dtype, cls_only
         self.mlp_impl = mlp_impl
-        self.ln_1 = LayerNorm(width)
+        self.ln_1 = LayerNorm(width, ln_dtype)
         self.attn = MHSA(width, heads, dtype, attn_impl, cls_only)
-        self.ln_2 = LayerNorm(width)
+        self.ln_2 = LayerNorm(width, ln_dtype)
         self.mlp_fc = Dense(width, 4 * width, dtype)
         self.mlp_proj = Dense(4 * width, width, dtype)
 
@@ -169,21 +181,22 @@ class VisionTransformer(nn.Module):
                  layers: int = 12, heads: int = 12, out_dim: int = 512,
                  image_size: int = 224, dtype=torch.bfloat16,
                  attn_impl: str = "kernel", cls_only_last: bool = True,
-                 mlp_impl: str = "ops"):
+                 mlp_impl: str = "ops", ln_dtype=torch.float32,
+                 remat: bool = False):
         super().__init__()
         self.patch_size, self.width, self.image_size = patch_size, width, \
             image_size
-        self.dtype = dtype
+        self.dtype, self.remat = dtype, remat
         self.n_tokens = (image_size // patch_size) ** 2 + 1
         self.patch_embed = PatchEmbed(width, patch_size, dtype)
         self.class_embedding = nn.Parameter(torch.empty(width))
         self.positional_embedding = nn.Parameter(
             torch.empty(self.n_tokens, width))
-        self.ln_pre = LayerNorm(width)
+        self.ln_pre = LayerNorm(width, ln_dtype)
         self.blocks = nn.ModuleList(
             Block(width, heads, dtype, attn_impl,
                   cls_only=cls_only_last and i == layers - 1,
-                  mlp_impl=mlp_impl)
+                  mlp_impl=mlp_impl, ln_dtype=ln_dtype)
             for i in range(layers))
         self.ln_post = LayerNorm(width)
         self.proj = nn.Parameter(torch.empty(width, out_dim))
@@ -221,8 +234,10 @@ class VisionTransformer(nn.Module):
         x = torch.cat([cls, x], dim=1) \
             + self.positional_embedding.to(self.dtype)[None]
         x = self.ln_pre(x).to(self.dtype)
+        remat = self.remat and torch.is_grad_enabled()
         for block in self.blocks:
-            x = block(x)
+            x = checkpoint(block, x, use_reentrant=False) if remat \
+                else block(x)
         x = self.ln_post(x[:, 0])
         return (x.to(self.dtype) @ self.proj.to(self.dtype)).float()
 

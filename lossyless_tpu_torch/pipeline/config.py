@@ -63,7 +63,8 @@ class TrainerConfig:
     # train each epoch on batches drawn on the device when the dataset has
     # a device sampler (train/state.py::make_generative_epoch)
     use_fused_epochs: bool = True
-    # devices for training: only 1 is ported (multi-GPU: ROADMAP queue 1)
+    # data-parallel ranks for training (pipeline/run.py::_training_mesh):
+    # 1, N (spawned, or torchrun's group of N), 0 = every visible device
     n_devices: int = 1
     # training metrics sink: csv | wandb | none (train/loggers.py)
     logger: str = "csv"

@@ -32,6 +32,19 @@ Counterpart of `lossyless_tpu/pipeline/run.py`:
 * `main(cfg)`: the three stages, each skipped when its sentinel exists; a
   finished featurizer is rebuilt from its exported weights.
 
+Data parallelism (JAX's `trainer.n_devices`, `_training_mesh`): `main`
+with `trainer.n_devices=N > 1` spawns N ranks (one a card, or N gloo
+processes on the CPU) unless it already runs in a process group of N
+ranks (torchrun, `core.mesh.init_distributed`). Each rank builds the same
+seeded state, draws the same global batches and trains on its rows inside
+`core.mesh.data_parallel` (global draws, BatchNorm statistics, contrastive
+gather, averaged gradients and logs), so N ranks reproduce one device's
+run to roundoff; batch sizes round to a multiple of N (`_fit_bsz`). Rank 0
+alone validates (the monitored value is broadcast), writes the
+checkpoints, logs and export, and runs the test evaluation, the
+communication stage and the predictor; the other ranks return after the
+featurizer stage's training. Every rank reads a resume checkpoint.
+
 Every entry point runs on the card unless `device` says otherwise.
 """
 
@@ -52,6 +65,7 @@ import torch
 from ..compressors.compressor import LearnableCompressor
 from ..compressors.rates import (FactorizedCoder, HyperpriorCoder,
                                  SpatialHyperpriorCoder, lossless_bits)
+from ..core import mesh
 from ..core.device import resolve_device
 from ..data.balancing import get_balancing_weights
 from ..data.banana import BananaDataset
@@ -127,11 +141,17 @@ def run_featurizer(cfg: ExperimentConfig, batches: Iterable,
     if own_logger:
         logger = _stage_logger(cfg)
     log_every = cfg.trainer.log_every
+    rank, world = mesh.rank_world()
+    if rank != 0:
+        log = _quiet
     for batch in itertools.chain([first], it):
         step = state.step
+        # this rank's rows of the global batch (all of it on one device)
+        batch = mesh.shard_batch(tuple(batch), rank, world)
         batch = tuple(_to(t, device) for t in batch)
         generator = _step_generator(device, step)
-        state, logs = train_step(state, batch, generator)
+        with mesh.data_parallel(rank, world, len(batch[0])):
+            state, logs = train_step(state, batch, generator)
         if on_step is not None:
             on_step(step, state, logs)
         if log_every and (step + 1) % log_every == 0:
@@ -158,9 +178,43 @@ def _git_hash() -> str:
         return "unknown"
 
 
-def _fit_bsz(requested: int, n: int) -> int:
-    """The batch size clamped to the dataset (one device)."""
-    return max(1, min(requested, n))
+def _quiet(*args):
+    """The line log of a rank other than 0 (rank 0 prints the global
+    batch's logs)."""
+
+
+def _fit_bsz(requested: int, n: int, n_devices: int | None = None) -> int:
+    """The batch size clamped to the dataset and, over `n_devices` ranks
+    (default: the process group's), a multiple of them when the dataset
+    has that many samples (JAX's `_fit_bsz`)."""
+    if n_devices is None:
+        n_devices = mesh.rank_world()[1]
+    b = max(1, min(requested, n))
+    if n_devices > 1 and n >= n_devices:
+        b = max(n_devices, b - b % n_devices)
+    return b
+
+
+def _training_mesh(cfg: ExperimentConfig, device) -> int:
+    """The number of ranks `trainer.n_devices` asks for (JAX's
+    `_training_mesh`): 0 (or -1) means every visible device, more than are
+    visible raises. Visible: the CUDA devices; on the CPU one device for 0,
+    as JAX counts it, and up to its cores when asked for (a gloo rank a
+    process); inside a process group its ranks, which the count must then
+    equal."""
+    n = cfg.trainer.n_devices
+    world = mesh.rank_world()[1]
+    every, avail = (world, world) if world > 1 else \
+        mesh.visible_devices(device)
+    if n in (0, -1, None):
+        n = every
+    if n > avail:
+        raise ValueError(f"trainer.n_devices={n} but only {avail} devices "
+                         f"are visible")
+    if world > 1 and n != world:
+        raise ValueError(f"trainer.n_devices={n} but the process group has "
+                         f"{world} ranks")
+    return n
 
 
 def _batch_to(batch, device):
@@ -285,12 +339,19 @@ def run_featurizer_stage(cfg: ExperimentConfig, device=None,
 
     Writes the datasets' shapes into `cfg`. Resumes from the `last`
     checkpoint when there is one. Returns (state, train_ds, test_ds,
-    metrics).
+    metrics); in a process group of more than one rank, the ranks other
+    than 0 return after training with (state, train_ds, None, {}).
     """
     device = resolve_device(device)
     stage_dir = cfg.stage_dir
+    rank, world = mesh.rank_world()
     train_ds = instantiate_datamodule(cfg, cfg.data_feat)
-    bsz = _fit_bsz(cfg.data_feat.batch_size, len(train_ds))
+    if len(train_ds) < world:
+        raise ValueError(
+            f"trainer.n_devices={world} but the training set has only "
+            f"{len(train_ds)} samples: cannot shard one batch over them")
+    bsz = _fit_bsz(cfg.data_feat.batch_size, len(train_ds), world)
+    rows = bsz // world       # a rank's rows of each global batch
     steps_per_epoch = max(1, int((len(train_ds) // bsz)
                                  * cfg.trainer.limit_train_batches))
     if cfg.rate.warmup_k_epochs > 0 and cfg.rate.warmup_steps == 0:
@@ -310,7 +371,7 @@ def run_featurizer_stage(cfg: ExperimentConfig, device=None,
     if ckpt.has_last:
         ckpt.restore(state, "last")
     logger = _stage_logger(cfg)
-    val_ds = _val_dataset(cfg, cfg.data_feat)
+    val_ds = _val_dataset(cfg, cfg.data_feat) if rank == 0 else None
     plateau = _plateau_controllers(cfg, state)
     # `trainer.monitor="train_<metric>"` monitors the epoch-mean train
     # metric instead of a validation metric
@@ -321,8 +382,9 @@ def run_featurizer_stage(cfg: ExperimentConfig, device=None,
     # the fused path: batches drawn on the device, one readback an epoch
     epoch_fn = None
     if cfg.trainer.use_fused_epochs and hasattr(train_ds, "device_sampler"):
-        epoch_fn = make_generative_epoch(train_ds.device_sampler(bsz),
-                                         steps_per_epoch)
+        # a rank's sampler draws its rows of each global batch
+        epoch_fn = make_generative_epoch(train_ds.device_sampler(rows),
+                                         steps_per_epoch, rank, world, rows)
 
     for epoch in range(state.step // steps_per_epoch, n_epochs):
         train_vals = []
@@ -344,18 +406,8 @@ def run_featurizer_stage(cfg: ExperimentConfig, device=None,
             run_featurizer(cfg, epoch_batches, device=device, state=state,
                            on_step=step_hook, log=log, logger=logger)
 
-        # epoch-end validation and checkpoints
-        acc = MetricAccumulator()
-        vbs = _fit_bsz(cfg.data_feat.val_batch_size, len(val_ds))
-        n_vb = max(1, len(val_ds) // vbs)  # ragged validation tails dropped
-        n_vkeep = max(1, int(n_vb * cfg.trainer.limit_eval_batches))
-        for j, b in enumerate(itertools.islice(
-                val_ds.batches(vbs, n_epochs=1, seed=cfg.trainer.seed),
-                n_vkeep)):
-            b = _batch_to(b, device)
-            _, vlogs = eval_step(state, b, _step_generator(device, 2000 + j))
-            acc.update(vlogs, weight=len(b[0]))
-        val = acc.means()
+        # epoch-end validation (rank 0) and checkpoints (rank 0 writes)
+        val = _validate(cfg, state, val_ds, device) if rank == 0 else {}
         logger.log(state.step, namespaced(val, "val", "feat"))
         if (epoch + 1) % cfg.trainer.ckpt_every_epochs == 0:
             ckpt.save_last(state, state.step)
@@ -368,9 +420,17 @@ def run_featurizer_stage(cfg: ExperimentConfig, device=None,
         else:
             monitor_val = val.get(cfg.trainer.monitor,
                                   val.get("loss", math.nan))
+        if world > 1:   # every rank's plateau controllers step on rank 0's
+            box = [monitor_val]
+            torch.distributed.broadcast_object_list(box, src=0)
+            monitor_val = box[0]
         ckpt.maybe_save_best(state, state.step, monitor_val)
         for label, ctl in plateau.items():
             set_plateau_scale(state, ctl.step(float(monitor_val)), label)
+
+    if rank != 0:
+        logger.finish()
+        return state, train_ds, None, {}
 
     # the best weights, exported weights-only for the next stages
     ckpt.restore(state, "best")
@@ -389,6 +449,22 @@ def run_featurizer_stage(cfg: ExperimentConfig, device=None,
     write_results_csv(stage_dir, "featurizer", metrics)
     mark_stage_done(stage_dir, "featurizer")
     return state, train_ds, test_ds, metrics
+
+
+def _validate(cfg: ExperimentConfig, state: TrainState, val_ds,
+              device) -> dict:
+    """The eval-step metrics over the validation split's full batches."""
+    acc = MetricAccumulator()
+    vbs = _fit_bsz(cfg.data_feat.val_batch_size, len(val_ds))
+    n_vb = max(1, len(val_ds) // vbs)  # ragged validation tails dropped
+    n_vkeep = max(1, int(n_vb * cfg.trainer.limit_eval_batches))
+    for j, b in enumerate(itertools.islice(
+            val_ds.batches(vbs, n_epochs=1, seed=cfg.trainer.seed),
+            n_vkeep)):
+        b = _batch_to(b, device)
+        _, vlogs = eval_step(state, b, _step_generator(device, 2000 + j))
+        acc.update(vlogs, weight=len(b[0]))
+    return acc.means()
 
 
 def _fused_epoch(cfg: ExperimentConfig, epoch_fn, state: TrainState,
@@ -568,16 +644,25 @@ def run_predictor(cfg: ExperimentConfig, state: TrainState, train_ds,
 
 def main(cfg: ExperimentConfig, device=None) -> dict:
     """The three stages, each skipped when its sentinel exists. Returns
-    the metrics of the stages that ran."""
+    the metrics of the stages that ran. With `trainer.n_devices` > 1 and
+    no process group, the stages run in that many spawned ranks (module
+    docstring) and this returns rank 0's metrics."""
     device = resolve_device(device)
     cfg = apply_precision(copy.deepcopy(cfg))
+    n_ranks = _training_mesh(cfg, device)
+    rank, world = mesh.rank_world()
+    if world == 1 and n_ranks > 1:
+        return _spawn_ranks(cfg, device, n_ranks)
     stage_dir = cfg.stage_dir
     all_metrics = {}
 
-    if not is_stage_done(stage_dir, "featurizer"):
+    trained = not is_stage_done(stage_dir, "featurizer")
+    if trained:
         state, train_ds, test_ds, m = run_featurizer_stage(cfg, device)
         all_metrics.update(m)
-    else:
+    if rank != 0:   # rank 0 alone evaluates, codes and probes
+        return all_metrics
+    if not trained:
         # rebuild from the exported weights for the downstream stages
         train_ds = instantiate_datamodule(cfg, cfg.data_feat)
         test_ds = _test_dataset(cfg, cfg.data_feat)
@@ -605,3 +690,37 @@ def main(cfg: ExperimentConfig, device=None) -> dict:
         all_metrics.update(
             run_predictor(cfg, state, train_ds, test_ds, device))
     return all_metrics
+
+
+def _spawn_ranks(cfg: ExperimentConfig, device, n: int) -> dict:
+    """`main(cfg)` in `n` spawned ranks of a process group (NCCL over cards
+    0..n-1, or gloo on the CPU); rank 0's metrics."""
+    import torch.multiprocessing as mp
+
+    queue = mp.get_context("spawn").SimpleQueue()
+    mp.start_processes(_rank_main, args=(n, cfg, device.type,
+                                         mesh.free_port(), queue),
+                       nprocs=n, start_method="spawn")
+    return queue.get()
+
+
+def _rank_main(rank: int, world: int, cfg: ExperimentConfig,
+               device_type: str, port: int, queue):
+    """One spawned rank: torchrun's environment, the group, `main`."""
+    import os
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    if device_type == "cuda":
+        device = torch.device("cuda", rank)
+    else:          # the ranks share the host's cores
+        device = torch.device("cpu")
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    mesh.init_distributed(device)
+    try:
+        metrics = main(cfg, device)
+        if rank == 0:
+            queue.put(metrics)
+    finally:
+        torch.distributed.destroy_process_group()

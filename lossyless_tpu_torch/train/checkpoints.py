@@ -19,6 +19,10 @@ file nor its `.old` is a save that died before its swap began, and is not
 read (kept as JAX keeps it, ROADMAP queue 3). A `.tmp` counts as complete
 when it is a whole zip archive, which `torch.save` writes: the archive's
 directory is written last. Orbax files are not read.
+
+Under a data-parallel process group (`core/mesh.py`) only rank 0 writes:
+checkpoints, their `meta.json`, exports and sentinels; every rank reads a
+checkpoint to resume.
 """
 
 from __future__ import annotations
@@ -30,6 +34,8 @@ import zipfile
 from pathlib import Path
 
 import torch
+
+from ..core import mesh
 
 
 def _complete(path: Path) -> bool:
@@ -86,7 +92,9 @@ def _swap_save(path, obj):
 
 
 def save_weights(path, state_dict: dict):
-    """Weights-only export of a state dict, through the swap."""
+    """Weights-only export of a state dict, through the swap (rank 0)."""
+    if not _writes():
+        return
     _swap_save(path, {k: v.detach().cpu() for k, v in state_dict.items()})
 
 
@@ -118,6 +126,8 @@ class CheckpointManager:
         self._meta_path.write_text(json.dumps(meta))
 
     def save_last(self, state, step: int):
+        if not _writes():
+            return
         _swap_save(self.dir / "last", state.state_dict())
         meta = self._load_meta()
         meta["last_step"] = int(step)
@@ -127,7 +137,7 @@ class CheckpointManager:
         """Keep exactly one best checkpoint. A NaN monitor (a diverged
         epoch) is never best: a first-epoch NaN would otherwise be saved
         and never superseded."""
-        if value is None or math.isnan(value):
+        if value is None or math.isnan(value) or not _writes():
             return False
         meta = self._load_meta()
         best = meta.get("best_value")
@@ -166,7 +176,15 @@ def is_stage_done(out_dir, stage: str) -> bool:
     return stage_sentinel(out_dir, stage).exists()
 
 
+def _writes() -> bool:
+    """Whether this process writes (rank 0 of a process group, or no
+    group)."""
+    return mesh.rank_world()[0] == 0
+
+
 def mark_stage_done(out_dir, stage: str):
+    if not _writes():
+        return
     p = stage_sentinel(out_dir, stage)
     p.parent.mkdir(parents=True, exist_ok=True)
     p.write_text("done\n")

@@ -2,7 +2,9 @@
 
 Counterpart of `lossyless_tpu/train/loggers.py`. One difference: asked
 for wandb where it is not installed, `get_logger` raises instead of
-writing CSV in its place.
+writing CSV in its place. Under a data-parallel process group only rank
+0 logs (the other ranks get `NoLogger`): the logs are the global batch's
+on every rank.
 """
 
 from __future__ import annotations
@@ -52,7 +54,9 @@ class WandbLogger:
 def get_logger(mode: str, out_dir, experiment: str = "dev",
                name: str = "metrics", **kwargs):
     """`name` is the CSV file stem of the csv mode."""
-    if mode in (None, "none"):
+    from ..core.mesh import rank_world
+
+    if mode in (None, "none") or rank_world()[0] != 0:
         return NoLogger()
     if mode == "csv":
         return CsvTrainLogger(out_dir, name)

@@ -30,6 +30,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..core import mesh
+
 
 @dataclasses.dataclass(frozen=True)
 class OptimConfig:
@@ -249,13 +251,27 @@ def train_step(state: TrainState, batch, generator=None, noise=None,
                eps=None):
     """One fused RD + coder update, in place. Returns (state, logs).
     `noise` / `eps` are the step's draws (`LearnableCompressor.step`),
-    else they come from `generator`."""
+    else they come from `generator`.
+
+    Inside `core.mesh.data_parallel` the batch is this rank's rows and the
+    step is the global batch's: the model's collectives (BatchNorm's
+    statistics, the contrastive gather) and draws span the ranks, the
+    gradients are averaged by one flat all-reduce after `backward`
+    (`average_gradients`; DDP wraps a module's `forward`, while this state
+    steps three optimizer groups through `model.step`), and the logs are
+    the global batch's (`reduce_logs`)."""
     x, y, aux = batch
     for opt, _ in state.optimizers.values():
         opt.zero_grad(set_to_none=True)
     loss, logs = state.model.step(x, y, aux, training=True, step=state.step,
                                   generator=generator, noise=noise, eps=eps)
     loss.backward()
+    dp = mesh.active() is not None
+    if dp:
+        mesh.average_gradients(p for opt, _ in state.optimizers.values()
+                               for g in opt.param_groups
+                               for p in g["params"])
+        logs = mesh.reduce_logs(logs)
     for label, (opt, schedule) in state.optimizers.items():
         lr = schedule(state.step) * state.lr_scales.get(label, 1.0)
         for group in opt.param_groups:
@@ -281,11 +297,18 @@ def epoch_generators(seed: int, device) -> tuple[torch.Generator,
             torch.Generator(device).manual_seed(int(step_seed)))
 
 
-def make_generative_epoch(sample_fn, n_steps: int):
+def make_generative_epoch(sample_fn, n_steps: int, rank: int = 0,
+                          world: int = 1, rows: int | None = None):
     """`epoch(state, seed) -> (state, logs)`: `n_steps` updates, each on a
     batch that `sample_fn(generator)` draws on the device (for example
     `BananaDataset.device_sampler`), with nothing copied from the host and
     no wait on the device inside the epoch.
+
+    With `world` > 1 this process is rank `rank` of a data-parallel group
+    and `sample_fn` draws its `rows` rows of each global batch: the epoch
+    runs inside `core.mesh.data_parallel`, where every draw (the batch's
+    and the steps') is the global batch's and the updates are the global
+    batch's (`train_step`), so W ranks reproduce one device's epoch.
 
     The batches and the steps' own draws come from two generators seeded
     from `seed` (`epoch_generators`; the pipeline passes `trainer.seed +
@@ -295,12 +318,17 @@ def make_generative_epoch(sample_fn, n_steps: int):
     from the device once an epoch. The steps are eager `train_step`s in a
     Python loop."""
 
+    if (world > 1 or mesh.in_group()) and not rows:
+        raise ValueError("a data-parallel epoch needs the rows a rank "
+                         "draws of each global batch")
+
     def epoch(state: TrainState, seed: int):
         device = next(state.model.parameters()).device
         g_data, g_step = epoch_generators(seed, device)
         tensor_logs, host_logs = {}, {}
         for _ in range(n_steps):
-            state, logs = train_step(state, sample_fn(g_data), g_step)
+            with mesh.data_parallel(rank, world, rows or 0):
+                state, logs = train_step(state, sample_fn(g_data), g_step)
             for k, v in logs.items():
                 (tensor_logs if isinstance(v, torch.Tensor)
                  else host_logs).setdefault(k, []).append(v)

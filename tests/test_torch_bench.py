@@ -126,3 +126,31 @@ def test_folder_fed_says_it_needs_pil(monkeypatch):
     monkeypatch.setitem(sys.modules, "PIL", None)
     with pytest.raises(RuntimeError, match="needs PIL"):
         bench.main_folder_fed(device="cpu")
+
+
+@pytest.mark.parametrize("flags,knobs", [
+    (["--softmax-dtype", "bfloat16"], {"softmax_dtype": "bfloat16"}),
+    (["--host-fed", "--softmax-dtype", "bfloat16"],
+     {"softmax_dtype": "bfloat16"}),
+    ([], {})])
+def test_main_knob_flags_reach_the_run_and_the_record(flags, knobs,
+                                                      monkeypatch, capsys):
+    """`--softmax-dtype` sets the attention knob for the run only and adds
+    its key to the record; without it the record is the default line's."""
+    from lossyless_tpu_torch.nn import flash_attn
+
+    seen = {}
+
+    def fake(device=None):
+        seen.update(softmax=flash_attn.SOFTMAX_DTYPE)
+        return {"value": 1.0}
+
+    for name in ("main_device_resident", "main_host_fed"):
+        monkeypatch.setattr(bench, name, fake)
+    monkeypatch.setattr(bench, "card_line", lambda: "card")
+    assert bench.main(flags) == 0
+    record = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert record == {"value": 1.0, **knobs}
+    assert seen["softmax"] == (torch.bfloat16 if "softmax_dtype" in knobs
+                               else torch.float32)
+    assert flash_attn.SOFTMAX_DTYPE == torch.float32

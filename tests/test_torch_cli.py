@@ -206,10 +206,21 @@ def test_jpeg_draft_is_a_parameter_and_leaves_the_environment(env, capsys,
 
 
 def test_mesh_above_one_raises_and_names_the_queue(env):
+    """`--mesh N > 1` is ported (ROADMAP queue 1 order 8): on the CPU it
+    encodes over N replicas with the one-device streams, ragged tail
+    included (6 images over 4); over CUDA devices it raises when fewer are
+    visible, naming the count."""
     tmp, model = env
-    with pytest.raises(SystemExit, match="queue 1 order 8"):
-        tcli.main(["compress", str(tmp / "in.npz"), str(tmp / "x.bin"),
-                   "--mesh", "2", *model, "--device", "cpu"])
+    assert tcli.main(["compress", str(tmp / "in.npz"), str(tmp / "one.bin"),
+                      *model, "--device", "cpu"]) == 0
+    assert tcli.main(["compress", str(tmp / "in.npz"), str(tmp / "m4.bin"),
+                      "--mesh", "4", *model, "--device", "cpu"]) == 0
+    assert list(read_dataset(tmp / "m4.bin")) == \
+        list(read_dataset(tmp / "one.bin"))
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(ValueError, match="n_devices=2"):
+            tcli.main(["compress", str(tmp / "in.npz"), str(tmp / "x.bin"),
+                       "--mesh", "2", *model, "--device", "cuda"])
 
 
 def test_decompress_never_builds_the_tower(env, monkeypatch):

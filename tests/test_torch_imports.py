@@ -36,6 +36,7 @@ def test_the_scan_covers_the_port():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert "lossyless_tpu_torch/hub/compressor.py" in names
     assert "lossyless_tpu_torch/nn/flash_attn.py" in names
+    assert "lossyless_tpu_torch/core/mesh.py" in names
     assert set(NEW_MODULES) <= {n[:-3].replace("/", ".") for n in names}
     assert len(names) >= 15
 
@@ -88,6 +89,8 @@ NEW_MODULES = [
     "lossyless_tpu_torch.nn.clip_resnet",
     "lossyless_tpu_torch.nn.convert_resnet",
     "lossyless_tpu_torch.nn.clip_text",
+    # slice 14: the devices, process groups and collectives
+    "lossyless_tpu_torch.core.mesh",
 ]
 
 
