@@ -262,12 +262,43 @@ non-zero without printing a result:
    `core.mesh.init_distributed`, the differentiable collectives run once
    on the card) and in one with no process group: every logged step
    equal bit for bit, K3 launched, ms a step of each;
+17. the external datasets and the rest of the pipeline
+   (`EXTERNAL_REDUCED` lists the cuts): (a) a generated COCO-layout tree
+   (1,024 train and 128 val JPEGs of 320 x 240 and 480 x 640, 5 captions
+   an image in `annotations/captions_{train,val}2017.json`) ingested by
+   `data.ingest.ingest_coco_clip` with the text tower on the card
+   (captions/s), then `main(preset("clip_bottleneck_pretrain"))` on it at
+   full width, 2 epochs at batch 128 host-fed through `CocoClipDataset`
+   (K1 11 and K2 1 a tower forward, K3 and its backward launched, K4 and
+   K5 not), the batch stream's img/s alone, a profiled host-fed epoch
+   (idle share, ms a step) and 3 steps on the kernels and on the plain
+   versions (rtol 1e-2); (b) a generated kaggle tree (512 train and 128
+   test 424 x 424 JPEGs, `training_solutions_rev1.csv` with 37 columns
+   summing along the decision tree) ingested by `ingest_kaggle_galaxy`,
+   then `python -m lossyless_tpu_torch.cli galaxy_regression` in a
+   subprocess (2 featurizer epochs, the spatial coder, 2 probe epochs;
+   its launches read there: K3 and its backward, nothing else), the
+   kaggle submission checked (129 rows, the ingested test ids in order,
+   values in [0, 1]), the spatial coder's decode equal to the
+   dequantized latents (1e-5), the stream's img/s, a profiled epoch and
+   the 3-step kernels-vs-plain check; (c) `pipeline.hypopt` over
+   `banana_viz_VIC` (3 trials of 4 epochs, pruning): every trial runs a
+   rung, a surviving trial's full run trains only the epochs after it,
+   the result JSON is written; (d) the experiment CLI with
+   `--profile-dir` in a subprocess: its trace names K3's forward and
+   backward kernels, `device_memory_stats()` printed; (e)
+   `clip_bottleneck_linear_eval` with `predictor.is_on_the_fly=True`: K1
+   and K2 launch inside `fit_onfly`. Phase 3b also checks and times K3
+   at galaxy's side latent (8192, 25);
 7. the `kernels` JSON line (K1-K4, K3's backward, K5a, K5b; with
    `device_ms` and `bound_share`, K1/K2 also at batch 256 and at N = 10,
-   K2 at the RN50 pool's shapes, K3 also at the banana, image, STL10 and
-   ssl shapes, K1's design, its float64 readings and its designs side by
-   side, the launches on phase 11's, 12's, 13's, 14's and 15's paths,
-   and the registers and spills of every kernel; phase 16's bf16-softmax
+   K2 at the RN50 pool's shapes, K3 also at the banana, image, STL10,
+   ssl and galaxy shapes, K1's design, its float64 readings and its
+   designs side by side, the launches on phase 11's, 12's, 13's, 14's
+   and 15's paths and on phase 17's COCO and galaxy paths
+   (`launches_on_coco_path`, `launches_on_galaxy_path`; 0 where a kernel
+   does not run there), and the registers and spills of every kernel;
+   phase 16's bf16-softmax
    instantiations of K1 and K2 as rows of their own) and, last,
    `{"ok": true, "device": {...}}`.
 
@@ -300,6 +331,10 @@ TRAIN_BATCH, TRAIN_STEPS, PROFILE_STEPS, AB_STEPS = 128, 20, 3, 3
 TIME_ROUNDS, TIME_STEPS = 3, 8   # phase 8b's step times in turns
 DEVICE = "cuda"   # the training and serving phases' device
 NO_K5 = {"fused_attention_packed": 0, "fused_attention_headbatched": 0}
+# K1's and K2's bf16-softmax instantiations: launched only under
+# SOFTMAX_DTYPE=bfloat16 (phase 16a)
+NO_BF16 = {"fused_attention_bf16_softmax": 0,
+           "fused_attention_cls_bf16_softmax": 0}
 TRAIN_OVERRIDES = ["rate.eb_use_pallas=True",
                    "encoder.arch_kwargs.mlp_impl=pallas",
                    "trainer.log_every=5"]
@@ -389,9 +424,13 @@ def device_ms(fn, match=None, reps: int = 20):
     calls after a warm-up: the summed time of the CUDA kernels whose names
     contain one of `match` (all of the call's kernels where None), over
     `reps`; the median of three traces (a trace now and then loses
-    events), None if none holds such kernel time."""
-    times = [sum(t.values()) for t in _traces(fn, match, reps) if t]
-    return float(np.median(times)) if times else None
+    events; when all three did, another set, up to three sets), None if
+    none holds such kernel time."""
+    for _ in range(3):
+        times = [sum(t.values()) for t in _traces(fn, match, reps) if t]
+        if times:
+            return float(np.median(times))
+    return None
 
 
 def device_ms_by_kernel(fn, match, reps: int = 20) -> dict:
@@ -1128,7 +1167,7 @@ def main_path(card: str) -> dict:
     # the encode path's MLPs are torch ops and it computes no likelihood
     want = {"fused_attention": (n_layers - 1) * N_BATCHES,
             "fused_attention_cls": N_BATCHES, "fused_mlp_block": 0,
-            "eb_likelihood": 0, "eb_likelihood_bwd": 0, **NO_K5}
+            "eb_likelihood": 0, "eb_likelihood_bwd": 0, **NO_K5, **NO_BF16}
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
     if rans._get_lib()._name != str(_build.library_path("rans")):
@@ -1468,16 +1507,20 @@ K3_CHECKS = [(TRAIN_BATCH, 512, (3, 3, 3, 3)), (37, 13, (3, 3, 3)),
              (4096, 25, (3, 3, 3)), (256, 128, (3, 3, 3)),
              # the ssl path's side latent at batch 128: z = 1024 (CLIP
              # RN50) -> 204 channels, z = 2048 (SimCLR / SwAV) -> 409
-             (TRAIN_BATCH, 204, (3, 3, 3)), (TRAIN_BATCH, 409, (3, 3, 3))]
+             (TRAIN_BATCH, 204, (3, 3, 3)), (TRAIN_BATCH, 409, (3, 3, 3)),
+             # the galaxy path's side latent: galaxy_regression's 128
+             # images x 8 x 8 positions folded into rows
+             (128 * 64, 25, (3, 3, 3))]
 BANANA_K3 = K3_CHECKS[4:6]
 IMAGE_K3 = K3_CHECKS[6:7]
 STL10_K3 = K3_CHECKS[7:9]
 SSL_K3 = K3_CHECKS[9:11]
+GALAXY_K3 = K3_CHECKS[11:12]
 # the |x| tie (ROADMAP queue 3 item 7): one channel, widths (1, 1),
 # matrix0 = -30, bias0 = 1, z = 0; JAX's d(-log lik) / d matrix0
 K3_TIE_GRAD = 1.8398e-5
 K3_BWD_CHECKS = K3_CHECKS[:7] + [(TRAIN_BATCH, 102, (3, 3, 3, 3))] + \
-    STL10_K3 + SSL_K3
+    STL10_K3 + SSL_K3 + GALAXY_K3
 
 
 def k3_design(filters) -> str:
@@ -1674,6 +1717,14 @@ def check_k3() -> dict:
         fwd_t, bwd_t = time_k3_at(Bs, Cs, fs, seed=500 + i)
         results["eb_likelihood"]["ssl_shapes"][f"{Bs}x{Cs}"] = fwd_t
         results["eb_likelihood_bwd"]["ssl_shapes"][f"{Bs}x{Cs}"] = bwd_t
+
+    # the galaxy path's side latent
+    for i, (Bg, Cg, fg) in enumerate(GALAXY_K3):
+        fwd_t, bwd_t = time_k3_at(Bg, Cg, fg, seed=600 + i)
+        results["eb_likelihood"]["galaxy_shape"] = dict(
+            fwd_t, shape=f"{Bg}x{Cg}")
+        results["eb_likelihood_bwd"]["galaxy_shape"] = dict(
+            bwd_t, shape=f"{Bg}x{Cg}")
     results["eb_likelihood_bwd"]["tie"] = check_k3_tie()
 
     # the backward: the wrapper's launch, its plain version, and the eager
@@ -1999,7 +2050,7 @@ def train_path(card: str):
             "fused_attention_cls": TRAIN_STEPS,
             "fused_mlp_block": (L - 1) * TRAIN_STEPS,
             "eb_likelihood": TRAIN_STEPS, "eb_likelihood_bwd": TRAIN_STEPS,
-            **NO_K5}
+            **NO_K5, **NO_BF16}
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
     logs = {k: float(v) for k, v in last.items()}
@@ -2027,17 +2078,29 @@ def train_path(card: str):
     return state, launches
 
 
-def train_ab(cfg, batches):
-    """Phase 5c: 3 steps on the kernels and 3 on the plain versions, from
-    the same weights and the same noise."""
+CLIP_PLAIN = ("rate.eb_use_pallas=False",
+              "encoder.arch_kwargs.attn_impl=einsum")
+
+
+K3_BOTH = ("eb_likelihood", "eb_likelihood_bwd")
+CLIP_KERNELS = ("fused_attention", "fused_attention_cls", *K3_BOTH)
+
+
+def train_ab(cfg, batches, plain=CLIP_PLAIN,
+             label="training_kernels_vs_plain",
+             need=(*CLIP_KERNELS, "fused_mlp_block")) -> dict:
+    """Phase 5c: 3 steps on the kernels and 3 on the plain versions (the
+    `plain` overrides, the MLP on K4's plain version), from the same
+    weights and the same noise; the record printed under `label`. The
+    kernels run must launch each kernel of `need` at least once a step,
+    the plain run nothing."""
     import contextlib
     import copy
 
     from lossyless_tpu_torch.pipeline import config
     from lossyless_tpu_torch.pipeline.run import build_state, run_featurizer
 
-    plain_cfg = config.apply_overrides(cfg, [
-        "rate.eb_use_pallas=False", "encoder.arch_kwargs.attn_impl=einsum"])
+    plain_cfg = config.apply_overrides(cfg, list(plain))
     runs = {}
     init = None
     for name, c in (("kernels", cfg), ("plain", plain_cfg)):
@@ -2057,15 +2120,24 @@ def train_ab(cfg, batches):
         launched = read_launches()
         if name == "plain" and any(launched.values()):
             raise AssertionError(f"the plain run launched {launched}")
+        if name == "kernels":
+            kernel_launches = {k: v for k, v in launched.items() if v}
+            short = [k for k in need if launched[k] < len(batches)]
+            if short:
+                raise AssertionError(
+                    f"{label}: the kernels run launched {launched}, fewer "
+                    f"than one a step of {short}")
         runs[name] = logs
     worst = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
                 for a, b in zip(runs["kernels"], runs["plain"]) for k in a)
-    print(json.dumps({"training_kernels_vs_plain": dict(
-        steps=AB_STEPS, kernels=runs["kernels"], plain=runs["plain"],
-        max_rel_diff=worst, tolerance=1e-2)}), flush=True)
+    out = dict(steps=len(batches), kernels=runs["kernels"],
+               plain=runs["plain"], kernels_run_launches=kernel_launches,
+               max_rel_diff=worst, tolerance=1e-2)
+    print(json.dumps({label: out}), flush=True)
     if not worst <= 1e-2:
-        raise AssertionError(f"kernels vs plain training logs differ by "
-                             f"{worst} relative")
+        raise AssertionError(f"{label}: kernels vs plain training logs "
+                             f"differ by {worst} relative")
+    return out
 
 
 def train_to_serve(state, card: str):
@@ -2144,7 +2216,7 @@ def slice_path(card: str) -> dict:
     per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
     want = {"fused_attention": L - 1, "fused_attention_cls": 1,
             "eb_likelihood": 1, "eb_likelihood_bwd": 1, "fused_mlp_block": 0,
-            **NO_K5}
+            **NO_K5, **NO_BF16}
     if per_step != want:
         raise AssertionError(f"launches per step {per_step}, expected {want}")
     keys = ("loss", "rate", "H_q_S", "H_q_ZlS", "distortion")
@@ -3289,10 +3361,12 @@ def check_test_metrics(metrics: dict, what: str):
         raise AssertionError(f"{what}: test metrics {bad or sorted(stages)}")
 
 
-def spatial_communication(cfg, n: int = 256) -> dict:
-    """`stl10_balle`'s exported featurizer through
-    `SpatialHyperpriorCoder` on `n` test images: the decoded latents
-    against the receiver's dequantize of the sender's symbols (1e-5)."""
+def spatial_communication(cfg, n: int = 256,
+                          label: str = "stl10_path_spatial_coder") -> dict:
+    """An `H_spatial` run's exported featurizer (`stl10_balle`'s,
+    `galaxy_regression`'s) through `SpatialHyperpriorCoder` on `n` test
+    images of its `data_pred`: the decoded latents against the
+    receiver's dequantize of the sender's symbols (1e-5)."""
     import torch
 
     from lossyless_tpu_torch.compressors import rates
@@ -3300,13 +3374,13 @@ def spatial_communication(cfg, n: int = 256) -> dict:
     from lossyless_tpu_torch.train.checkpoints import load_weights
 
     cfg = config.apply_precision(copy.deepcopy(cfg))
-    run.instantiate_datamodule(cfg, cfg.data_feat)
+    run.instantiate_datamodule(cfg, cfg.data_feat, device=DEVICE)
     state = run.build_state(cfg, 0, device=DEVICE)
     state.model.load_state_dict(load_weights(
         Path(cfg.ckpt_dir) / cfg.long_name / "best_featurizer"))
     rate = state.model.rate_estimator
     coder = rates.SpatialHyperpriorCoder(rate)
-    test = run._test_dataset(cfg, cfg.data_pred)
+    test = run._test_dataset(cfg, cfg.data_pred, DEVICE)
     n = min(n, len(test))
     x, _, _ = next(test.batches(n, seed=0))
     with torch.no_grad():
@@ -3325,7 +3399,7 @@ def spatial_communication(cfg, n: int = 256) -> dict:
     out = dict(images=n, messages=len(streams[0]),
                bits_per_image=8 * nbytes / n, max_abs_err=err,
                tolerance=1e-5, compress_s=t_comp, decompress_s=t_dec)
-    print(json.dumps({"stl10_path_spatial_coder": out}), flush=True)
+    print(json.dumps({label: out}), flush=True)
     if not err <= 1e-5:
         raise AssertionError(f"SpatialHyperpriorCoder decodes {err} off "
                              f"the dequantized latents")
@@ -3953,8 +4027,7 @@ def ssl_path(card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 PHASE4 = {}    # phase 4's rate, batches, file bytes and float64 symbols
-BF16_SOFTMAX = ("fused_attention_bf16_softmax",
-                "fused_attention_cls_bf16_softmax")
+BF16_SOFTMAX = tuple(NO_BF16)
 REMAT_BATCH, REMAT_STEPS = 128, 5
 # the distributed runs: featurizer stages at full width, cut in length
 DP_RUNS = {
@@ -4156,8 +4229,9 @@ def encode_under_knobs(card: str) -> dict:
             t_enc = time.perf_counter() - t0
             launches = read_launches()
         n_layers = len(comp.model.blocks)
-        want = dict(fused_attention=(n_layers - 1) * N_BATCHES,
-                    fused_attention_cls=N_BATCHES)
+        want = {BF16_SOFTMAX[0]: (n_layers - 1) * N_BATCHES,
+                BF16_SOFTMAX[1]: N_BATCHES,
+                "fused_attention": 0, "fused_attention_cls": 0}
         if {k: launches[k] for k in want} != want:
             raise AssertionError(f"the bf16-softmax encode launched "
                                  f"{launches}, expected {want}")
@@ -4471,6 +4545,500 @@ def knobs_and_mesh_path(card: str, timings: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the external datasets, galaxy_regression, hypopt, profiling
+# ---------------------------------------------------------------------------
+
+COCO_TRAIN, COCO_VAL, COCO_CAPTIONS = 1024, 128, 5
+COCO_SIZES = ((320, 240), (480, 640))     # (width, height), in turn
+COCO_OVERRIDES = ["rate.eb_use_pallas=True", "data_feat.n_epochs=2",
+                  "trainer.log_every=4"]
+GALAXY_TRAIN, GALAXY_TEST, GALAXY_SIDE = 512, 128, 424
+GALAXY_OVERRIDES = ["rate.eb_use_pallas=True", "data_feat.n_epochs=2",
+                    "predictor.n_epochs=2"]
+GALAXY_PLAIN = ("rate.eb_use_pallas=False",)
+EXTERNAL_AB_STEPS = 3     # the logs held to the plain run, rtol 1e-2
+HYPOPT_OVERRIDES = ["rate.eb_use_pallas=True", "data_feat.kwargs.length=8192",
+                    "data_feat.n_epochs=4", "predictor.n_epochs=1"]
+HYPOPT_TRIALS = 3
+PROFILE_CLI = ["banana_viz_VIC", "--dev", "rate.eb_use_pallas=True",
+               "data_feat.kwargs.length=20480", "predictor.n_epochs=1"]
+ONFLY_OVERRIDES = ["rate.eb_use_pallas=True", "predictor.is_on_the_fly=True",
+                   "data_feat.kwargs.synthetic=True",
+                   "data_feat.kwargs.synthetic_n=512", "data_feat.n_epochs=1",
+                   "predictor.n_epochs=1"]
+EXTERNAL_CLI = ["--device", "cuda"]   # the CLI subprocesses' device
+EXTERNAL_REDUCED = {
+    "clip_bottleneck_pretrain": "2 of the recipe's 30 epochs over 1,024 "
+                                "generated COCO-layout JPEGs (320 x 240 and "
+                                "480 x 640, 5 generated captions each) in "
+                                "place of COCO's 118,287, featurized by the "
+                                "text tower at seeded random weights; test "
+                                "on 128",
+    "galaxy_regression": "2 of the recipe's 100 featurizer epochs and 2 of "
+                         "the probe's 20 over 512 generated 424 x 424 "
+                         "kaggle-layout JPEGs and 128 test ones in place "
+                         "of Galaxy Zoo's 61,578 and 79,975",
+    "hypopt": "banana_viz_VIC at full width, 3 trials of 4 epochs of 8 "
+              "steps (8,192 samples), 1 probe epoch",
+    "profiling": "banana_viz_VIC --dev over 20,480 samples, 1 probe epoch",
+    "fit_onfly": "clip_bottleneck_linear_eval, 1 featurizer and 1 probe "
+                 "epoch over 512 synthetic STL10-shaped images",
+    "widths": "none cut: ViT-B/32 (768, 12 layers, 12 heads, 224 px) with "
+              "H_hyper's (128, 102) side latent; BALLE at hid_dim 64 on 128 "
+              "px, z = 8192 (8 x 8 x 128), H_spatial with K3 at (8192, 25), "
+              "batch 128; the banana MLPs 1024 x 2"}
+# the launcher of phase 17b's CLI: the experiment CLI, then the launch
+# counts of its run
+GALAXY_LAUNCHER = (
+    "import json, sys; from lossyless_tpu_torch import cli; "
+    "from lossyless_tpu_torch.coding import eb_kernel; "
+    "from lossyless_tpu_torch.nn import flash_attn as fa; "
+    "m = cli.main(sys.argv[1:]); "
+    "print(json.dumps({'galaxy_cli': {'metrics': {k: v for k, v in m.items() "
+    "if isinstance(v, (int, float, str))}, "
+    "'launches': {**fa.LAUNCHES, **eb_kernel.LAUNCHES}}}))")
+
+
+def _smooth_image(rng, h: int, w: int):
+    """A uint8 (h, w, 3) image: a coarse random grid, bicubic-upsampled
+    (JPEG keeps it small and fast to write)."""
+    from PIL import Image
+
+    coarse = rng.integers(0, 256, (max(2, h // 40), max(2, w // 40), 3),
+                          dtype=np.uint8)
+    return np.asarray(Image.fromarray(coarse).resize((w, h), Image.BICUBIC))
+
+
+CAPTION_WORDS = ("a", "man", "woman", "dog", "cat", "riding", "sitting",
+                 "on", "the", "of", "with", "street", "table", "red", "blue",
+                 "plate", "food", "bus", "train", "bike", "near", "grass",
+                 "two", "people", "standing", "in", "front", "building")
+
+
+def write_coco_tree(root: Path, n_train: int, n_val: int,
+                    sizes=COCO_SIZES, captions: int = COCO_CAPTIONS,
+                    seed: int = 0) -> Path:
+    """A COCO-layout tree: `train2017/` and `val2017/` JPEGs of `sizes`
+    (width, height) in turn under unique 12-digit ids, and
+    `annotations/captions_{train,val}2017.json` with `captions` generated
+    captions an image."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    ids = rng.choice(10 ** 6, n_train + n_val, replace=False) + 1
+    (root / "annotations").mkdir(parents=True, exist_ok=True)
+    ann_id = 0
+    for split, split_ids in (("train", ids[:n_train]), ("val", ids[n_train:])):
+        folder = root / f"{split}2017"
+        folder.mkdir(exist_ok=True)
+        images, annotations = [], []
+        for i, img_id in enumerate(split_ids):
+            w, h = sizes[i % len(sizes)]
+            name = f"{int(img_id):012d}.jpg"
+            Image.fromarray(_smooth_image(rng, h, w)).save(folder / name,
+                                                          quality=90)
+            images.append({"id": int(img_id), "file_name": name,
+                           "width": w, "height": h})
+            for _ in range(captions):
+                words = rng.choice(CAPTION_WORDS, int(rng.integers(6, 14)))
+                annotations.append({"id": ann_id, "image_id": int(img_id),
+                                    "caption": " ".join(words) + "."})
+                ann_id += 1
+        (root / "annotations" / f"captions_{split}2017.json").write_text(
+            json.dumps({"images": images, "annotations": annotations}))
+    return root
+
+
+def galaxy_targets(rng, n: int) -> np.ndarray:
+    """(n, 37) vote fractions that sum as Galaxy Zoo's published targets
+    do along its decision tree: question 1's three answers sum to 1, each
+    later question's answers to the fraction that reached it (2 from
+    1.2, 3, 4 and 5 from 2.2, 6 from 1, 7 from 1.1, 8 from 6.1, 9 from
+    2.1, 10 and 11 from 4.1), in the columns' order."""
+    ones = np.ones(n)
+
+    def answers(reached, k):
+        return reached[:, None] * rng.dirichlet(np.ones(k), n)
+
+    q1 = answers(ones, 3)
+    q2 = answers(q1[:, 1], 2)
+    q3, q4, q5 = (answers(q2[:, 1], k) for k in (2, 2, 4))
+    q6 = answers(ones, 2)
+    q7 = answers(q1[:, 0], 3)
+    q8 = answers(q6[:, 0], 7)
+    q9 = answers(q2[:, 0], 3)
+    q10, q11 = (answers(q4[:, 0], k) for k in (3, 6))
+    return np.concatenate([q1, q2, q3, q4, q5, q6, q7, q8, q9, q10, q11], 1)
+
+
+def write_kaggle_tree(root: Path, n_train: int, n_test: int,
+                      side: int = GALAXY_SIDE, seed: int = 0) -> Path:
+    """A Galaxy Zoo challenge tree: `images_training_rev1/<GalaxyID>.jpg`
+    and `images_test_rev1/<GalaxyID>.jpg` (side x side: an elliptical
+    glow on a dark sky) under unique six-digit ids, and
+    `training_solutions_rev1.csv` (GalaxyID and the 37 columns,
+    `galaxy_targets`)."""
+    from PIL import Image
+
+    from lossyless_tpu_torch.analysis.kaggle import GALAXY_COLUMNS
+
+    rng = np.random.default_rng(seed)
+    ids = rng.choice(np.arange(100000, 1000000), n_train + n_test,
+                     replace=False)
+    yy, xx = np.mgrid[:side, :side] / side - 0.5
+    for sub, split_ids in (("images_training_rev1", ids[:n_train]),
+                           ("images_test_rev1", ids[n_train:])):
+        folder = root / sub
+        folder.mkdir(parents=True, exist_ok=True)
+        for gid in split_ids:
+            a, b = rng.uniform(0.03, 0.2, 2)
+            t = rng.uniform(0, np.pi)
+            u = xx * np.cos(t) + yy * np.sin(t)
+            v = -xx * np.sin(t) + yy * np.cos(t)
+            glow = np.exp(-(u / a) ** 2 - (v / b) ** 2)
+            img = glow[..., None] * rng.uniform(0.3, 1.0, 3) * 255
+            Image.fromarray(img.astype(np.uint8)).save(folder / f"{gid}.jpg",
+                                                       quality=90)
+    targets = galaxy_targets(rng, n_train)
+    lines = [",".join(["GalaxyID"] + GALAXY_COLUMNS)]
+    lines += [",".join([str(int(gid))] + [f"{v:.6f}" for v in row])
+              for gid, row in zip(ids[:n_train], targets)]
+    (root / "training_solutions_rev1.csv").write_text("\n".join(lines) + "\n")
+    return root
+
+
+def first_batches(ds, n: int, batch: int, seed: int) -> list:
+    """The first `n` batches of `ds.batches(batch, seed=seed)`, kept."""
+    it = ds.batches(batch, seed=seed)
+    out = list(itertools.islice(it, n))
+    it.close()
+    return out
+
+
+def stream_rate(ds, batch: int, steps: int, seed: int) -> dict:
+    """The batch stream alone (decode, transfer, augmentation on the card,
+    prefetched), `steps` batches: images a second, ms a batch."""
+    sync()
+    t0 = time.perf_counter()
+    it = ds.batches(batch, seed=seed)
+    for x, _, _ in itertools.islice(it, steps):
+        pass
+    sync()
+    it.close()
+    s = time.perf_counter() - t0
+    return dict(batches=steps, batch=batch, img_per_s=steps * batch / s,
+                ms_per_batch=s * 1e3 / steps)
+
+
+def profile_host_epoch(cfg, ds, card: str, steps: int, seed: int) -> dict:
+    """`steps` host-fed steps of `cfg` over `ds`'s batches (decoded and
+    augmented as the run's) on a fresh state under torch.profiler: idle
+    share, device kernels a step, ms a step (the profiled wall)."""
+    from lossyless_tpu_torch.pipeline import config, run
+
+    cfg = config.apply_precision(copy.deepcopy(cfg))
+    bsz = cfg.data_feat.batch_size
+    state = run.build_state(cfg, 2 * steps, steps, device=DEVICE)
+    warm = first_batches(ds, 1, bsz, seed)   # set-up outside the trace
+    run.run_featurizer(cfg, warm, state=state, device=DEVICE,
+                       log=lambda _: None)
+
+    def epoch():
+        batches = ds.batches(bsz, seed=seed + 1)
+        run.run_featurizer(cfg, itertools.islice(batches, steps),
+                           state=state, device=DEVICE, log=lambda _: None)
+        batches.close()
+
+    prof = device_profile(epoch, card, steps=steps, batch=bsz)
+    prof["ms_per_step"] = prof["wall_ms"] / steps
+    return prof
+
+
+def coco_path(card: str, tmp: Path) -> dict:
+    """17a: a generated COCO tree ingested with the text tower on the card,
+    then `main(preset("clip_bottleneck_pretrain"))` on it (the launches
+    counted on that run), a profiled host-fed epoch and the 3-step
+    kernels-vs-plain check."""
+    from lossyless_tpu_torch.data import ingest
+    from lossyless_tpu_torch.pipeline import config, run
+
+    raw = write_coco_tree(tmp / "coco_raw", COCO_TRAIN, COCO_VAL)
+    sync()
+    t0 = time.perf_counter()
+    for split in ("train", "test"):
+        ingest.ingest_coco_clip(raw, tmp / "data", split, device=DEVICE)
+    sync()
+    ingest_s = time.perf_counter() - t0
+    n_captions = (COCO_TRAIN + COCO_VAL) * COCO_CAPTIONS
+    out = dict(ingest_s=ingest_s, captions=n_captions,
+               captions_per_s=n_captions / ingest_s)
+
+    cfg = config.apply_overrides(config.preset("clip_bottleneck_pretrain"),
+                                 COCO_OVERRIDES + [
+        f"data_feat.kwargs.data_dir={tmp / 'data'}",
+        f"out_dir={tmp}/coco/out", f"ckpt_dir={tmp}/coco/ckpt"])
+    reset_launches()
+    with CountForwards() as fw:
+        result = timed_main(cfg, matmul_precision(),
+                            need=("test/feat/loss",))
+    launches = read_launches()
+    result.pop("logs")
+    result.update(launches=launches, tower_forwards=fw.n,
+                  launches_per_tower_forward={
+                      k: launches[k] / max(1, fw.n)
+                      for k in ("fused_attention", "fused_attention_cls")})
+    want_zero = ("fused_mlp_block", *NO_K5)
+    if any(launches[k] for k in want_zero) or fw.n == 0 or \
+            launches["fused_attention"] != 11 * fw.n or \
+            launches["fused_attention_cls"] != fw.n or \
+            min(launches["eb_likelihood"], launches["eb_likelihood_bwd"]) < 1:
+        raise AssertionError(f"the COCO run's launches {launches} over "
+                             f"{fw.n} tower forwards")
+    out["main"] = result
+    print(json.dumps({"external_path_coco_main": result}), flush=True)
+
+    cfg_i = config.apply_precision(copy.deepcopy(cfg))
+    ds = run.instantiate_datamodule(cfg_i, cfg_i.data_feat, device=DEVICE)
+    out["decode"] = stream_rate(ds, TRAIN_BATCH, COCO_TRAIN // TRAIN_BATCH,
+                                seed=10)
+    out["profile"] = profile_host_epoch(cfg_i, ds, card,
+                                        COCO_TRAIN // TRAIN_BATCH, seed=20)
+    print(json.dumps({"external_path_coco_profile": out["profile"]}),
+          flush=True)
+    out["kernels_vs_plain"] = train_ab(
+        cfg_i, first_batches(ds, EXTERNAL_AB_STEPS, TRAIN_BATCH, seed=30),
+        label="external_path_coco_kernels_vs_plain", need=CLIP_KERNELS)
+    return out, launches
+
+
+def check_submission(path: Path, test_ids: np.ndarray) -> dict:
+    """The kaggle CSV: a header and a row a test galaxy, its ids the
+    ingested test ids in order, every value in [0, 1]."""
+    from lossyless_tpu_torch.analysis.kaggle import GALAXY_COLUMNS
+
+    rows = path.read_text().strip().splitlines()
+    header, body = rows[0].split(","), [r.split(",") for r in rows[1:]]
+    ids = np.asarray([int(r[0]) for r in body])
+    values = np.asarray([[float(v) for v in r[1:]] for r in body])
+    ok = (header == ["GalaxyID"] + GALAXY_COLUMNS
+          and len(rows) == len(test_ids) + 1
+          and np.array_equal(ids, test_ids)
+          and values.shape == (len(test_ids), 37)
+          and bool(((values >= 0) & (values <= 1)).all()))
+    out = dict(rows=len(rows), ids_equal=bool(np.array_equal(ids, test_ids)),
+               min=float(values.min()), max=float(values.max()), ok=ok)
+    if not ok:
+        raise AssertionError(f"the kaggle submission {out}")
+    return out
+
+
+def galaxy_path(card: str, tmp: Path) -> dict:
+    """17b: a generated kaggle tree ingested, `galaxy_regression` through
+    the experiment CLI in a subprocess (its launches counted there), the
+    submission checked against the ingested ids, the spatial coder's
+    decode, a profiled host-fed epoch and the 3-step kernels-vs-plain
+    check."""
+    import torch
+
+    from lossyless_tpu_torch.data import ingest
+    from lossyless_tpu_torch.pipeline import config, run
+
+    raw = write_kaggle_tree(tmp / "galaxy_raw", GALAXY_TRAIN, GALAXY_TEST)
+    t0 = time.perf_counter()
+    root = ingest.ingest_kaggle_galaxy(raw, tmp / "data")
+    ingest_s = time.perf_counter() - t0
+    out = dict(ingest_s=ingest_s, ingest_img_per_s=(
+        GALAXY_TRAIN + GALAXY_TEST) / ingest_s)
+
+    data = [f"data_feat.kwargs.data_dir={tmp / 'data'}",
+            f"data_pred.kwargs.data_dir={tmp / 'data'}"]
+    dirs = [f"out_dir={tmp}/galaxy/out", f"ckpt_dir={tmp}/galaxy/ckpt"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-c", GALAXY_LAUNCHER, "galaxy_regression",
+         *EXTERNAL_CLI, *GALAXY_OVERRIDES, *data, *dirs],
+        capture_output=True, text=True, timeout=600, cwd=ROOT)
+    if cli.returncode:
+        raise AssertionError(f"the galaxy CLI exited {cli.returncode}: "
+                             f"{cli.stderr[-3000:]}")
+    rec = next(json.loads(line)["galaxy_cli"] for line in
+               cli.stdout.splitlines() if line.startswith('{"galaxy_cli"'))
+    rec["wall_s"] = time.perf_counter() - t0
+    launches = rec["launches"]
+    check_launches(launches, "galaxy_regression")
+    metrics = rec["metrics"]
+    check_test_metrics({k: v for k, v in metrics.items()
+                        if isinstance(v, float)}, "galaxy_regression")
+    if metrics.get("kaggle_submission_ids") is not None:
+        raise AssertionError(f"the ingested run's ids: {metrics}")
+    rec["submission"] = check_submission(
+        Path(metrics["kaggle_submission"]), np.load(root / "test_ids.npy"))
+    out["cli"] = rec
+    print(json.dumps({"external_path_galaxy_cli": rec}), flush=True)
+
+    cfg = config.apply_overrides(config.preset("galaxy_regression"),
+                                 GALAXY_OVERRIDES + data + dirs)
+    out["spatial_coder"] = spatial_communication(
+        cfg, GALAXY_TEST, label="external_path_galaxy_spatial_coder")
+    cfg_i = config.apply_precision(copy.deepcopy(cfg))
+    ds = run.instantiate_datamodule(cfg_i, cfg_i.data_feat, device=DEVICE)
+    out["decode"] = stream_rate(ds, TRAIN_BATCH,
+                                GALAXY_TRAIN // TRAIN_BATCH, seed=30)
+    out["profile"] = profile_host_epoch(cfg_i, ds, card,
+                                        GALAXY_TRAIN // TRAIN_BATCH, seed=40)
+    print(json.dumps({"external_path_galaxy_profile": out["profile"]}),
+          flush=True)
+    out["kernels_vs_plain"] = train_ab(
+        cfg_i, first_batches(ds, EXTERNAL_AB_STEPS, TRAIN_BATCH, seed=50),
+        plain=GALAXY_PLAIN, label="external_path_galaxy_kernels_vs_plain",
+        need=K3_BOTH)
+    return out, launches
+
+
+def hypopt_path(tmp: Path) -> dict:
+    """17c: `hypopt` over `banana_viz_VIC` (loss.beta log-uniform, 3
+    trials, median-stop pruning): every trial runs a rung, a surviving
+    trial's full run trains only the epochs after its rung (steps
+    counted), the result JSON is written."""
+    from lossyless_tpu_torch.pipeline import config, hypopt, run
+
+    base = config.apply_overrides(config.preset("banana_viz_VIC"),
+                                  HYPOPT_OVERRIDES + [
+        f"out_dir={tmp}/hypopt/out", f"ckpt_dir={tmp}/hypopt/ckpt"])
+    calls = []
+
+    def run_fn(cfg):
+        with CountTrainSteps() as ts:
+            metrics = run.main(cfg, device=DEVICE)
+        calls.append(dict(experiment=cfg.experiment, rung=cfg.is_only_feat,
+                          epochs=cfg.data_feat.n_epochs, steps=ts.n))
+        return metrics
+
+    t0 = time.perf_counter()
+    result = hypopt(base, {"loss.beta": ("log_uniform", 1e-3, 1.0)},
+                    monitor="test/pred/loss", n_trials=HYPOPT_TRIALS,
+                    run_fn=run_fn, prune=True,
+                    out_file=str(tmp / "hypopt" / "result.json"))
+    wall = time.perf_counter() - t0
+    spe = 8192 // base.data_feat.batch_size
+    rungs = [c for c in calls if c["rung"]]
+    fulls = [c for c in calls if not c["rung"]]
+    out = dict(wall_s=wall, calls=calls, best=result["best"],
+               pruned=[t.get("pruned", False) for t in result["trials"]],
+               result_file=(tmp / "hypopt" / "result.json").exists())
+    if len(rungs) != HYPOPT_TRIALS or not fulls or not out["result_file"] \
+            or any(c["steps"] != spe for c in rungs) \
+            or any(c["steps"] != (c["epochs"] - 1) * spe for c in fulls):
+        raise AssertionError(f"hypopt: {out}")
+    print(json.dumps({"external_path_hypopt": out}), flush=True)
+    return out
+
+
+def profiling_path(tmp: Path) -> dict:
+    """17d: the experiment CLI with `--profile-dir` in a subprocess: its
+    trace exists and names K3's forward and backward kernels among its
+    CUDA kernel events."""
+    from lossyless_tpu_torch.core.profiling import (TRACE_FILE,
+                                                    device_memory_stats)
+
+    pdir = tmp / "profile"
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "lossyless_tpu_torch.cli", *PROFILE_CLI,
+         *EXTERNAL_CLI, "--profile-dir", str(pdir),
+         f"out_dir={tmp}/prof/out", f"ckpt_dir={tmp}/prof/ckpt"],
+        capture_output=True, text=True, timeout=600, cwd=ROOT)
+    if cli.returncode:
+        raise AssertionError(f"the profiled CLI exited {cli.returncode}: "
+                             f"{cli.stderr[-3000:]}")
+    trace = pdir / TRACE_FILE
+    events = json.loads(trace.read_text())["traceEvents"] \
+        if trace.exists() else []
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    fwd = sorted(k for k in kernels if "eb_likelihood_kernel" in k)
+    bwd = sorted(k for k in kernels if "eb_likelihood_bwd_kernel" in k)
+    out = dict(wall_s=time.perf_counter() - t0,
+               trace_bytes=trace.stat().st_size if trace.exists() else 0,
+               kernel_names=len(kernels), k3_forward=fwd[:2],
+               k3_backward=bwd[:2],
+               device_memory_stats=device_memory_stats())
+    print(json.dumps({"external_path_profiling": out}), flush=True)
+    if not (fwd and bwd):
+        raise AssertionError(f"the trace names no K3 kernels: {out}")
+    return out
+
+
+def onfly_path(tmp: Path) -> dict:
+    """17e: `clip_bottleneck_linear_eval` with the probe trained on the
+    fly: K1 and K2 launch inside `fit_onfly`'s steps."""
+    from lossyless_tpu_torch.pipeline import config, predictor, run
+
+    cfg = config.apply_overrides(
+        config.preset("clip_bottleneck_linear_eval"), ONFLY_OVERRIDES + [
+            f"out_dir={tmp}/onfly/out", f"ckpt_dir={tmp}/onfly/ckpt"])
+    inside = {}
+    saved = predictor.PredictorTrainer.fit_onfly
+
+    def fit_onfly(self, *a, **k):
+        before = read_launches()
+        result = saved(self, *a, **k)
+        sync()
+        inside.update({n: v - before[n] for n, v in read_launches().items()})
+        return result
+
+    predictor.PredictorTrainer.fit_onfly = fit_onfly
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        metrics = run.main(cfg, device=DEVICE)
+        wall = time.perf_counter() - t0
+    finally:
+        predictor.PredictorTrainer.fit_onfly = saved
+    out = dict(wall_s=wall, launches=read_launches(),
+               launches_in_fit_onfly=inside,
+               test_pred_acc=float(metrics["test/pred/acc"]))
+    print(json.dumps({"external_path_fit_onfly": out}), flush=True)
+    if not inside or inside["fused_attention"] < 11 or \
+            inside["fused_attention_cls"] < 1 or \
+            not np.isfinite(out["test_pred_acc"]):
+        raise AssertionError(f"fit_onfly: {out}")
+    return out
+
+
+def external_path(card: str) -> dict:
+    """Phase 17: the slice on the card (17a COCO, 17b Galaxy Zoo, 17c
+    hypopt, 17d --profile-dir, 17e fit_onfly). Returns the launch counts
+    on the COCO and the galaxy paths."""
+    t_phase = time.perf_counter()
+    out = dict(card=card, reduced=EXTERNAL_REDUCED)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        out["coco"], coco = coco_path(card, tmp)
+        out["coco"]["wall_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["galaxy"], galaxy = galaxy_path(card, tmp)
+        out["galaxy"]["wall_s"] = time.perf_counter() - t0
+        out["hypopt"] = hypopt_path(tmp)
+        out["profiling"] = profiling_path(tmp)
+        out["fit_onfly"] = onfly_path(tmp)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"external_path": {
+        "card": card, "wall_s": out["wall_s"],
+        "coco": {k: out["coco"][k] for k in ("captions_per_s", "decode",
+                                             "wall_s")},
+        "galaxy": {k: out["galaxy"][k] for k in ("ingest_img_per_s",
+                                                 "decode", "wall_s")},
+        "launches_on_coco_path": coco,
+        "launches_on_galaxy_path": galaxy}}), flush=True)
+    print(f"phase 17 (external datasets) wall {out['wall_s']:.1f} s",
+          flush=True)
+    return dict(coco=coco, galaxy=galaxy)
+
+
 def main() -> int:
     import torch
 
@@ -4525,6 +5093,7 @@ def main() -> int:
     stl10_launches = stl10_path(card)
     ssl_launches = ssl_path(card)
     knobs = knobs_and_mesh_path(card, timings)
+    external = external_path(card)
 
     attention_cu = "lossyless_tpu_torch/nn/csrc/attention.cu"
     eb_cu = "lossyless_tpu_torch/coding/csrc/eb_likelihood.cu"
@@ -4553,7 +5122,9 @@ def main() -> int:
                 launches_on_banana_path=banana_launches[name],
                 launches_on_image_path=image_launches[name],
                 launches_on_stl10_path=stl10_launches[name],
-                launches_on_ssl_path=ssl_launches.get(name, 0))
+                launches_on_ssl_path=ssl_launches.get(name, 0),
+                launches_on_coco_path=external["coco"][name],
+                launches_on_galaxy_path=external["galaxy"][name])
         else:
             # K1/K2 on the encode path, K3/K4 on the training path (K1/K2
             # run there too: launches_per_training_step)
@@ -4569,7 +5140,9 @@ def main() -> int:
                 launches_on_banana_path=banana_launches[name],
                 launches_on_image_path=image_launches[name],
                 launches_on_stl10_path=stl10_launches[name],
-                launches_on_ssl_path=ssl_launches.get(name, 0))
+                launches_on_ssl_path=ssl_launches.get(name, 0),
+                launches_on_coco_path=external["coco"][name],
+                launches_on_galaxy_path=external["galaxy"][name])
         row = dict(name=name, route="cuda", source=sources[name],
                    replaces=replaces[name], **counts, **timings[name])
         # registers and spills of the kernel's instantiations
@@ -4597,7 +5170,10 @@ def main() -> int:
         timed = knobs["bf16_softmax"][base]
         row = dict(name=name, route="cuda", source=attention_cu,
                    replaces=replaces[base] + " (SOFTMAX_DTYPE=bfloat16)",
-                   launches=bf16_launches[base], **timed["b512"])
+                   launches=bf16_launches[name],
+                   launches_on_coco_path=external["coco"][name],
+                   launches_on_galaxy_path=external["galaxy"][name],
+                   **timed["b512"])
         row["at_b256"] = timed[f"b{BATCH}"]
         row["max_abs_err_over_checks"] = timed["max_abs_err_over_checks"]
         if base == "fused_attention_cls":

@@ -14,9 +14,11 @@ Example:
 
 Modes: `--dev` caps the epochs at 2 and the batches at 10% (train) and
 20% (eval); `--debug` one epoch on 1% of the batches, with autograd's
-anomaly detection on (it raises at the op that made a NaN); `--overfit`
-10% of the batches. Not ported: `--classical` (ROADMAP queue 1 item 11)
-and `--profile-dir` (item 10, `core/profiling`).
+anomaly detection on (`core.profiling.debug_mode`: it raises at the op
+that made a NaN); `--overfit` 10% of the batches; `--profile-dir D`
+traces the run with torch.profiler into `D/trace.json` (under `-m`, job
+i into `D/job{i}/trace.json`). Not ported: `--classical` (ROADMAP queue
+1 item 11).
 
 Data parallelism: `trainer.n_devices=N` trains over N ranks, spawned by
 the pipeline (one a card, or N gloo processes with `--device cpu`); under
@@ -28,7 +30,6 @@ before anything touches a device, and only rank 0 prints.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import copy
 import itertools
 import json
@@ -53,7 +54,8 @@ def _parser(presets: list[str]) -> argparse.ArgumentParser:
                         help="overfit mode: train and eval on 10%% of "
                              "batches")
     parser.add_argument("--profile-dir", default=None,
-                        help="not ported yet (ROADMAP queue 1 item 10)")
+                        help="trace the run with torch.profiler into this "
+                             "directory (a Chrome trace)")
     parser.add_argument("--classical", default=None,
                         choices=["jpeg", "webp", "png", "identity"],
                         help="not ported yet (ROADMAP queue 1 item 11)")
@@ -80,10 +82,6 @@ def main(argv=None):
         raise NotImplementedError(
             "--classical (the classical codec baselines) is not ported yet "
             "(ROADMAP queue 1 item 11)")
-    if args.profile_dir:
-        raise NotImplementedError(
-            "--profile-dir (core/profiling) is not ported yet (ROADMAP "
-            "queue 1 item 10)")
 
     cfg = (ExperimentConfig() if args.preset == "default"
            else preset(args.preset))
@@ -103,21 +101,20 @@ def main(argv=None):
         return _multirun(cfg, args)
 
     cfg = apply_overrides(cfg, args.overrides)
-    metrics = _run(cfg, args)
+    metrics = _run(cfg, args, args.profile_dir)
     if rank_world()[0] == 0:
         print(json.dumps({k: (round(v, 6) if isinstance(v, float) else v)
                           for k, v in metrics.items()}, indent=2))
     return metrics
 
 
-def _run(cfg, args) -> dict:
-    import torch
-
+def _run(cfg, args, profile_dir=None) -> dict:
+    """The pipeline under `--debug`'s anomaly detection and, with a
+    `profile_dir`, a torch.profiler trace into it."""
+    from .core.profiling import debug_mode, profile_trace
     from .pipeline.run import main as run_main
 
-    anomaly = torch.autograd.detect_anomaly() if args.debug \
-        else contextlib.nullcontext()
-    with anomaly:
+    with debug_mode(args.debug), profile_trace(profile_dir):
         return run_main(cfg, device=args.device)
 
 
@@ -150,7 +147,9 @@ def _multirun(base_cfg, args) -> list[dict]:
         if cfg.long_name in seen_names:
             cfg.experiment = f"{cfg.experiment}-run{i}"
         seen_names.add(cfg.long_name)
-        metrics = _run(cfg, args)
+        # each job traces into a directory of its own
+        pdir = f"{args.profile_dir}/job{i}" if args.profile_dir else None
+        metrics = _run(cfg, args, pdir)
         rec = {"job": i, "overrides": ovs,
                "metrics": {k: v for k, v in metrics.items()
                            if isinstance(v, (int, float))}}

@@ -1,12 +1,15 @@
 """Image datasets with equivalence augmentation.
 
-Counterpart of the part of `lossyless_tpu/data/images.py` that the CLIP,
-MNIST and STL10 presets reach: `SPECS`, the seeded procedural source
-`_synthetic` (the same bytes as JAX's for every split and seed),
-`ImageDataset` (load, carve train/validation from train, `batches` with
-`drop_last`, `is_normalize`, the equivalence's augmentations and the
-joint (image, label) `label_equivalence`, `device_sampler`) and
-`get_datamodule` for the image sets.
+Counterpart of `lossyless_tpu/data/images.py`: `SPECS`, the seeded
+procedural source `_synthetic` (the same bytes as JAX's for every split
+and seed), `ImageDataset` (load, carve train/validation from train,
+`batches` with `drop_last`, `is_normalize`, the equivalence's
+augmentations and the joint (image, label) `label_equivalence`,
+`device_sampler`), the file loaders (MNIST's idx files, CIFAR-10/100's
+pickles, STL10's binary format, `load_image_folder` for the ingested
+class-per-subdirectory sets) and `get_datamodule`, which also routes
+`imagenet`, `coco_clip` / `coco_captions` and `galaxy_zoo` to
+`data/external.py`.
 
 Batches are `(x, target, aux_target)` CPU tensors: x float32 NHWC in
 [0, 1] (normalized with `is_normalize`), in the order of JAX's batches
@@ -21,15 +24,15 @@ augmented by the chain alone, normalized as x is; `target`: the label).
 `ImageDataset.build` turns given draws into a batch, so a test can hand
 both paths JAX's draws.
 
-Real files are read for MNIST's idx files and STL10's binary format,
-under `DATA_DIR`, and only when `synthetic` is off: a missing file
-raises, it never falls back to the synthetic source.
+Real files are read under `DATA_DIR` only when `synthetic` is off: a
+missing file raises, it never falls back to the synthetic source.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import gzip
+import pickle
 import zlib
 from pathlib import Path
 from typing import ClassVar, Sequence
@@ -40,6 +43,7 @@ import torch
 from ..core import mesh
 from .augmentations import make_augmenter
 from .label_augment import EquivariantRandomResizedCrop
+from .norms import MEANS, STDS
 
 # where the real datasets go once they are in the repository
 DATA_DIR = Path(__file__).resolve().parents[2] / "data"
@@ -74,29 +78,6 @@ SPECS = {
                             ("hflip", "resize_crop", "color", "gray")),
 }
 
-# per-dataset normalization (the JAX package's data/norms.py)
-MEANS = {
-    "mnist": [0.1307],
-    "cifar10": [0.4914, 0.4822, 0.4465],
-    "cifar100": [0.5071, 0.4865, 0.4409],
-    "stl10": [0.43, 0.42, 0.39],
-    "stl10_unlabeled": [0.43, 0.42, 0.39],
-    "imagenet": [0.485, 0.456, 0.406],
-    "clip": [0.48145466, 0.4578275, 0.40821073],
-    "galaxy": [0.03294565, 0.04387402, 0.04995899],
-}
-STDS = {
-    "mnist": [0.3081],
-    "cifar10": [0.2470, 0.2435, 0.2616],
-    "cifar100": [0.2673, 0.2564, 0.2762],
-    "stl10": [0.27, 0.26, 0.27],
-    "stl10_unlabeled": [0.27, 0.26, 0.27],
-    "imagenet": [0.229, 0.224, 0.225],
-    "clip": [0.26862954, 0.26130258, 0.27577711],
-    "galaxy": [0.07004886, 0.07964786, 0.09574898],
-}
-
-
 def _load_mnist(data_dir: Path, split: str):
     """MNIST's gzip'd idx files under `data_dir/MNIST/raw`, each 28 x 28
     digit resized to 32 x 32 with PIL's bicubic filter (JAX's loader, the
@@ -117,6 +98,30 @@ def _load_mnist(data_dir: Path, split: str):
     return data, labels.astype(np.int64)
 
 
+def _load_cifar(data_dir: Path, split: str, n100: bool = False):
+    """CIFAR-10's or CIFAR-100's python pickles under `data_dir`
+    (`cifar-10-batches-py/`, `cifar-100-python/`; CIFAR-100's fine
+    labels): (N, 32, 32, 3) uint8, int64 labels."""
+    if not n100:
+        base = data_dir / "cifar-10-batches-py"
+        files = ([base / f"data_batch_{i}" for i in range(1, 6)]
+                 if split == "train" else [base / "test_batch"])
+        xs, ys = [], []
+        for f in files:
+            with open(f, "rb") as fh:
+                d = pickle.load(fh, encoding="bytes")
+            xs.append(d[b"data"])
+            ys.extend(d[b"labels"])
+        data = np.concatenate(xs).reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
+        return data, np.asarray(ys, np.int64)
+    f = data_dir / "cifar-100-python" / ("train" if split == "train"
+                                         else "test")
+    with open(f, "rb") as fh:
+        d = pickle.load(fh, encoding="bytes")
+    data = d[b"data"].reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
+    return data, np.asarray(d[b"fine_labels"], np.int64)
+
+
 def _load_stl10(data_dir: Path, split: str):
     base = data_dir / "stl10_binary"
     xf = base / f"{split}_X.bin"
@@ -128,6 +133,30 @@ def _load_stl10(data_dir: Path, split: str):
     else:
         labels = np.full(len(data), -1, np.int64)  # unlabeled split
     return data, labels
+
+
+def load_image_folder(root: Path, size: tuple[int, int],
+                      extensions=(".jpg", ".jpeg", ".png")) -> tuple:
+    """A class-per-subdirectory image folder (`root/<class>/<image>`, the
+    layout `data.ingest.ingest_tfds` writes) as (uint8 (N, H, W, 3)
+    decoded and resized to `size` by `data.loader`'s thread pool, int64
+    labels, class names); classes and files in sorted order."""
+    from .loader import decode_image_batch
+
+    root = Path(root)
+    classes = sorted(d.name for d in root.iterdir() if d.is_dir())
+    if not classes:
+        raise FileNotFoundError(f"no class subdirectories under {root}")
+    paths, labels = [], []
+    for ci, cname in enumerate(classes):
+        for f in sorted((root / cname).iterdir()):
+            if f.suffix.lower() in extensions:
+                paths.append(f)
+                labels.append(ci)
+    if not paths:
+        raise FileNotFoundError(f"no images under {root}")
+    return (decode_image_batch(paths, size), np.asarray(labels, np.int64),
+            classes)
 
 
 def _synthetic(spec: ImageSpec, split: str, n: int, seed: int):
@@ -204,15 +233,24 @@ class ImageDataset:
                 ImageDataset._carve_fractions.setdefault(reg_key, 0.0)
 
     def _load(self, split: str):
-        if split == "validation":  # the binary formats ship train/test only
-            raise FileNotFoundError(f"{self.name} has no validation split")
-        if self.name == "mnist":
-            return _load_mnist(self.data_dir, split)
-        if self.name == "stl10":
+        if self.name in ("mnist", "cifar10", "cifar100", "stl10"):
+            if split == "validation":  # the binary formats: train/test only
+                raise FileNotFoundError(
+                    f"{self.name} has no validation split")
+            if self.name == "mnist":
+                return _load_mnist(self.data_dir, split)
+            if self.name.startswith("cifar"):
+                return _load_cifar(self.data_dir, split,
+                                   n100=self.name == "cifar100")
             return _load_stl10(self.data_dir, split)
-        raise NotImplementedError(
-            f"the {self.name} file loader is not ported yet (ROADMAP queue "
-            f"1 item 9); pass synthetic=True")
+        # the ingested sets (food101, cars196, pcam, pets37, caltech101,
+        # galaxy): class-per-subdir image folders under data_dir/name/split
+        folder = Path(self.data_dir) / self.name / split
+        if not folder.exists():
+            raise FileNotFoundError(folder)
+        h, w, _ = self.spec.shape
+        data, targets, _ = load_image_folder(folder, (h, w))
+        return data, targets
 
     def _load_any(self, split: str):
         if self.synthetic:
@@ -383,7 +421,8 @@ class ImageSampler:
 
 
 def get_datamodule(name: str, **kwargs):
-    """Dataset registry: the banana source and the image sets."""
+    """Dataset registry: the banana source, the image sets and the
+    externally ingested ones (`data/external.py`)."""
     if name == "banana":
         from .banana import BananaDataset
         return BananaDataset(**kwargs)
@@ -393,5 +432,13 @@ def get_datamodule(name: str, **kwargs):
         return ImageDataset(name="stl10", train_split="unlabeled", **kwargs)
     if name in SPECS:
         return ImageDataset(name=name, **kwargs)
-    raise NotImplementedError(
-        f"dataset {name!r} is not ported yet (ROADMAP queue 1 item 9)")
+    if name == "imagenet":
+        from .external import StreamingImageFolder
+        return StreamingImageFolder(name=name, **kwargs)
+    if name in ("coco_clip", "coco_captions"):
+        from .external import CocoClipDataset
+        return CocoClipDataset(**kwargs)
+    if name == "galaxy_zoo":
+        from .external import GalaxyZooDataset
+        return GalaxyZooDataset(**kwargs)
+    raise ValueError(f"unknown dataset {name}")

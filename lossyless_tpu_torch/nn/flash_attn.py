@@ -66,8 +66,12 @@ from dataclasses import dataclass
 import torch
 
 # launches of each kernel, counted where the kernel is launched and nowhere
-# else (a run reads them to show its main path went through the kernels)
+# else (a run reads them to show its main path went through the kernels);
+# K1's and K2's bf16-softmax instantiations (`SOFTMAX_DTYPE=bfloat16`) have
+# keys of their own
 LAUNCHES = {"fused_attention": 0, "fused_attention_cls": 0,
+            "fused_attention_bf16_softmax": 0,
+            "fused_attention_cls_bf16_softmax": 0,
             "fused_attention_packed": 0, "fused_attention_headbatched": 0,
             "fused_mlp_block": 0}
 
@@ -651,7 +655,7 @@ def _launch_attention(qkv: torch.Tensor, heads: int) -> torch.Tensor:
             _DTYPE_CODE[qkv.dtype], d**-0.5, K1_WARPS, sm,
             qkv.device.index, stream)
     _raise_on(rc, "fused_attention")
-    LAUNCHES["fused_attention"] += 1
+    LAUNCHES["fused_attention_bf16_softmax" if sm else "fused_attention"] += 1
     return out
 
 
@@ -706,12 +710,14 @@ def _launch_attention_cls(q0: torch.Tensor, kv: torch.Tensor,
     plan = k2_plan(B, N, heads, d, kv.dtype,
                    all(t.data_ptr() % 16 == 0 for t in (q0, kv, out)))
     stream = torch.cuda.current_stream(kv.device).cuda_stream
+    sm = _bf16_softmax()
     rc = _get_lib().lossyless_fused_attention_cls(
         q0.data_ptr(), kv.data_ptr(), out.data_ptr(), B, N, heads, d,
-        _DTYPE_CODE[kv.dtype], d**-0.5, plan.warps, int(plan.vec),
-        _bf16_softmax(), kv.device.index, stream)
+        _DTYPE_CODE[kv.dtype], d**-0.5, plan.warps, int(plan.vec), sm,
+        kv.device.index, stream)
     _raise_on(rc, "fused_attention_cls")
-    LAUNCHES["fused_attention_cls"] += 1
+    LAUNCHES["fused_attention_cls_bf16_softmax" if sm
+             else "fused_attention_cls"] += 1
     return out
 
 

@@ -21,8 +21,10 @@ online probe) and its evaluation presets
 (the lossless rate, featurizer at init), and the SSL recipes
 `ssl_bottleneck_pretrain` (the bottleneck on CLIP's RN50, or with
 `encoder.arch=simclr|swav` a ResNet-50, loaded from
-`encoder.pretrained_path`) and its `ssl_bottleneck_{linear,mlp}_eval`.
-`galaxy_regression` waits for ROADMAP queue 1 item 10 (order 9).
+`encoder.pretrained_path`) and its `ssl_bottleneck_{linear,mlp}_eval`,
+and `galaxy_regression` (alias `galaxy_neurips`: BALLE with the spatial
+hyperprior on Galaxy Zoo, the regression probe and predictor, the kaggle
+submission).
 """
 
 from __future__ import annotations
@@ -549,6 +551,31 @@ def _preset_impl(name: str) -> ExperimentConfig:
         cfg.experiment = "ssl_bottleneck_mlp_eval"
         cfg.predictor = PredictorConfig()
         return cfg
+    if name in ("galaxy_regression", "galaxy_neurips"):
+        # bin/galaxy/GalaxyZoo_neurips_final.sh: a VAE-style featurizer,
+        # BALLE with the spatial hyperprior (z 8192 = 8 x 8 positions x
+        # 128 channels on 128 px crops), the image distortion on BALLE's
+        # decoder, the regression online probe, and the 37-probability
+        # regression predictor whose test predictions become the kaggle
+        # submission
+        return ExperimentConfig(
+            experiment="galaxy_regression",
+            data_feat=DataConfig(name="galaxy_zoo", batch_size=128,
+                                 n_epochs=100,
+                                 kwargs=dict(additional_target="input")),
+            data_pred=DataConfig(name="galaxy_zoo", batch_size=128,
+                                 kwargs=dict()),
+            encoder=EncoderConfig(arch="balle", z_dim=8192,
+                                  arch_kwargs=dict(hid_dim=64)),
+            rate=RateConfig(mode="H_spatial", n_channels=128),
+            distortion=DistortionConfig(mode="direct", data_mode="image",
+                                        arch="balle",
+                                        arch_kwargs=dict(hid_dim=64)),
+            online=OnlineEvalConfig(is_online=True, is_classification=False,
+                                    arch_kwargs=dict(hid_dim=512)),
+            loss=LossConfig(beta=1e-6),
+            predictor=PredictorConfig(is_classification=False),
+        )
     if name in ("clip_lossyZ", "clip_bottleneck"):
         # bottleneck_clip_lossyZ: frozen CLIP tower, hyperprior rate on the
         # 512-d embeddings, lossy_Z distortion, beta 5e-2, the online probe
@@ -598,12 +625,11 @@ def _preset_impl(name: str) -> ExperimentConfig:
         cfg.experiment = "clip_raw_mlp_eval"
         cfg.predictor = PredictorConfig()
         return cfg
-    raise NotImplementedError(
-        f"preset {name!r} is not ported yet (ROADMAP queue 1 item 10)")
+    raise ValueError(f"unknown preset {name!r}")
 
 
 def available_presets() -> list[str]:
-    """The presets this package has, in the JAX package's order:
+    """The presets, JAX's 28 in the JAX package's order:
     `clip_hub`, `clip_bottleneck_pretrain` and `ssl_bottleneck_pretrain`
     (COCO recipes, featurizer only) train through
     `pipeline.run.run_featurizer` and code through `run_communication`;
@@ -618,4 +644,4 @@ def available_presets() -> list[str]:
             "ssl_bottleneck_pretrain", "ssl_bottleneck_linear_eval",
             "ssl_bottleneck_mlp_eval", "clip_bottleneck_linear_eval",
             "clip_bottleneck_mlp_eval", "clip_raw_linear_eval",
-            "clip_raw_mlp_eval"]
+            "clip_raw_mlp_eval", "galaxy_regression"]

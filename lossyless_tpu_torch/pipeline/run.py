@@ -28,7 +28,8 @@ Counterpart of `lossyless_tpu/pipeline/run.py`:
   sentinel.
 * `run_predictor`: featurize the predictor's datasets through the frozen
   compressor, fit the probe (`pipeline/predictor.py`), evaluate it on the
-  test split: `results_predictor.csv`.
+  test split: `results_predictor.csv`; on Galaxy Zoo also the kaggle
+  submission of its predictions (`analysis/kaggle.py`).
 * `main(cfg)`: the three stages, each skipped when its sentinel exists; a
   finished featurizer is rebuilt from its exported weights.
 
@@ -45,7 +46,9 @@ checkpoints, logs and export, and runs the test evaluation, the
 communication stage and the predictor; the other ranks return after the
 featurizer stage's training. Every rank reads a resume checkpoint.
 
-Every entry point runs on the card unless `device` says otherwise.
+Every entry point runs on the card unless `device` says otherwise; the
+external datasets (`data/external.py`) decode their JPEGs on the host and
+augment the batches on that device.
 """
 
 from __future__ import annotations
@@ -62,6 +65,7 @@ from typing import Callable, Iterable
 import numpy as np
 import torch
 
+from ..analysis.kaggle import write_kaggle_submission
 from ..compressors.compressor import LearnableCompressor
 from ..compressors.rates import (FactorizedCoder, HyperpriorCoder,
                                  SpatialHyperpriorCoder, lossless_bits)
@@ -69,6 +73,7 @@ from ..core import mesh
 from ..core.device import resolve_device
 from ..data.balancing import get_balancing_weights
 from ..data.banana import BananaDataset
+from ..data.external import EXTERNAL_DATASETS
 from ..data.images import get_datamodule
 from ..nn.pretrained import load_pretrained_encoder
 from ..train.checkpoints import (CheckpointManager, is_stage_done,
@@ -225,8 +230,18 @@ def _step_generator(device, seed: int) -> torch.Generator:
     return torch.Generator(device).manual_seed(seed)
 
 
-def instantiate_datamodule(cfg: ExperimentConfig, data_cfg, split="train"):
-    """Build the dataset and write its shapes into `cfg`."""
+def _datamodule(name: str, device, **kwargs):
+    """`get_datamodule`, an external dataset's batches on `device` unless
+    its kwargs name one."""
+    if name in EXTERNAL_DATASETS:
+        kwargs.setdefault("device", device)
+    return get_datamodule(name, **kwargs)
+
+
+def instantiate_datamodule(cfg: ExperimentConfig, data_cfg, split="train",
+                           device=None):
+    """Build the dataset and write its shapes into `cfg`; an external
+    dataset's batches lie on `device` (default: the card)."""
     kwargs = dict(data_cfg.kwargs)
     if data_cfg.name == "banana":
         ds = BananaDataset(**kwargs)
@@ -235,18 +250,21 @@ def instantiate_datamodule(cfg: ExperimentConfig, data_cfg, split="train"):
         at = kwargs.get("additional_target", "representative")
         cfg.aux_shape = 1 if at == "target" else 2
         return ds
-    ds = get_datamodule(data_cfg.name, split=split, **kwargs)
+    ds = _datamodule(data_cfg.name, device, split=split, **kwargs)
     cfg.in_shape = ds.spec.shape
     cfg.target_shape = ds.spec.n_classes
-    at = kwargs.get("additional_target",
-                    getattr(ds, "additional_target", "representative"))
-    cfg.aux_shape = (ds.spec.shape if at in
-                     ("input", "representative", "equiv_x")
-                     else ds.spec.n_classes)
+    if hasattr(ds, "aux_shape"):      # the external datasets say theirs
+        cfg.aux_shape = ds.aux_shape
+    else:
+        at = kwargs.get("additional_target",
+                        getattr(ds, "additional_target", "representative"))
+        cfg.aux_shape = (ds.spec.shape if at in
+                         ("input", "representative", "equiv_x")
+                         else ds.spec.n_classes)
     return ds
 
 
-def _eval_dataset(cfg: ExperimentConfig, data_cfg, split: str):
+def _eval_dataset(cfg: ExperimentConfig, data_cfg, split: str, device=None):
     """An evaluation split ("validation" for model selection, "test" for
     the final metrics), in the evaluation view (no augmentation). The
     banana source's splits are fresh samples: at most 20,480 of them, seeded
@@ -258,15 +276,15 @@ def _eval_dataset(cfg: ExperimentConfig, data_cfg, split: str):
                                              else 2)
         return BananaDataset(**kwargs)
     kwargs.setdefault("is_augment", False)
-    return get_datamodule(data_cfg.name, split=split, **kwargs)
+    return _datamodule(data_cfg.name, device, split=split, **kwargs)
 
 
-def _val_dataset(cfg: ExperimentConfig, data_cfg):
-    return _eval_dataset(cfg, data_cfg, "validation")
+def _val_dataset(cfg: ExperimentConfig, data_cfg, device=None):
+    return _eval_dataset(cfg, data_cfg, "validation", device)
 
 
-def _test_dataset(cfg: ExperimentConfig, data_cfg):
-    return _eval_dataset(cfg, data_cfg, "test")
+def _test_dataset(cfg: ExperimentConfig, data_cfg, device=None):
+    return _eval_dataset(cfg, data_cfg, "test", device)
 
 
 def _all_batches(ds, bsz: int, seed: int):
@@ -345,7 +363,7 @@ def run_featurizer_stage(cfg: ExperimentConfig, device=None,
     device = resolve_device(device)
     stage_dir = cfg.stage_dir
     rank, world = mesh.rank_world()
-    train_ds = instantiate_datamodule(cfg, cfg.data_feat)
+    train_ds = instantiate_datamodule(cfg, cfg.data_feat, device=device)
     if len(train_ds) < world:
         raise ValueError(
             f"trainer.n_devices={world} but the training set has only "
@@ -371,7 +389,7 @@ def run_featurizer_stage(cfg: ExperimentConfig, device=None,
     if ckpt.has_last:
         ckpt.restore(state, "last")
     logger = _stage_logger(cfg)
-    val_ds = _val_dataset(cfg, cfg.data_feat) if rank == 0 else None
+    val_ds = _val_dataset(cfg, cfg.data_feat, device) if rank == 0 else None
     plateau = _plateau_controllers(cfg, state)
     # `trainer.monitor="train_<metric>"` monitors the epoch-mean train
     # metric instead of a validation metric
@@ -440,7 +458,7 @@ def run_featurizer_stage(cfg: ExperimentConfig, device=None,
 
     # final metrics on the test split, touched once: model selection above
     # used the validation split only
-    test_ds = _test_dataset(cfg, cfg.data_feat)
+    test_ds = _test_dataset(cfg, cfg.data_feat, device)
     metrics = _evaluate(state, test_ds, cfg, "feat",
                         cfg.data_feat.val_batch_size, device)
     metrics["n_param"] = int(sum(p.numel()
@@ -567,7 +585,8 @@ def _finish_communication(cfg: ExperimentConfig, metrics: dict) -> dict:
     return metrics
 
 
-def _predictor_datasets(cfg: ExperimentConfig, train_ds, val_ds):
+def _predictor_datasets(cfg: ExperimentConfig, train_ds, val_ds,
+                        device=None):
     """The predictor stage's (train, test) datasets and target shape: on
     `data_pred` when set (its shapes go into a scratch copy of `cfg`),
     else on `data_feat`. Pre-featurization freezes one view a sample, the
@@ -579,7 +598,8 @@ def _predictor_datasets(cfg: ExperimentConfig, train_ds, val_ds):
             kwargs.setdefault("is_augment", False)
             pred_train = instantiate_datamodule(
                 copy.copy(cfg),
-                dataclasses.replace(cfg.data_feat, kwargs=kwargs))
+                dataclasses.replace(cfg.data_feat, kwargs=kwargs),
+                device=device)
             return pred_train, val_ds, cfg.target_shape
         return train_ds, val_ds, cfg.target_shape
 
@@ -588,8 +608,8 @@ def _predictor_datasets(cfg: ExperimentConfig, train_ds, val_ds):
     if cfg.data_pred.name != "banana":
         kwargs.setdefault("is_augment", cfg.predictor.is_on_the_fly)
     data_cfg = dataclasses.replace(cfg.data_pred, kwargs=kwargs)
-    pred_train = instantiate_datamodule(scratch, data_cfg)
-    pred_val = _test_dataset(scratch, data_cfg)
+    pred_train = instantiate_datamodule(scratch, data_cfg, device=device)
+    pred_val = _test_dataset(scratch, data_cfg, device)
     if scratch.in_shape != cfg.in_shape:
         raise ValueError(
             f"data_pred={cfg.data_pred.name!r} has input shape "
@@ -601,7 +621,12 @@ def _predictor_datasets(cfg: ExperimentConfig, train_ds, val_ds):
 def run_predictor(cfg: ExperimentConfig, state: TrainState, train_ds,
                   val_ds, device=None) -> dict:
     """Fit the probe on the frozen compressor's features and evaluate it
-    on the test split; writes `results_predictor.csv` and the sentinel."""
+    on the test split; writes `results_predictor.csv` and the sentinel.
+    On Galaxy Zoo one unshuffled pass over the test split both evaluates
+    and predicts, and the predictions go to `kaggle_submission.csv` in
+    the stage directory under the split's GalaxyIDs (positional ids,
+    flagged `synthetic_positional`, on synthetic data; no file,
+    `skipped_no_ids`, where the split has no ids)."""
     device = resolve_device(device)
     model = state.model
 
@@ -610,12 +635,8 @@ def run_predictor(cfg: ExperimentConfig, state: TrainState, train_ds,
         return model.features(_to(torch.as_tensor(x), device))
 
     data_cfg = cfg.data_pred or cfg.data_feat
-    if data_cfg.name.startswith("galaxy"):
-        raise NotImplementedError(
-            "the galaxy predictor stage (its kaggle submission) is not "
-            "ported yet (ROADMAP queue 1 item 11)")
     pred_train, pred_val, target_shape = _predictor_datasets(
-        cfg, train_ds, val_ds)
+        cfg, train_ds, val_ds, device)
     bsz = _fit_bsz(data_cfg.batch_size, len(pred_train))
     if cfg.predictor.is_on_the_fly:
         x0, _, _ = next(pred_train.batches(2, seed=cfg.trainer.seed))
@@ -629,17 +650,44 @@ def run_predictor(cfg: ExperimentConfig, state: TrainState, train_ds,
         trainer = PredictorTrainer(cfg.predictor, z_tr.shape[-1],
                                    target_shape, device)
         trainer.fit(z_tr, y_tr, seed=cfg.trainer.seed)
-    z_te, y_te = featurize_dataset(
-        feat_fn, _all_batches(pred_val, bsz, cfg.trainer.seed), pad_to=bsz)
+    is_galaxy = data_cfg.name.startswith("galaxy")
+    # Galaxy Zoo: the split in its own order (evaluate is order-blind,
+    # the submission needs the order of the ids)
+    test_batches = pred_val.batches(
+        bsz, n_epochs=1, seed=0, shuffle=False, drop_last=False) \
+        if is_galaxy else _all_batches(pred_val, bsz, cfg.trainer.seed)
+    z_te, y_te = featurize_dataset(feat_fn, test_batches, pad_to=bsz)
     # the published per-class weights of the imbalanced datasets
     weights = get_balancing_weights(data_cfg.name)
     metrics = namespaced(trainer.evaluate(z_te, y_te,
                                           balancing_weights=weights),
                          "test", "pred")
     metrics["data_pred"] = data_cfg.name
+    if is_galaxy:
+        metrics.update(_kaggle_submission(cfg, trainer.predict(z_te),
+                                          pred_val))
     write_results_csv(cfg.stage_dir, "predictor", metrics)
     mark_stage_done(cfg.stage_dir, "predictor")
     return metrics
+
+
+def _kaggle_submission(cfg: ExperimentConfig, preds, test_ds) -> dict:
+    """The galaxy predictor's submission file and its results fields."""
+    out = {}
+    ids = getattr(test_ds, "ids", None)
+    if ids is None and getattr(test_ds, "synthetic", False):
+        # a plumbing check on synthetic data: positional ids, flagged so
+        # that the file is not taken for an uploadable one
+        ids = np.arange(len(preds)) + 1
+        out["kaggle_submission_ids"] = "synthetic_positional"
+    if ids is None:
+        # a train-derived split has no kaggle ids: made-up ids would
+        # score garbage
+        out["kaggle_submission"] = "skipped_no_ids"
+        return out
+    out["kaggle_submission"] = str(write_kaggle_submission(
+        ids, preds, Path(cfg.stage_dir) / "kaggle_submission.csv"))
+    return out
 
 
 def main(cfg: ExperimentConfig, device=None) -> dict:
@@ -664,8 +712,8 @@ def main(cfg: ExperimentConfig, device=None) -> dict:
         return all_metrics
     if not trained:
         # rebuild from the exported weights for the downstream stages
-        train_ds = instantiate_datamodule(cfg, cfg.data_feat)
-        test_ds = _test_dataset(cfg, cfg.data_feat)
+        train_ds = instantiate_datamodule(cfg, cfg.data_feat, device=device)
+        test_ds = _test_dataset(cfg, cfg.data_feat, device)
         weights_path = Path(cfg.ckpt_dir) / cfg.long_name / "best_featurizer"
         if resolve_swap(weights_path.absolute()) is None:
             raise FileNotFoundError(
@@ -680,7 +728,7 @@ def main(cfg: ExperimentConfig, device=None) -> dict:
     if not cfg.is_skip_comm and not is_stage_done(stage_dir,
                                                   "communication"):
         comm_ds = test_ds if cfg.data_pred is None \
-            else _test_dataset(cfg, cfg.data_pred)
+            else _test_dataset(cfg, cfg.data_pred, device)
         bs = _fit_bsz(cfg.data_feat.val_batch_size, len(comm_ds))
         all_metrics.update(run_communication(
             cfg, state, comm_ds.batches(bs, n_epochs=1,

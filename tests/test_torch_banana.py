@@ -606,8 +606,15 @@ def test_cli_multirun_gives_a_job_a_value(tmp_path, capsys):
     assert (tmp_path / "out" / "exp_banana_RD-run1").exists()
 
 
-def test_cli_refuses_what_is_not_ported():
+def test_cli_refuses_what_is_not_ported(tmp_path):
+    """`--classical` still raises naming its item; `--profile-dir`, ported
+    since, traces the run into the directory."""
     with pytest.raises(NotImplementedError, match="queue 1 item 11"):
         tcli.main(["banana_viz_VIC", "--classical", "jpeg"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        tcli.main(["banana_viz_VIC", "--profile-dir", "/nonexistent"])
+    metrics = tcli.main(["banana_viz_VIC", "--dev", "--device", "cpu", *TINY,
+                         "data_feat.n_epochs=1", f"out_dir={tmp_path}/out",
+                         f"ckpt_dir={tmp_path}/ckpt", "--profile-dir",
+                         str(tmp_path / "trace")])
+    assert math.isfinite(metrics["test/feat/loss"])
+    events = json.loads((tmp_path / "trace" / "trace.json").read_text())
+    assert events["traceEvents"]

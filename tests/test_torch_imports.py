@@ -91,6 +91,16 @@ NEW_MODULES = [
     "lossyless_tpu_torch.nn.clip_text",
     # slice 14: the devices, process groups and collectives
     "lossyless_tpu_torch.core.mesh",
+    # slice 15: the external datasets and their ingestion, the kaggle
+    # writer, the search, the timers, the RNG helper and the profiler
+    "lossyless_tpu_torch.core.rng",
+    "lossyless_tpu_torch.core.timing",
+    "lossyless_tpu_torch.core.profiling",
+    "lossyless_tpu_torch.data.norms",
+    "lossyless_tpu_torch.data.ingest",
+    "lossyless_tpu_torch.data.external",
+    "lossyless_tpu_torch.analysis.kaggle",
+    "lossyless_tpu_torch.pipeline.hypopt",
 ]
 
 

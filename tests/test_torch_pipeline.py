@@ -98,17 +98,28 @@ def test_image_batches_match_jax(split, at, norm, drop_last):
                                    atol=1e-7)
 
 
-def test_augmentation_raises_and_names_the_queue():
+def test_augmentation_raises_and_names_the_queue(tmp_path):
     """STL10's augmentations are ported (its batches are augmented by the
-    default chain); the imagenet module still raises naming its item."""
+    default chain), and so is the imagenet module: `get_datamodule`
+    returns a `StreamingImageFolder`, or raises FileNotFoundError without
+    its folder, as JAX's does."""
+    from lossyless_tpu.data import external as jext
+    from lossyless_tpu_torch.data import external as text
+
     ds = timages.ImageDataset(name="stl10", synthetic=True, synthetic_n=16)
     x, _, raw = next(ds.batches(4))
     assert x.shape == raw.shape == (4, 96, 96, 3)
     assert not torch.allclose(x, raw)
     assert ds.augmenter() == taug.make_augmenter(
         ("hflip", "resize_crop", "color", "gray"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        timages.get_datamodule("imagenet")
+    for get in (timages.get_datamodule, jimages.get_datamodule):
+        with pytest.raises(FileNotFoundError, match="imagenet"):
+            get("imagenet", data_dir=tmp_path)
+    (tmp_path / "imagenet" / "train" / "n01").mkdir(parents=True)
+    folder = timages.get_datamodule("imagenet", data_dir=tmp_path)
+    assert isinstance(folder, text.StreamingImageFolder) and len(folder) == 0
+    assert folder.classes == jext.StreamingImageFolder(
+        data_dir=tmp_path).classes == ["n01"]
 
 
 def test_missing_files_raise_rather_than_synthesize(tmp_path):

@@ -231,8 +231,9 @@ def test_detached_rate_is_one_likelihood_with_live_z_hat():
 def test_unported_modes_raise_and_name_the_queue():
     """H_spatial and the image mode on the BALLE decoder are ported
     (tests/test_torch_balle_spatial.py), and so are the pretrained towers
-    and the ssl presets (tests/test_torch_pretrained_ssl.py); only
-    galaxy_regression still raises naming its item."""
+    and the ssl presets (tests/test_torch_pretrained_ssl.py) and
+    galaxy_regression (tests/test_torch_galaxy.py): no preset of JAX's
+    raises, and an unknown name raises JAX's ValueError."""
     assert isinstance(trates.make_rate_estimator(
         16, trates.RateConfig(mode="H_spatial", n_channels=4)),
         trates.HRateHyperpriorSpatial)
@@ -244,8 +245,13 @@ def test_unported_modes_raise_and_name_the_queue():
         heads=4)).__name__ == "ClipResNet"
     assert tconfig.preset("ssl_bottleneck_pretrain").encoder.arch == \
         "clip_rn50"
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        tconfig.preset("galaxy_regression")
+    for name in jconfig.available_presets():
+        assert tconfig.preset(name).experiment == \
+            jconfig.preset(name).experiment
+    assert tconfig.preset("galaxy_neurips").rate.mode == "H_spatial"
+    for pkg in (tconfig, jconfig):
+        with pytest.raises(ValueError, match="unknown preset"):
+            pkg.preset("galaxy")
 
 
 @pytest.mark.parametrize("p_norm", [1.0, 2.0])
@@ -325,7 +331,7 @@ def test_config_presets_and_overrides_match_jax():
           "loss.beta=0.01", "trainer.log_every=5"]
     for name in ("clip_hub", "clip_bottleneck_pretrain",
                  "ssl_bottleneck_pretrain", "ssl_bottleneck_linear_eval",
-                 "ssl_bottleneck_mlp_eval"):
+                 "ssl_bottleneck_mlp_eval", "galaxy_regression"):
         j = jconfig.apply_precision(
             jconfig.apply_overrides(jconfig.preset(name), ov))
         t = tconfig.apply_precision(
@@ -333,9 +339,8 @@ def test_config_presets_and_overrides_match_jax():
         jd, td = dataclasses.asdict(j), dataclasses.asdict(t)
         assert jd == td, name
         assert t.long_name == j.long_name
-    assert tconfig.available_presets() == [
-        n for n in jconfig.available_presets() if n != "galaxy_regression"]
-    assert len(tconfig.available_presets()) == 27
+    assert tconfig.available_presets() == jconfig.available_presets()
+    assert len(tconfig.available_presets()) == 28
 
 
 # ---------------------------------------------------------------------------
