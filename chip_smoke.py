@@ -289,7 +289,27 @@ non-zero without printing a result:
    backward kernels, `device_memory_stats()` printed; (e)
    `clip_bottleneck_linear_eval` with `predictor.is_on_the_fly=True`: K1
    and K2 launch inside `fit_onfly`. Phase 3b also checks and times K3
-   at galaxy's side latent (8192, 25);
+   at galaxy's side latent (8192, 25), and at the example's z (256, 64)
+   with filters (3, 3, 3, 3), forward and backward;
+18. the analysis path: (a) `python -m lossyless_tpu_torch.cli
+   stl10_bince --classical MODE` for jpeg, png and identity (and webp
+   where PIL has it), one subprocess each, all started together, on 256
+   synthetic 96 px images built on the card: each results CSV equal to
+   `ClassicalCompressor.evaluate` over a CPU copy of the same batches
+   (all but the two codec times), png and identity lossless; then each
+   codec's host img/s, timed alone in this process once the
+   subprocesses have ended; (b) `examples/minimal_code_torch.py` at its
+   defaults (2,000 steps at batch 256): K3 and its backward launched
+   exactly once a step and nothing else, the ms a step timed from a
+   built state, one more epoch profiled (idle share, device ms by
+   group), 3 steps on K3 against 3 on its plain version from the same
+   weights and draws (1e-4 relative), the decoded features equal to the
+   dequantize path (1e-5), the coded bits a sample, the probe where
+   scikit-learn imports; (c) `banana_viz_VIC --dev` trained through the
+   CLI in a subprocess, then `PretrainedAnalyser` over its checkpoint on
+   the card and on the CPU: `featurize` (points away from a rounding
+   tie) and `decode` equal to 1e-5 of the largest entry, the codebook and
+   the traversals drawn where matplotlib imports;
 7. the `kernels` JSON line (K1-K4, K3's backward, K5a, K5b; with
    `device_ms` and `bound_share`, K1/K2 also at batch 256 and at N = 10,
    K2 at the RN50 pool's shapes, K3 also at the banana, image, STL10,
@@ -297,7 +317,9 @@ non-zero without printing a result:
    designs side by side, the launches on phase 11's, 12's, 13's, 14's
    and 15's paths and on phase 17's COCO and galaxy paths
    (`launches_on_coco_path`, `launches_on_galaxy_path`; 0 where a kernel
-   does not run there), and the registers and spills of every kernel;
+   does not run there), K3's and its backward's on phase 18b's example
+   (`launches_on_example_path`), and the registers and spills of every
+   kernel;
    phase 16's bf16-softmax
    instantiations of K1 and K2 as rows of their own) and, last,
    `{"ok": true, "device": {...}}`.
@@ -1510,17 +1532,21 @@ K3_CHECKS = [(TRAIN_BATCH, 512, (3, 3, 3, 3)), (37, 13, (3, 3, 3)),
              (TRAIN_BATCH, 204, (3, 3, 3)), (TRAIN_BATCH, 409, (3, 3, 3)),
              # the galaxy path's side latent: galaxy_regression's 128
              # images x 8 x 8 positions folded into rows
-             (128 * 64, 25, (3, 3, 3))]
+             (128 * 64, 25, (3, 3, 3)),
+             # phase 18b's example: minimal_code_torch's z = 64 at batch
+             # 256, two 32-channel groups
+             (256, 64, (3, 3, 3, 3))]
 BANANA_K3 = K3_CHECKS[4:6]
 IMAGE_K3 = K3_CHECKS[6:7]
 STL10_K3 = K3_CHECKS[7:9]
 SSL_K3 = K3_CHECKS[9:11]
 GALAXY_K3 = K3_CHECKS[11:12]
+EXAMPLE_K3 = K3_CHECKS[12:13]
 # the |x| tie (ROADMAP queue 3 item 7): one channel, widths (1, 1),
 # matrix0 = -30, bias0 = 1, z = 0; JAX's d(-log lik) / d matrix0
 K3_TIE_GRAD = 1.8398e-5
 K3_BWD_CHECKS = K3_CHECKS[:7] + [(TRAIN_BATCH, 102, (3, 3, 3, 3))] + \
-    STL10_K3 + SSL_K3 + GALAXY_K3
+    STL10_K3 + SSL_K3 + GALAXY_K3 + EXAMPLE_K3
 
 
 def k3_design(filters) -> str:
@@ -1725,6 +1751,14 @@ def check_k3() -> dict:
             fwd_t, shape=f"{Bg}x{Cg}")
         results["eb_likelihood_bwd"]["galaxy_shape"] = dict(
             bwd_t, shape=f"{Bg}x{Cg}")
+
+    # the example's z
+    for i, (Be, Ce, fe) in enumerate(EXAMPLE_K3):
+        fwd_t, bwd_t = time_k3_at(Be, Ce, fe, seed=700 + i)
+        results["eb_likelihood"]["example_shape"] = dict(
+            fwd_t, shape=f"{Be}x{Ce}")
+        results["eb_likelihood_bwd"]["example_shape"] = dict(
+            bwd_t, shape=f"{Be}x{Ce}")
     results["eb_likelihood_bwd"]["tie"] = check_k3_tie()
 
     # the backward: the wrapper's launch, its plain version, and the eager
@@ -4567,7 +4601,6 @@ ONFLY_OVERRIDES = ["rate.eb_use_pallas=True", "predictor.is_on_the_fly=True",
                    "data_feat.kwargs.synthetic=True",
                    "data_feat.kwargs.synthetic_n=512", "data_feat.n_epochs=1",
                    "predictor.n_epochs=1"]
-EXTERNAL_CLI = ["--device", "cuda"]   # the CLI subprocesses' device
 EXTERNAL_REDUCED = {
     "clip_bottleneck_pretrain": "2 of the recipe's 30 epochs over 1,024 "
                                 "generated COCO-layout JPEGs (320 x 240 and "
@@ -4859,7 +4892,7 @@ def galaxy_path(card: str, tmp: Path) -> dict:
     t0 = time.perf_counter()
     cli = subprocess.run(
         [sys.executable, "-c", GALAXY_LAUNCHER, "galaxy_regression",
-         *EXTERNAL_CLI, *GALAXY_OVERRIDES, *data, *dirs],
+         "--device", DEVICE, *GALAXY_OVERRIDES, *data, *dirs],
         capture_output=True, text=True, timeout=600, cwd=ROOT)
     if cli.returncode:
         raise AssertionError(f"the galaxy CLI exited {cli.returncode}: "
@@ -4948,7 +4981,7 @@ def profiling_path(tmp: Path) -> dict:
     t0 = time.perf_counter()
     cli = subprocess.run(
         [sys.executable, "-m", "lossyless_tpu_torch.cli", *PROFILE_CLI,
-         *EXTERNAL_CLI, "--profile-dir", str(pdir),
+         "--device", DEVICE, "--profile-dir", str(pdir),
          f"out_dir={tmp}/prof/out", f"ckpt_dir={tmp}/prof/ckpt"],
         capture_output=True, text=True, timeout=600, cwd=ROOT)
     if cli.returncode:
@@ -5039,6 +5072,389 @@ def external_path(card: str) -> dict:
     return dict(coco=coco, galaxy=galaxy)
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the analysis path (the classical baselines through the CLI, the
+# port's minimal_code example, PretrainedAnalyser)
+# ---------------------------------------------------------------------------
+
+# phase 14's STL10 (96 x 96 x 3) with a synthetic test split built on the
+# card by the CLI
+CLASSICAL_PRESET = "stl10_bince"
+CLASSICAL_IMAGES = 256
+CLASSICAL_OVERRIDES = ["data_feat.kwargs.synthetic=True",
+                       f"data_feat.kwargs.synthetic_n={CLASSICAL_IMAGES}"]
+CLASSICAL_TIMES = ("test/feat/compress_time", "test/feat/receiver_time")
+# banana_viz_VIC trained briefly for the analyser: --dev (2 epochs of 10
+# of the 100 steps over 102,400 samples), featurizer only
+ANALYSER_OVERRIDES = ["data_feat.kwargs.length=102400",
+                      "rate.eb_use_pallas=True", "is_only_feat=True"]
+ANALYSER_POINTS = 4096
+EXAMPLE = dict(d=64, beta=0.01, n_epochs=20)   # minimal_code_torch's main
+# 18b's kernels-vs-plain check: steps, and the largest relative difference
+# of a step's loss, rate or distortion (fp32 on both sides: K3 agrees
+# with its plain version to 1e-5)
+EXAMPLE_AB_STEPS = 3
+EXAMPLE_AB_TOL = 1e-4
+ANALYSIS_REDUCED = {
+    "classical": f"{CLASSICAL_PRESET}'s test split: {CLASSICAL_IMAGES} "
+                 "seeded synthetic STL10-shaped images (96 x 96 x 3) of "
+                 "STL10's 8,000, which are not in the checkout",
+    "example": "none: minimal_code_torch at its defaults (4,000 + 1,000 "
+               "synthetic 64-d features, 20 epochs of 100 steps at batch "
+               "256)",
+    "analyser": "banana_viz_VIC under --dev on 102,400 samples (2 epochs "
+                "of 10 steps of the recipe's 100 of 1000), featurizer "
+                "only; widths not cut"}
+
+
+def have(module: str) -> bool:
+    """Whether `module` imports here (matplotlib and sklearn are not on
+    every machine)."""
+    import importlib
+
+    try:
+        importlib.import_module(module)
+    except ImportError:
+        return False
+    return True
+
+
+def spawn(args: list, log: Path) -> subprocess.Popen:
+    """`args` in a subprocess from the repository's root, its output
+    (both streams) into `log`."""
+    with log.open("w") as f:
+        return subprocess.Popen(args, stdout=f, stderr=subprocess.STDOUT,
+                                text=True, cwd=ROOT)
+
+
+def finish(proc: subprocess.Popen, log: Path, what: str,
+           timeout: float = 300) -> str:
+    """Wait for `proc`; its output, or an error with its end."""
+    try:
+        proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    text = log.read_text()
+    if proc.returncode:
+        raise AssertionError(f"{what} exited {proc.returncode}: "
+                             f"{text[-3000:]}")
+    return text
+
+
+def classical_path(tmp: Path) -> tuple[dict, list]:
+    """18a: `python -m lossyless_tpu_torch.cli <preset> --classical MODE`
+    for jpeg, png and identity (and webp where PIL has it), one subprocess
+    each, all started together. The lossy codecs' CSVs are held to
+    `ClassicalCompressor.evaluate` over a CPU copy of the same batches
+    (all but the two codec times), png and identity must be lossless.
+    Returns the record and the host copy of the batches."""
+    from PIL import features
+
+    modes = ["jpeg", "png", "identity"]
+    if features.check("webp"):
+        modes.append("webp")
+    else:
+        print("phase 18a: this PIL lacks WebP; webp not run", flush=True)
+    procs = {m: spawn(
+        [sys.executable, "-m", "lossyless_tpu_torch.cli", CLASSICAL_PRESET,
+         *CLASSICAL_OVERRIDES, f"out_dir={tmp}/classical",
+         f"ckpt_dir={tmp}/classical_ckpt", "--classical", m, "--device",
+         DEVICE],
+        tmp / f"classical_{m}.log") for m in modes}
+    try:
+        return check_classical(tmp, procs)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def check_classical(tmp: Path, procs: dict) -> tuple[dict, list]:
+    """18a's checks, as each CLI subprocess of `procs` ends; the record
+    and the host copy of the batches."""
+    import torch
+
+    from lossyless_tpu_torch.compressors.classical import ClassicalCompressor
+    from lossyless_tpu_torch.pipeline import config, run
+    from lossyless_tpu_torch.train.metrics import read_results_csv
+
+    # the same batches in this process, on the card, then copied to the
+    # host
+    cfg = config.apply_overrides(config.preset(CLASSICAL_PRESET),
+                                 CLASSICAL_OVERRIDES)
+    run.instantiate_datamodule(cfg, cfg.data_feat, device=DEVICE)
+    ds = run._test_dataset(cfg, cfg.data_feat, DEVICE)
+    bs = min(cfg.data_feat.val_batch_size, len(ds))
+    host = [tuple(t.cpu() if isinstance(t, torch.Tensor) else t for t in b)
+            for b in run._all_batches(ds, bs, cfg.trainer.seed)]
+    n = sum(len(b[0]) for b in host)
+    out = dict(images=n, modes={})
+    for m, p in procs.items():
+        finish(p, tmp / f"classical_{m}.log", f"--classical {m}")
+        csvs = sorted(tmp.glob(f"classical/**/*_classical_{m}/**/"
+                               "results_featurizer.csv"))
+        if len(csvs) != 1:
+            raise AssertionError(f"--classical {m}: results {csvs}")
+        got = read_results_csv(csvs[0])
+        if m in ("png", "identity"):
+            if got["test/feat/mse"] != 0 or got["test/feat/ms_ssim"] != 1:
+                raise AssertionError(f"{m} is not lossless: {got}")
+        else:
+            want = ClassicalCompressor(mode=m).evaluate(host)
+            if set(got) != set(want) or any(
+                    got[k] != float(want[k]) for k in want
+                    if k not in CLASSICAL_TIMES):
+                raise AssertionError(f"--classical {m}: CSV {got} against "
+                                     f"the CPU copy's {want}")
+        out["modes"][m] = {k.split("/")[-1]: got[k] for k in (
+            "test/feat/n_bits", "test/feat/bpp", "test/feat/psnr",
+            "test/feat/ms_ssim")}
+        print(f"phase 18a {m}: CSV checked, "
+              f"{got['test/feat/bpp']:.4f} bpp", flush=True)
+    return out, host
+
+
+def time_codecs(host: list, out: dict):
+    """18a's codec speeds: each mode of `out` encodes and decodes the host
+    batches' images, one mode after another in this process with no
+    subprocess running; img/s over the encode and decode times alone (host
+    time, no metric)."""
+    from lossyless_tpu_torch.compressors.classical import (
+        ClassicalCompressor, to_uint8)
+
+    imgs = [img for x, _, _ in host for img in to_uint8(x)]
+    for m, rec in out["modes"].items():
+        codec = ClassicalCompressor(mode=m)
+        t_enc = t_dec = 0.0
+        for img in imgs:
+            t0 = time.perf_counter()
+            data = codec.compress_one(img)
+            t1 = time.perf_counter()
+            codec.decompress_one(data, img.shape)
+            t_enc += t1 - t0
+            t_dec += time.perf_counter() - t1
+        rec.update(compress_time=t_enc / len(imgs),
+                   receiver_time=t_dec / len(imgs),
+                   host_img_per_s=len(imgs) / (t_enc + t_dec))
+        print(f"phase 18a {m}: {rec['host_img_per_s']:.2f} img/s of host "
+              f"time (the codec's encode and decode, timed alone; "
+              f"{len(imgs)} images)", flush=True)
+
+
+def example_path(card: str) -> dict:
+    """18b: `examples/minimal_code_torch.py` at its defaults on the card,
+    step by step: K3 and its backward launched once a training step, the
+    ms a step timed from the built state and sampler, the decoded features
+    equal to the dequantize path, the coded bits, one more epoch under
+    torch.profiler, the kernels-vs-plain check, the probe where
+    scikit-learn imports."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "minimal_code_torch", ROOT / "examples" / "minimal_code_torch.py")
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    z_tr, y_tr, z_te, y_te = ex.featurize(EXAMPLE["d"])
+    n_epochs = EXAMPLE["n_epochs"]
+    steps = n_epochs * ex.STEPS_PER_EPOCH
+    state, epoch_fn = ex.setup(z_tr, y_tr, beta=EXAMPLE["beta"],
+                               device=DEVICE)
+    sync()
+    reset_launches()
+    t0 = time.perf_counter()
+    state = ex.run_epochs(state, epoch_fn, n_epochs)
+    sync()
+    train_s = time.perf_counter() - t0
+    launches = read_launches()
+    want = dict(NO_K5, **NO_BF16, eb_likelihood=steps,
+                eb_likelihood_bwd=steps)
+    if {k: v for k, v in launches.items() if v} != \
+            {k: v for k, v in want.items() if v}:
+        raise AssertionError(f"the example's {steps} steps launched "
+                             f"{launches}")
+    coder, _, zc_tr = ex.code(state, z_tr)
+    _, streams, zc_te = ex.code(state, z_te)
+    err = max(float(np.abs(zc - ex.dequantize(coder, z)).max())
+              for zc, z in ((zc_tr, z_tr), (zc_te, z_te)))
+    if err > 1e-5:
+        raise AssertionError(f"the example's decode is {err} off the "
+                             f"dequantize path")
+    bits = 8 * float(np.mean([len(s) for s in streams]))
+    out = dict(card=card, steps=steps, train_s=train_s,
+               step_ms=1e3 * train_s / steps, launches=launches,
+               decode_max_abs_err=err, bits_per_sample=bits)
+    print(f"phase 18b: {bits:.2f} coded bits/sample, {out['step_ms']:.3f} "
+          f"ms a step over {steps} steps ({card})", flush=True)
+    # one more epoch of the trained state, profiled
+    prof = device_profile(lambda: epoch_fn(state, n_epochs + 1), card,
+                          steps=ex.STEPS_PER_EPOCH, batch=ex.BATCH)
+    prof["ms_per_step"] = prof["wall_ms"] / ex.STEPS_PER_EPOCH
+    out["profile"] = prof
+    print(json.dumps({"example_path_profile": prof}), flush=True)
+    out["kernels_vs_plain"] = example_ab(ex, z_tr, y_tr)
+    if have("sklearn"):
+        out["probe_acc_raw"], out["probe_acc_compressed"] = ex.probe(
+            z_tr, y_tr, z_te, y_te, zc_tr, zc_te)
+    else:
+        print("phase 18b: scikit-learn is absent; the probe (step 4) not "
+              "run", flush=True)
+    return out
+
+
+def example_ab(ex, z_tr, y_tr) -> dict:
+    """18b's kernels-vs-plain check: `EXAMPLE_AB_STEPS` steps of the
+    example on K3 and as many on its plain version (`eb_use_pallas=False`),
+    from the same weights (the example's seeded model) and the same draws
+    (epoch seed 1), fp32 matmuls on both sides. The kernels run must
+    launch K3 and its backward once a step and nothing else, the plain
+    run nothing; each step's loss, rate and distortion must agree to
+    `EXAMPLE_AB_TOL` relative."""
+    import torch
+
+    precision = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    runs = {}
+    try:
+        for name, use in (("kernels", True), ("plain", False)):
+            state, epoch_fn = ex.setup(
+                z_tr, y_tr, beta=EXAMPLE["beta"], device=DEVICE,
+                steps_per_epoch=EXAMPLE_AB_STEPS, eb_use_pallas=use)
+            reset_launches()
+            _, logs = epoch_fn(state, 1)
+            launched = {k: v for k, v in read_launches().items() if v}
+            want = dict.fromkeys(K3_BOTH, EXAMPLE_AB_STEPS) if use else {}
+            if launched != want:
+                raise AssertionError(f"18b's {name} run of "
+                                     f"{EXAMPLE_AB_STEPS} steps launched "
+                                     f"{launched}")
+            runs[name] = {k: [float(v) for v in logs[k]]
+                          for k in ("loss", "rate", "distortion")}
+    finally:
+        torch.set_float32_matmul_precision(precision)
+    worst = max(abs(a - b) / max(abs(b), 1e-12)
+                for k in runs["kernels"]
+                for a, b in zip(runs["kernels"][k], runs["plain"][k]))
+    out = dict(steps=EXAMPLE_AB_STEPS, **runs, max_rel_diff=worst,
+               tolerance=EXAMPLE_AB_TOL)
+    print(json.dumps({"example_path_kernels_vs_plain": out}), flush=True)
+    if not worst <= EXAMPLE_AB_TOL:
+        raise AssertionError(f"18b: kernels vs plain training logs differ "
+                             f"by {worst} relative")
+    return out
+
+
+def rel_to_largest(got: np.ndarray, want: np.ndarray) -> float:
+    """The largest difference over the largest magnitude of `want`."""
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def analyser_dirs(tmp: Path) -> list:
+    return [f"out_dir={tmp}/analyser/out", f"ckpt_dir={tmp}/analyser/ckpt"]
+
+
+def train_for_analyser(tmp: Path) -> subprocess.Popen:
+    """18c's run: banana_viz_VIC trained briefly through the CLI on the
+    card, in a subprocess (started while 18a runs)."""
+    return spawn(
+        [sys.executable, "-m", "lossyless_tpu_torch.cli", "banana_viz_VIC",
+         "--dev", *ANALYSER_OVERRIDES, *analyser_dirs(tmp), "--device",
+         DEVICE],
+        tmp / "analyser.log")
+
+
+def analyser_path(tmp: Path) -> dict:
+    """18c: `PretrainedAnalyser` over the checkpoint of
+    `train_for_analyser`'s run, on the card and on the CPU: `featurize`
+    (points away from a rounding tie) and `decode` equal to 1e-5 of the
+    largest entry; the codebook and traversals where matplotlib imports.
+    """
+    import torch
+
+    from lossyless_tpu_torch.analysis.pretrained import PretrainedAnalyser
+    from lossyless_tpu_torch.coding import entropy_bottleneck as eb
+    from lossyless_tpu_torch.pipeline import config
+
+    dirs = analyser_dirs(tmp)
+    out = {}
+    cfg = config.apply_overrides(config.preset("banana_viz_VIC"),
+                                 ANALYSER_OVERRIDES + dirs)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False   # fp32 on both sides
+    try:
+        card_an = PretrainedAnalyser(cfg, device=DEVICE)
+        host_an = PretrainedAnalyser(cfg, device="cpu")
+        pts = np.random.default_rng(60).normal(
+            0, 2, (ANALYSER_POINTS, 2)).astype(np.float32)
+        got = card_an.featurize(pts).cpu().numpy()
+        want = host_an.featurize(pts).numpy()
+        # z_hat is round(z_in - median) mapped back: a point whose z_in
+        # lies within 1e-4 of a rounding tie may round either way
+        rate = host_an.model.rate_estimator
+        with torch.no_grad():
+            z_in = (rate.affine.process_in(host_an.model.encode(
+                torch.from_numpy(pts))) - eb.medians(
+                    rate.entropy_bottleneck.eb_params)[None]).numpy()
+        tie = np.abs(np.abs(z_in - np.floor(z_in)) - 0.5) < 1e-4
+        keep = ~tie.any(axis=1)
+        z = np.random.default_rng(61).normal(0, 3, (ANALYSER_POINTS, 2)
+                                             ).astype(np.float32)
+        dec_card, dec_host = card_an.decode(z), host_an.decode(z)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    # relative to the largest entry: a decoded coordinate near 0 carries
+    # the roundoff of the others' scale
+    feat_err = rel_to_largest(got[keep], want[keep])
+    dec_err = rel_to_largest(dec_card, dec_host)
+    out.update(points=ANALYSER_POINTS, near_tie=int((~keep).sum()),
+               featurize_rel_err=feat_err, decode_rel_err=dec_err,
+               decode_max_abs_err=float(np.abs(dec_card - dec_host).max()),
+               decode_largest=float(np.abs(dec_host).max()))
+    if feat_err > 1e-5 or dec_err > 1e-5:
+        raise AssertionError(f"the analyser on the card against the CPU: "
+                             f"{out}")
+    if have("matplotlib"):
+        out["plots"] = [str(Path(p).name) for p in (
+            card_an.codebook_plot(tmp / "codebook.png"),
+            *card_an.latent_traversal_plot(tmp / "traversals"))]
+    else:
+        print("phase 18c: matplotlib is absent; the codebook and the "
+              "traversals not drawn", flush=True)
+    return out
+
+
+def analysis_path(card: str) -> dict:
+    """Phase 18: the classical baselines (18a), the example (18b) and the
+    analyser (18c). Returns the example path's launch counts."""
+    t_phase = time.perf_counter()
+    out = dict(card=card, reduced=ANALYSIS_REDUCED, seconds={})
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        banana = train_for_analyser(tmp)
+        try:
+            out["classical"], host = classical_path(tmp)
+            out["seconds"]["18a_cli"] = time.perf_counter() - t_phase
+            finish(banana, tmp / "analyser.log", "the banana CLI")
+            out["seconds"]["banana_cli"] = time.perf_counter() - t_phase
+        finally:
+            if banana.poll() is None:
+                banana.kill()
+                banana.wait()
+        for name, step in (
+                ("18a_codecs", lambda: time_codecs(host, out["classical"])),
+                ("18b", lambda: out.update(example=example_path(card))),
+                ("18c", lambda: out.update(analyser=analyser_path(tmp)))):
+            t0 = time.perf_counter()
+            step()
+            out["seconds"][name] = time.perf_counter() - t0
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"analysis_path": out}), flush=True)
+    print(f"phase 18 (analysis path) wall {out['wall_s']:.1f} s", flush=True)
+    return out["example"]["launches"]
+
+
 def main() -> int:
     import torch
 
@@ -5047,10 +5463,20 @@ def main() -> int:
         return 2
     from lossyless_tpu_torch.nn import _build
 
+    t_script = time.perf_counter()
     card = card_line()
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
+    walls = {}
+
+    def phase(name: str, fn, *args):
+        """`fn(*args)`, its wall time kept under `name`."""
+        t = time.perf_counter()
+        result = fn(*args)
+        walls[name] = time.perf_counter() - t
+        print(f"phase {name}: wall {walls[name]:.1f} s", flush=True)
+        return result
 
     t0 = time.perf_counter()
     seconds = _build.build()
@@ -5070,30 +5496,33 @@ def main() -> int:
                   f"{info.get('stack_frame', 0)} bytes stack frame",
                   flush=True)
 
+    walls["build"] = time.perf_counter() - t0
+
     global OUT_DIR
-    timings = check_kernels()
-    timings.update(check_k3_k4())
-    timings.update(check_k5())
-    encode_launches = main_path(card)
+    timings = phase("3 (K1, K2)", check_kernels)
+    timings.update(phase("3b (K3, K4)", check_k3_k4))
+    timings.update(phase("3c (K5a, K5b)", check_k5))
+    encode_launches = phase("4 (encode)", main_path, card)
     with tempfile.TemporaryDirectory() as OUT_DIR:
-        state, train_launches = train_path(card)
-        train_to_serve(state, card)
+        state, train_launches = phase("5 (training)", train_path, card)
+        phase("6 (train to serve)", train_to_serve, state, card)
         del state
-        slice_launches, under_knob = slice_path(card)
+        slice_launches, under_knob = phase("8 (slice)", slice_path, card)
     missing = [k for k in ("fused_attention", "fused_attention_cls",
                            "eb_likelihood", "eb_likelihood_bwd", *NO_K5)
                if not slice_launches[k]]
     if missing:
         raise AssertionError(f"the slice path launched no {missing}")
-    cli_path(card)
-    bench_path(card)
-    pipeline_launches = pipeline_path(card)
-    banana_launches = banana_path(card)
-    image_launches = image_path(card)
-    stl10_launches = stl10_path(card)
-    ssl_launches = ssl_path(card)
-    knobs = knobs_and_mesh_path(card, timings)
-    external = external_path(card)
+    phase("9 (CLI)", cli_path, card)
+    phase("10 (bench)", bench_path, card)
+    pipeline_launches = phase("11 (pipeline)", pipeline_path, card)
+    banana_launches = phase("12 (banana)", banana_path, card)
+    image_launches = phase("13 (image)", image_path, card)
+    stl10_launches = phase("14 (STL10)", stl10_path, card)
+    ssl_launches = phase("15 (SSL)", ssl_path, card)
+    knobs = phase("16 (knobs, mesh)", knobs_and_mesh_path, card, timings)
+    external = phase("17 (external)", external_path, card)
+    example = phase("18 (analysis)", analysis_path, card)
 
     attention_cu = "lossyless_tpu_torch/nn/csrc/attention.cu"
     eb_cu = "lossyless_tpu_torch/coding/csrc/eb_likelihood.cu"
@@ -5143,6 +5572,8 @@ def main() -> int:
                 launches_on_ssl_path=ssl_launches.get(name, 0),
                 launches_on_coco_path=external["coco"][name],
                 launches_on_galaxy_path=external["galaxy"][name])
+        if name.startswith("eb_likelihood"):   # phase 18b: one a step
+            counts["launches_on_example_path"] = example[name]
         row = dict(name=name, route="cuda", source=sources[name],
                    replaces=replaces[name], **counts, **timings[name])
         # registers and spills of the kernel's instantiations
@@ -5182,6 +5613,9 @@ def main() -> int:
                         if k1_k2_kernel(fn) == base
                         and bf16_softmax_instance(fn)}
         kernels.append(row)
+    print(json.dumps({"phase_walls_s": walls,
+                      "script_s": time.perf_counter() - t_script}),
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     # every phase ran on the current device: one card

@@ -10,4 +10,15 @@ The attention kernels of the CLIP tower are hand-written CUDA for Hopper
 Entry points run on `cuda` unless the caller passes `device="cpu"`.
 """
 
+from ._lazy import exports
+
 __version__ = "0.1.0"
+
+__all__, __getattr__, __dir__ = exports(__name__, {
+    "CompressorConfig": ".compressors.compressor",
+    "EncoderConfig": ".compressors.compressor",
+    "LearnableCompressor": ".compressors.compressor",
+    "LossConfig": ".compressors.compressor",
+    "OnlineEvalConfig": ".compressors.compressor",
+    "DistortionConfig": ".compressors.distortions",
+    "RateConfig": ".compressors.rates"})

@@ -17,8 +17,11 @@ Modes: `--dev` caps the epochs at 2 and the batches at 10% (train) and
 anomaly detection on (`core.profiling.debug_mode`: it raises at the op
 that made a NaN); `--overfit` 10% of the batches; `--profile-dir D`
 traces the run with torch.profiler into `D/trace.json` (under `-m`, job
-i into `D/job{i}/trace.json`). Not ported: `--classical` (ROADMAP queue
-1 item 11).
+i into `D/job{i}/trace.json`). `--classical MODE` (jpeg, webp, png,
+identity) trains nothing: it codes the test split of `data_feat`, built
+on the CLI's device, with a classical codec on the host and writes the
+featurizer results CSV under `<experiment>_classical_<MODE>`; it refuses
+`-m`.
 
 Data parallelism: `trainer.n_devices=N` trains over N ranks, spawned by
 the pipeline (one a card, or N gloo processes with `--device cpu`); under
@@ -58,7 +61,8 @@ def _parser(presets: list[str]) -> argparse.ArgumentParser:
                              "directory (a Chrome trace)")
     parser.add_argument("--classical", default=None,
                         choices=["jpeg", "webp", "png", "identity"],
-                        help="not ported yet (ROADMAP queue 1 item 11)")
+                        help="evaluate a classical codec baseline "
+                             "instead of training")
     parser.add_argument("-m", "--multirun", action="store_true",
                         help="comma-separated override values expand into "
                              "a cartesian sweep (e.g. -m "
@@ -78,10 +82,6 @@ def main(argv=None):
     # torchrun's group (a no-op without its environment), before any use
     # of a device
     init_distributed(args.device)
-    if args.classical:
-        raise NotImplementedError(
-            "--classical (the classical codec baselines) is not ported yet "
-            "(ROADMAP queue 1 item 11)")
 
     cfg = (ExperimentConfig() if args.preset == "default"
            else preset(args.preset))
@@ -98,10 +98,17 @@ def main(argv=None):
         cfg.trainer.limit_eval_batches = 0.1
 
     if args.multirun:
+        if args.classical:
+            raise SystemExit(
+                "--classical is not supported with -m/--multirun; run the "
+                "classical baseline per configuration instead")
         return _multirun(cfg, args)
 
     cfg = apply_overrides(cfg, args.overrides)
-    metrics = _run(cfg, args, args.profile_dir)
+    if args.classical:
+        metrics = _classical(cfg, args.classical, args.device)
+    else:
+        metrics = _run(cfg, args, args.profile_dir)
     if rank_world()[0] == 0:
         print(json.dumps({k: (round(v, 6) if isinstance(v, float) else v)
                           for k, v in metrics.items()}, indent=2))
@@ -116,6 +123,25 @@ def _run(cfg, args, profile_dir=None) -> dict:
 
     with debug_mode(args.debug), profile_trace(profile_dir):
         return run_main(cfg, device=args.device)
+
+
+def _classical(cfg, mode: str, device=None) -> dict:
+    """The test split of `data_feat` (all of it, in `_all_batches` order,
+    the ragged tail kept) through a classical codec; writes the
+    featurizer results CSV under `<experiment>_classical_<mode>`."""
+    from .compressors.classical import ClassicalCompressor
+    from .pipeline.run import (_all_batches, _test_dataset,
+                               instantiate_datamodule)
+    from .train.metrics import write_results_csv
+
+    instantiate_datamodule(cfg, cfg.data_feat, device=device)
+    ds = _test_dataset(cfg, cfg.data_feat, device)
+    bs = min(cfg.data_feat.val_batch_size, len(ds))
+    metrics = ClassicalCompressor(mode=mode).evaluate(
+        _all_batches(ds, bs, cfg.trainer.seed), stage="feat")
+    cfg.experiment = f"{cfg.experiment}_classical_{mode}"
+    write_results_csv(cfg.stage_dir, "featurizer", metrics)
+    return metrics
 
 
 def _multirun(base_cfg, args) -> list[dict]:

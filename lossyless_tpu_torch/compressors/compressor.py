@@ -46,6 +46,7 @@ from torch import nn
 
 from ..core import mesh
 from ..core.annealer import Annealer
+from ..core.math import LOG2
 from ..nn.layers import merge_stats as _merge_stats
 from ..nn.layers import params_from_flax as tree_params_from_flax
 from ..nn.registry import get_architecture
@@ -53,7 +54,7 @@ from ..nn.vit import VisionTransformer, params_from_flax
 from .distortions import (DistortionConfig, make_distortion_estimator,
                           prediction_loss)
 from .distributions import from_suff_param, n_suff_params
-from .rates import LOG2, RateConfig, make_rate_estimator
+from .rates import RateConfig, make_rate_estimator
 
 
 @dataclasses.dataclass(frozen=True)

@@ -27,11 +27,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core import mesh
-from ..core.math import abs_jax
+from ..core.math import LOG2, abs_jax
 from ..nn.mlp import MLP
 from ..nn.registry import get_architecture
-
-LOG2 = 0.6931471805599453
 
 
 @dataclasses.dataclass(frozen=True)

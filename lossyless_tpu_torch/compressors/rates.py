@@ -33,11 +33,9 @@ from ..coding import entropy_bottleneck as eb
 from ..coding import gaussian_conditional as gc
 from ..coding.rans import RansCodec
 from ..core import mesh
-from ..core.math import lower_bound
+from ..core.math import LOG2, lower_bound
 from ..nn.mlp import MLP
 from .distributions import DiagGaussian, detach, kl_unit_gaussian
-
-LOG2 = 0.6931471805599453
 
 
 @dataclasses.dataclass(frozen=True)

@@ -3,12 +3,20 @@
 Counterpart of `lossyless_tpu/core/math.py`: CompressAI's `LowerBound`
 straight-through op used by the entropy models, a straight-through
 round (both `torch.autograd.Function`s where the JAX code has a
-`custom_vjp`), and `abs_jax`, |x| with `jnp.abs`'s derivative at 0.
+`custom_vjp`), `abs_jax`, |x| with `jnp.abs`'s derivative at 0, and the
+nats-to-bits conversion of every reported entropy.
 """
 
 from __future__ import annotations
 
 import torch
+
+BASE_LOG = 2  # every reported entropy is in bits
+LOG2 = 0.6931471805599453
+
+
+def nats_to_bits(x):
+    return x / LOG2
 
 
 class _LowerBound(torch.autograd.Function):

@@ -3,8 +3,10 @@
 Counterpart of `lossyless_tpu/data/features.py` (`FeaturesDataset`):
 feature arrays with their targets and, for `additional_target="equiv_x"`,
 pre-featurized positives; `batches` yields `(x, target, aux)` in the JAX
-order (one `default_rng(seed)` permutation an epoch), and `save` / `load`
-use the same `.npz` keys (`features`, `targets`, `positives`).
+order (one `default_rng(seed)` permutation an epoch), `device_sampler`
+draws batches on the card for `train.state.make_generative_epoch`, and
+`save` / `load` use the same `.npz` keys (`features`, `targets`,
+`positives`).
 """
 
 from __future__ import annotations
@@ -13,6 +15,10 @@ import dataclasses
 from pathlib import Path
 
 import numpy as np
+import torch
+
+from ..core import mesh
+from ..core.device import resolve_device
 
 
 @dataclasses.dataclass
@@ -57,6 +63,36 @@ class FeaturesDataset:
                 idx = order[i:i + batch_size]
                 x = self.features[idx]
                 yield x, self.targets[idx], self._aux(idx, x)
+
+    def device_sampler(self, batch_size: int, device=None):
+        """`sample(generator) -> (x, y, aux)`: `batch_size` rows drawn
+        uniformly with replacement by `torch.randint` on the generator,
+        from the features, targets and positives staged once on `device`
+        (default: the card); aux as `batches` makes it. In a data-parallel
+        epoch every draw is the global batch's (`core.mesh.global_draw`)."""
+        device = resolve_device(device)
+        at = self.additional_target
+        if at == "equiv_x" and self.positives is None:
+            raise ValueError("equiv_x needs `positives`")
+        feats = torch.as_tensor(self.features, device=device)
+        targets = torch.as_tensor(self.targets, device=device)
+        pos = None if self.positives is None \
+            else torch.as_tensor(self.positives, device=device)
+        n = len(self)
+
+        def sample(generator: torch.Generator):
+            idx = mesh.global_draw(lambda s: torch.randint(
+                0, n, s, generator=generator, device=device), (batch_size,))
+            x, y = feats[idx], targets[idx]
+            if at == "input":
+                aux = x
+            elif at == "equiv_x":
+                aux = pos[idx]
+            else:
+                aux = y
+            return x, y, aux
+
+        return sample
 
     @classmethod
     def load(cls, path: str | Path, **kwargs) -> "FeaturesDataset":

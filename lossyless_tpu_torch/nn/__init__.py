@@ -1,13 +1,11 @@
 """Networks and the hand-written CUDA kernels they run on."""
 
-from .clip_resnet import ClipResNet, convert_clip_resnet
-from .clip_text import TextTransformer, convert_openai_clip_text_weights
-from .convert_resnet import convert_torchvision_resnet
-from .registry import get_architecture
-from .vit import (VisionTransformer, clip_preprocess,
-                  convert_openai_clip_weights, vit_b32)
+from .._lazy import exports
 
-__all__ = ["get_architecture", "VisionTransformer", "clip_preprocess",
-           "convert_openai_clip_weights", "vit_b32", "TextTransformer",
-           "convert_openai_clip_text_weights", "convert_torchvision_resnet",
-           "ClipResNet", "convert_clip_resnet"]
+__all__, __getattr__, __dir__ = exports(__name__, {
+    "get_architecture": ".registry", "VisionTransformer": ".vit",
+    "clip_preprocess": ".vit", "convert_openai_clip_weights": ".vit",
+    "vit_b32": ".vit", "TextTransformer": ".clip_text",
+    "convert_openai_clip_text_weights": ".clip_text",
+    "convert_torchvision_resnet": ".convert_resnet",
+    "ClipResNet": ".clip_resnet", "convert_clip_resnet": ".clip_resnet"})

@@ -20,6 +20,7 @@ import torch
 
 from lossyless_tpu.nn import flash_attn as jfa
 from lossyless_tpu_torch.nn import flash_attn as tfa
+from tests import torch_threads  # noqa: F401  (one pool a worker)
 
 D, HEADS = 96, 4
 FP32 = dict(rtol=1e-5, atol=1e-5)

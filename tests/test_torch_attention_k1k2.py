@@ -36,6 +36,7 @@ from lossyless_tpu_torch.nn import flash_attn as tfa
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
+from tests import torch_threads  # noqa: F401  (one pool a worker)
 
 FP32 = dict(rtol=1e-5, atol=1e-5)
 BF16 = dict(atol=2e-2)

@@ -35,6 +35,7 @@ from lossyless_tpu_torch.nn import vit as tvit
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
+from tests import torch_threads  # noqa: F401  (one pool a worker)
 
 D, HEADS = 96, 4
 FP32 = dict(rtol=1e-5, atol=1e-5)

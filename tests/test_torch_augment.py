@@ -23,6 +23,7 @@ from lossyless_tpu.data import augmentations as jaug
 from lossyless_tpu.data import images as jimages
 from lossyless_tpu_torch.data import augmentations as taug
 from lossyless_tpu_torch.data import images as timages
+from tests import torch_threads  # noqa: F401  (one pool a worker)
 
 AFFINE = sorted(jaug._AFFINE_PARAMS)
 MNIST_EQ = jimages.SPECS["mnist"].default_equivalence

@@ -34,6 +34,7 @@ from lossyless_tpu_torch.compressors import compressor as tcomp
 from lossyless_tpu_torch.compressors import rates as trates
 from lossyless_tpu_torch.nn import layers as tlayers
 from lossyless_tpu_torch.nn import registry
+from tests import torch_threads  # noqa: F401  (one pool a worker)
 
 
 def _perturb(tree, seed, scale=0.05):

@@ -64,6 +64,7 @@ from lossyless_tpu_torch.pipeline import config as tconfig
 from lossyless_tpu_torch.pipeline import run as trun
 from lossyless_tpu_torch.train import checkpoints as tckpt
 from lossyless_tpu_torch.train import state as tstate
+from tests import torch_threads  # noqa: F401  (one pool a worker)
 
 EQUIVALENCES = ["rotation", "x_translation", "y_translation", None]
 TARGETS = ["representative", "input", "equiv_x", "target"]
@@ -606,11 +607,10 @@ def test_cli_multirun_gives_a_job_a_value(tmp_path, capsys):
     assert (tmp_path / "out" / "exp_banana_RD-run1").exists()
 
 
-def test_cli_refuses_what_is_not_ported(tmp_path):
-    """`--classical` still raises naming its item; `--profile-dir`, ported
-    since, traces the run into the directory."""
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        tcli.main(["banana_viz_VIC", "--classical", "jpeg"])
+def test_cli_profile_dir_traces_the_run(tmp_path):
+    """`--profile-dir` traces the run into the directory (`--classical`
+    has its tests in `tests/test_torch_classical.py`: banana's 2-d points
+    are no images)."""
     metrics = tcli.main(["banana_viz_VIC", "--dev", "--device", "cpu", *TINY,
                          "data_feat.n_epochs=1", f"out_dir={tmp_path}/out",
                          f"ckpt_dir={tmp_path}/ckpt", "--profile-dir",

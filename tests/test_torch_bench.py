@@ -19,6 +19,7 @@ import bench as jbench
 from lossyless_tpu_torch import bench
 from lossyless_tpu_torch.hub.compressor import ClipCompressor
 from lossyless_tpu_torch.nn.vit import VisionTransformer
+from tests import torch_threads  # noqa: F401  (one pool a worker)
 
 DEFAULT_KEYS = {"metric", "value", "unit", "vs_baseline", "value_spread",
                 "runs", "input", "bits_per_img", "rate_is_synthetic",

@@ -25,6 +25,7 @@ from lossyless_tpu_torch.hub import cli as tcli
 from lossyless_tpu_torch.hub import load_reference as tref
 from lossyless_tpu_torch.hub.compressor import load_pretrained
 from tests.test_torch_coding import random_eb_params
+from tests import torch_threads  # noqa: F401  (one pool a worker)
 
 WIDTH, LAYERS, PATCH = 64, 2, 32
 

@@ -32,6 +32,7 @@ from lossyless_tpu.nn import clip_resnet as jcr
 from lossyless_tpu_torch.nn import clip_resnet as tcr
 from lossyless_tpu_torch.nn import layers as tlayers
 from lossyless_tpu_torch.nn import registry
+from tests import torch_threads  # noqa: F401  (one pool a worker)
 
 TINY = dict(layers=(1, 1, 1, 1), width=16, heads=4)
 OUT, B = 8, 4

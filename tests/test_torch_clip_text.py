@@ -25,6 +25,7 @@ from lossyless_tpu_torch.nn import layers as tlayers
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
+from tests import torch_threads  # noqa: F401  (one pool a worker)
 
 TINY = dict(vocab_size=100, context_length=16, width=32, layers=2, heads=2,
             out_dim=24)

@@ -18,6 +18,7 @@ from lossyless_tpu_torch.coding import bitstream as tbs
 from lossyless_tpu_torch.coding import entropy_bottleneck as teb
 from lossyless_tpu_torch.coding import rans as trans
 from lossyless_tpu_torch.nn import _build
+from tests import torch_threads  # noqa: F401  (one pool a worker)
 
 
 def random_eb_params(seed: int, channels: int = 512) -> dict:

@@ -35,6 +35,7 @@ from lossyless_tpu_torch.nn.mlp import params_from_flax
 from lossyless_tpu_torch.pipeline import run as trun
 from tests.test_torch_banana import (STAGES, _csv_keys, _tiny,
                                      check_preset_steps, jax_results_keys)
+from tests import torch_threads  # noqa: F401  (one pool a worker)
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 B, Z = 12, 4

@@ -30,6 +30,7 @@ from lossyless_tpu_torch.core import rng as trng
 from lossyless_tpu_torch.data import images as timages
 from lossyless_tpu_torch.data import norms as tnorms
 from tests.test_torch_banana import TINY
+from tests import torch_threads  # noqa: F401  (one pool a worker)
 
 
 def test_tmp_seed_matches_jax():

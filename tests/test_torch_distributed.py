@@ -55,6 +55,7 @@ from lossyless_tpu_torch.pipeline.run import main as tmain
 from lossyless_tpu_torch.train.state import OptimConfig, TrainState, \
     train_step
 from tests import torch_dist_worker
+from tests import torch_threads  # noqa: F401  (one pool a worker)
 
 WORLD = 2
 LOSS = dict(rtol=2e-5, atol=2e-5)
@@ -137,7 +138,8 @@ def _jax_steps(jcfg, batch):
 def _spawn(payload: dict) -> list[dict]:
     """Run the worker's checks in one gloo group of WORLD ranks; their
     results in rank order (read while the ranks run: a result may be
-    larger than a pipe holds)."""
+    larger than a pipe holds). The ranks are killed, and the call fails,
+    if the group has not ended within `torch_dist_worker.SPAWN_TIMEOUT_S`."""
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
     procs = mp.start_processes(torch_dist_worker.run,
@@ -145,13 +147,20 @@ def _spawn(payload: dict) -> list[dict]:
                                nprocs=WORLD, join=False,
                                start_method="spawn")
     results = []
-    while len(results) < WORLD:
+    with torch_dist_worker.bounded():
         try:
-            results.append(q.get(timeout=1))
-        except queue_lib.Empty:
-            procs.join(timeout=0)      # raises if a rank failed
-    while not procs.join():
-        pass
+            while len(results) < WORLD:
+                try:
+                    results.append(q.get(timeout=1))
+                except queue_lib.Empty:
+                    procs.join(timeout=0)      # raises if a rank failed
+            while not procs.join(timeout=1):
+                pass
+        finally:
+            for p in procs.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
     return sorted(results, key=lambda r: r["rank"])
 
 

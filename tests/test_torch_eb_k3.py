@@ -22,6 +22,7 @@ from lossyless_tpu.coding import pallas_eb
 from lossyless_tpu_torch.coding import eb_kernel
 from lossyless_tpu_torch.coding import entropy_bottleneck as teb
 from lossyless_tpu_torch.core.math import lower_bound
+from tests import torch_threads  # noqa: F401  (one pool a worker)
 
 SHAPES = [(37, 13, (3, 3, 3)), (128, 16, (3, 3, 3, 3)), (5, 8, (3, 3, 3)),
           (1, 1, (3, 3, 3, 3)), (9, 130, (2, 4)), (128, 102, (3, 3, 3, 3))]

@@ -16,6 +16,7 @@ from lossyless_tpu.core import math as jmath
 from lossyless_tpu_torch.coding import entropy_bottleneck as teb
 from lossyless_tpu_torch.core import math as tmath
 from tests.test_torch_coding import random_eb_params
+from tests import torch_threads  # noqa: F401  (one pool a worker)
 
 VAL = dict(rtol=1e-5, atol=1e-6)
 GRAD = dict(rtol=1e-4, atol=1e-6)

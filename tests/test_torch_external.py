@@ -34,6 +34,7 @@ from tests.test_torch_stl10_augment import CHAIN_ATOL, jax_chain_draws
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
+from tests import torch_threads  # noqa: F401  (one pool a worker)
 
 TARGETS = ["target", "input", "representative", "equiv_x", None]
 

@@ -41,6 +41,7 @@ from tests.test_torch_stl10_path import B, _draws, check_variables
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
+from tests import torch_threads  # noqa: F401  (one pool a worker)
 
 SMALL = ["encoder.z_dim=256", "rate.n_channels=16",
          "encoder.arch_kwargs.hid_dim=8", "distortion.arch_kwargs.hid_dim=8",

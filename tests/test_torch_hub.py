@@ -29,6 +29,7 @@ from lossyless_tpu_torch.hub.load_reference import reference_path
 from lossyless_tpu_torch.nn.vit import VisionTransformer as TViT
 from lossyless_tpu_torch.nn.vit import params_from_flax
 from tests.test_torch_coding import random_eb_params
+from tests import torch_threads  # noqa: F401  (one pool a worker)
 
 TINY = dict(patch_size=32, width=64, layers=2, heads=2, out_dim=512)
 RAW_HW = (96, 96)

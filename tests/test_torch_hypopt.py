@@ -27,6 +27,7 @@ from lossyless_tpu_torch.pipeline import config as tconfig
 from lossyless_tpu_torch.pipeline import hypopt as thypopt
 from lossyless_tpu_torch.pipeline import run as trun
 from lossyless_tpu_torch.train import state as tstate
+from tests import torch_threads  # noqa: F401  (one pool a worker)
 
 SPACE = {"loss.beta": ("log_uniform", 1e-3, 1.0),
          "encoder.z_dim": ("choice", [2, 4, 8]),

@@ -12,11 +12,12 @@ import sys
 from pathlib import Path
 
 import pytest
+from tests import torch_threads  # noqa: F401  (one pool a worker)
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "lossyless_tpu")
 FILES = sorted((ROOT / "lossyless_tpu_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + sorted((ROOT / "examples").glob("*_torch.py")) + [ROOT / "chip_smoke.py"]
 
 
 def _imported(tree):
@@ -38,6 +39,8 @@ def test_the_scan_covers_the_port():
     assert "lossyless_tpu_torch/nn/flash_attn.py" in names
     assert "lossyless_tpu_torch/core/mesh.py" in names
     assert set(NEW_MODULES) <= {n[:-3].replace("/", ".") for n in names}
+    assert {"examples/minimal_code_torch.py", "examples/hub_demo_torch.py",
+            "lossyless_tpu_torch/hubconf.py"} <= names
     assert len(names) >= 15
 
 
@@ -101,6 +104,14 @@ NEW_MODULES = [
     "lossyless_tpu_torch.data.external",
     "lossyless_tpu_torch.analysis.kaggle",
     "lossyless_tpu_torch.pipeline.hypopt",
+    # slice 16: the classical baselines, the analysis suite, the lazy
+    # exports and the torch.hub pair
+    "lossyless_tpu_torch._lazy",
+    "lossyless_tpu_torch.compressors.classical",
+    "lossyless_tpu_torch.analysis.aggregate",
+    "lossyless_tpu_torch.analysis.visualize",
+    "lossyless_tpu_torch.analysis.pretrained",
+    "lossyless_tpu_torch.hubconf",
 ]
 
 
@@ -111,6 +122,22 @@ def test_the_training_path_imports_with_jax_blocked():
     block = "; ".join(f"sys.modules[{m!r}] = None" for m in FORBIDDEN)
     code = (f"import sys; {block}; import importlib; "
             f"[importlib.import_module(m) for m in {NEW_MODULES!r}]; "
+            f"print('ok')")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_the_examples_import_with_jax_blocked():
+    """The port's examples load in a fresh interpreter in which importing
+    jax, flax, optax or the JAX package fails."""
+    block = "; ".join(f"sys.modules[{m!r}] = None" for m in FORBIDDEN)
+    paths = [str(p) for p in sorted((ROOT / "examples").glob("*_torch.py"))]
+    assert len(paths) == 2
+    code = (f"import sys; {block}; import importlib.util as u\n"
+            f"for p in {paths!r}:\n"
+            f"    s = u.spec_from_file_location('ex', p)\n"
+            f"    s.loader.exec_module(u.module_from_spec(s))\n"
             f"print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)

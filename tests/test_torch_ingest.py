@@ -30,6 +30,7 @@ from lossyless_tpu_torch.nn import layers as tlayers
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
+from tests import torch_threads  # noqa: F401  (one pool a worker)
 
 # a text tower at CLIP's vocabulary and context (hash_tokenize's ids),
 # narrow and shallow

@@ -31,6 +31,7 @@ from lossyless_tpu.coding import pallas_eb
 from lossyless_tpu.nn import flash_attn as jfa
 from lossyless_tpu_torch.coding import eb_kernel
 from lossyless_tpu_torch.nn import flash_attn as tfa
+from tests import torch_threads  # noqa: F401  (one pool a worker)
 
 K3_VALUES = dict(rtol=1e-5, atol=1e-7)
 

@@ -31,6 +31,7 @@ from lossyless_tpu.nn import vit as jvit
 from lossyless_tpu_torch.nn import flash_attn as tfa
 from lossyless_tpu_torch.nn import vit as tvit
 from lossyless_tpu_torch.nn.registry import get_architecture
+from tests import torch_threads  # noqa: F401  (one pool a worker)
 
 BF16_ATOL = 2e-2
 WIDTH, LAYERS, HEADS, OUT = 64, 2, 2, 32

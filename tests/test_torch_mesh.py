@@ -36,6 +36,8 @@ from lossyless_tpu_torch.nn.vit import params_from_flax
 from lossyless_tpu_torch.pipeline import config as tconfig
 from lossyless_tpu_torch.pipeline import run as trun
 from tests.test_torch_coding import random_eb_params
+from tests import torch_threads  # noqa: F401  (one pool a worker)
+from tests.torch_dist_worker import bounded
 
 TINY = dict(patch_size=32, width=64, layers=2, heads=2, out_dim=512)
 RAW_HW = (96, 96)
@@ -153,9 +155,10 @@ def test_main_spawns_two_ranks_and_matches_one(tmp_path):
             "trainer.use_fused_epochs=False"]
     runs = {}
     for n in (1, 2):
-        runs[n] = trun.main(_cfg(base + [
-            f"trainer.n_devices={n}", f"out_dir={tmp_path}/{n}/out",
-            f"ckpt_dir={tmp_path}/{n}/ck"]), device="cpu")
+        with bounded():
+            runs[n] = trun.main(_cfg(base + [
+                f"trainer.n_devices={n}", f"out_dir={tmp_path}/{n}/out",
+                f"ckpt_dir={tmp_path}/{n}/ck"]), device="cpu")
     m1, m2 = runs[1], runs[2]
     assert set(m1) == set(m2)
     for key in ("test/feat/loss", "test/feat/rate", "test/feat/distortion"):

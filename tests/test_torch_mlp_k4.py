@@ -23,6 +23,7 @@ from lossyless_tpu_torch.nn import flash_attn as tfa
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
+from tests import torch_threads  # noqa: F401  (one pool a worker)
 
 SLICE = (128 * 50, 768, 3072)    # clip_hub's batch of 128 at ViT-B/32
 

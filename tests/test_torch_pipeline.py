@@ -49,6 +49,7 @@ from lossyless_tpu_torch.pipeline import predictor as tpred
 from lossyless_tpu_torch.pipeline import run as trun
 from lossyless_tpu_torch.train import checkpoints as tckpt
 from lossyless_tpu_torch.train import state as tstate
+from tests import torch_threads  # noqa: F401  (one pool a worker)
 
 
 def _merge(params, stats=None) -> dict:

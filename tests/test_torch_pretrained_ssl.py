@@ -47,6 +47,7 @@ from lossyless_tpu_torch.train import state as tstate
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
+from tests import torch_threads  # noqa: F401  (one pool a worker)
 
 TINY_RN = dict(width=16, layers=(1, 1, 1, 1))
 TINY_KW = ["encoder.arch_kwargs.width=16",

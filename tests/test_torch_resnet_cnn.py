@@ -27,6 +27,7 @@ from lossyless_tpu_torch.nn import cnn as tcnn
 from lossyless_tpu_torch.nn import layers as tlayers
 from lossyless_tpu_torch.nn import registry
 from lossyless_tpu_torch.nn import resnet as tresnet
+from tests import torch_threads  # noqa: F401  (one pool a worker)
 
 
 def _moved(tree, rng, scale):

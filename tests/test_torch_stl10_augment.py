@@ -37,6 +37,7 @@ from lossyless_tpu.data import label_augment as jlabel
 from lossyless_tpu_torch.data import augmentations as taug
 from lossyless_tpu_torch.data import images as timages
 from lossyless_tpu_torch.data import label_augment as tlabel
+from tests import torch_threads  # noqa: F401  (one pool a worker)
 
 STL10_EQ = jimages.SPECS["stl10"].default_equivalence
 NON_AFFINE = ["hflip", "vflip", "D4_group", "color", "gray", "resize_crop",

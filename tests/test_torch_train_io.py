@@ -22,6 +22,7 @@ from lossyless_tpu.train import metrics as jmetrics
 from lossyless_tpu_torch.train import checkpoints as tckpt
 from lossyless_tpu_torch.train import loggers as tloggers
 from lossyless_tpu_torch.train import metrics as tmetrics
+from tests import torch_threads  # noqa: F401  (one pool a worker)
 
 LOG_ROWS = [
     {"loss": 1.5, "rate": np.float32(3.25), "flag": True},

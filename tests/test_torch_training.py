@@ -53,6 +53,7 @@ from lossyless_tpu_torch.nn import registry
 from lossyless_tpu_torch.pipeline import config as tconfig
 from lossyless_tpu_torch.pipeline import run as trun
 from lossyless_tpu_torch.train import state as tstate
+from tests import torch_threads  # noqa: F401  (one pool a worker)
 
 
 # ---------------------------------------------------------------------------

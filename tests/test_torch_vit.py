@@ -22,6 +22,7 @@ from lossyless_tpu.nn import vit as jvit
 from lossyless_tpu_torch.nn import vit as tvit
 from tests.test_clip_torch_parity import (IMG, TorchClipVisual,
                                           _state_dict_openai_names)
+from tests import torch_threads  # noqa: F401  (one pool a worker)
 
 WIDTH, LAYERS, HEADS, OUT = 64, 3, 4, 512
 

@@ -5,15 +5,43 @@ BatchNorm's global statistics, one `train_step` of the MLP compressor,
 the global draws, and `main` of a banana preset under
 `trainer.n_devices=2`. Each rank puts its results on the queue. This
 module imports torch and the port only (no JAX), so a spawned rank starts
-quickly.
+quickly. It also holds the bound that a test puts on the ranks it spawns
+(`bounded`, `SPAWN_TIMEOUT_S`).
 """
 
+import contextlib
+import multiprocessing
 import os
+import signal
 
 import torch
 import torch.distributed as dist
 
 from lossyless_tpu_torch.core import mesh
+
+# a spawning test's bound: ranks that hang fail the test
+SPAWN_TIMEOUT_S = 600
+
+
+@contextlib.contextmanager
+def bounded(seconds: int = SPAWN_TIMEOUT_S):
+    """Fail the block if it runs longer than `seconds`, killing the
+    processes it spawned."""
+    def expire(signum, frame):
+        raise TimeoutError(f"the spawned ranks ran over {seconds} s")
+
+    previous = signal.signal(signal.SIGALRM, expire)
+    signal.alarm(seconds)
+    try:
+        yield
+    except TimeoutError:
+        for p in multiprocessing.active_children():
+            p.kill()
+            p.join()
+        raise
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, previous)
 
 
 def run(rank: int, world: int, port: int, payload: dict, queue):
