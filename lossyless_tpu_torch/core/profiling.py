@@ -6,6 +6,13 @@ Counterpart of `lossyless_tpu/core/profiling.py`: `profile_trace` (a
 the CUDA caching allocator) and `debug_mode` (autograd's anomaly
 detection, where JAX turns on `jax_debug_nans`: the backward raises at
 the op that made a NaN).
+
+`span(name)` marks a stretch of the program in whatever profiler is
+running (`profile_trace`, the CLI's `--profile-dir`, the benchmark's
+slice): a `record_function` range, in the same trace and on the same
+clock as the kernels it launches. With no profiler running it is one
+shared no-op context. The names the program uses are fixed strings
+(README, "Profiling"): readers match them exactly.
 """
 
 from __future__ import annotations
@@ -17,6 +24,15 @@ from pathlib import Path
 import torch
 
 TRACE_FILE = "trace.json"
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """`with span("encode.dispatch"): ...`: a `record_function` range while
+    a profiler runs on this thread, else a shared no-op context."""
+    if not torch.autograd._profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
 
 
 @contextlib.contextmanager

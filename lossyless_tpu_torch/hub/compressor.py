@@ -44,6 +44,7 @@ from ..coding import entropy_bottleneck as eb
 from ..coding.bitstream import read_dataset, write_dataset
 from ..coding.rans import RansCodec
 from ..core.device import resolve_device
+from ..core.profiling import span
 from ..nn.vit import clip_preprocess, convert_openai_clip_weights, vit_b32
 
 
@@ -271,8 +272,18 @@ class ClipCompressor:
         """Compress an iterable of (x, y) batches into a dataset bitstream.
 
         Batch i+1 is queued on the card before batch i is drained, so the
-        card's compute, the readback and host rANS all overlap.
+        card's compute, the readback and host rANS all overlap. Under a
+        profiler the call is the span `encode.pass`: per batch
+        `encode.to_device`, `encode.dispatch` (the tower queued and the
+        readback started), `encode.readback_wait` and `encode.rans_wait`
+        (the previous batch's coding); after the last batch `encode.tail`,
+        which holds the last waits and `encode.write`.
         """
+        with span("encode.pass"):
+            return self._compress_dataset(batches, file, label_file,
+                                          is_info)
+
+    def _compress_dataset(self, batches, file, label_file, is_info):
         self._ensure_tower()
         start = time.time()
         all_streams: list[bytes] = []
@@ -281,14 +292,19 @@ class ClipCompressor:
         pending = None        # host-coding future for the previous batch
         inflight = None       # (pinned host symbols, copy-done event)
 
+        def _wait_coding():
+            with span("encode.rans_wait"):
+                all_streams.extend(pending.result())
+
         def _drain(entry):
             nonlocal pending
             host, event = entry
-            if event is not None:
-                event.synchronize()            # waits on THIS batch only
+            with span("encode.readback_wait"):
+                if event is not None:
+                    event.synchronize()        # waits on THIS batch only
             symbols = host.numpy()
             if pending is not None:
-                all_streams.extend(pending.result())
+                _wait_coding()
             pending = pool.submit(self.codec.encode_batch, symbols,
                                   self.indexes)
 
@@ -297,27 +313,31 @@ class ClipCompressor:
                 for item in batches:
                     x, y = item if isinstance(item, (tuple, list)) \
                         else (item, None)
-                    dev = self._encode_symbols(self._to_device(x))
-                    entry = self._start_readback(dev)
+                    with span("encode.to_device"):
+                        x = self._to_device(x)
+                    with span("encode.dispatch"):
+                        entry = self._start_readback(self._encode_symbols(x))
                     if label_file is not None and y is not None:
                         # natural dtype: a narrowing cast would wrap ids
                         labels.append(np.asarray(y))
                     if inflight is not None:
                         _drain(inflight)
                     inflight = entry
+            with span("encode.tail"):
                 if inflight is not None:
                     _drain(inflight)
-            if pending is not None:
-                all_streams.extend(pending.result())
+                if pending is not None:
+                    _wait_coding()
+                with span("encode.write"):
+                    write_dataset(file, all_streams, len(all_streams))
+                    if label_file is not None and labels:
+                        np.save(label_file, np.concatenate(labels),
+                                allow_pickle=False)
         finally:
             pool.shutdown()
 
-        write_dataset(file, all_streams, len(all_streams))
         enc_time = (time.time() - start) / max(1, len(all_streams))
         rate = 8 * Path(file).stat().st_size / max(1, len(all_streams))
-
-        if label_file is not None and labels:
-            np.save(label_file, np.concatenate(labels), allow_pickle=False)
         if is_info:
             print(f"Rate: {rate:.2f} bits/img | Encoding: {1/enc_time:.2f} img/sec ")
         return rate, 1.0 / enc_time

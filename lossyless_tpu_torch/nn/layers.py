@@ -31,6 +31,7 @@ from torch import nn
 
 from ..core import mesh
 from ..core.math import lower_bound
+from ..core.profiling import span
 
 BN_MOMENTUM = 0.9
 
@@ -178,18 +179,42 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(features))
 
     def forward(self, x, *, training: bool):
-        xf = x.float()
-        if training:
-            mean, var = _batch_stats(xf, _stat_dims(xf))
-            with torch.no_grad():
-                self.mean.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM)
-                                                 * mean.reshape(-1))
-                self.var.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM)
-                                                * var.reshape(-1))
-        else:
-            mean, var = (_per_channel(v, xf) for v in (self.mean, self.var))
-        return (xf - mean) * torch.rsqrt(var + self.eps) \
-            * _per_channel(self.scale, xf) + _per_channel(self.bias, xf)
+        with span("nn.batchnorm"):
+            xf = x.float()
+            if training:
+                mean, var = _batch_stats(xf, _stat_dims(xf))
+                with torch.no_grad():
+                    self.mean.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM)
+                                                     * mean.reshape(-1))
+                    self.var.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM)
+                                                    * var.reshape(-1))
+            else:
+                mean, var = (_per_channel(v, xf)
+                             for v in (self.mean, self.var))
+            out = (xf - mean) * torch.rsqrt(var + self.eps) \
+                * _per_channel(self.scale, xf) + _per_channel(self.bias, xf)
+        if xf.requires_grad and torch.autograd._profiler_enabled():
+            _backward_span("nn.batchnorm.backward", xf, out)
+        return out
+
+
+def _backward_span(name: str, inp: torch.Tensor, out: torch.Tensor):
+    """Span `name` on autograd's thread from the gradient reaching `out` to
+    the gradient of `inp` (tensor hooks, which only a profiled forward
+    registers)."""
+    opened = []
+
+    def begin(grad):
+        cm = span(name)
+        cm.__enter__()
+        opened.append(cm)
+
+    def end(grad):
+        if opened:
+            opened.pop().__exit__(None, None, None)
+
+    out.register_hook(begin)
+    inp.register_hook(end)
 
 
 class LayerNorm(nn.Module):

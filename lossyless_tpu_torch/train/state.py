@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..core import mesh
+from ..core.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -259,29 +260,40 @@ def train_step(state: TrainState, batch, generator=None, noise=None,
     gradients are averaged by one flat all-reduce after `backward`
     (`average_gradients`; DDP wraps a module's `forward`, while this state
     steps three optimizer groups through `model.step`), and the logs are
-    the global batch's (`reduce_logs`)."""
+    the global batch's (`reduce_logs`).
+
+    Under a profiler the step is three spans: `train.forward`,
+    `train.backward` (with the gradient average) and `train.optimizer`
+    (the rates set, the missing gradients filled, every `opt.step()`);
+    the gradients are cleared before the forward and outlive the step."""
     x, y, aux = batch
     for opt, _ in state.optimizers.values():
         opt.zero_grad(set_to_none=True)
-    loss, logs = state.model.step(x, y, aux, training=True, step=state.step,
-                                  generator=generator, noise=noise, eps=eps)
-    loss.backward()
+    with span("train.forward"):
+        loss, logs = state.model.step(x, y, aux, training=True,
+                                      step=state.step, generator=generator,
+                                      noise=noise, eps=eps)
     dp = mesh.active() is not None
+    with span("train.backward"):
+        loss.backward()
+        if dp:
+            mesh.average_gradients(p for opt, _ in state.optimizers.values()
+                                   for g in opt.param_groups
+                                   for p in g["params"])
     if dp:
-        mesh.average_gradients(p for opt, _ in state.optimizers.values()
-                               for g in opt.param_groups
-                               for p in g["params"])
         logs = mesh.reduce_logs(logs)
-    for label, (opt, schedule) in state.optimizers.items():
-        lr = schedule(state.step) * state.lr_scales.get(label, 1.0)
-        for group in opt.param_groups:
-            group["lr"] = lr
-            for p in group["params"]:
-                # optax updates every param of a group each step (decay and
-                # moments included); torch skips a param without a grad
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-        opt.step()
+    with span("train.optimizer"):
+        for label, (opt, schedule) in state.optimizers.items():
+            lr = schedule(state.step) * state.lr_scales.get(label, 1.0)
+            for group in opt.param_groups:
+                group["lr"] = lr
+                for p in group["params"]:
+                    # optax updates every param of a group each step (decay
+                    # and moments included); torch skips a param without a
+                    # grad
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+            opt.step()
     state.step += 1
     return state, {k: v.detach() if isinstance(v, torch.Tensor) else v
                    for k, v in logs.items()}
@@ -328,7 +340,9 @@ def make_generative_epoch(sample_fn, n_steps: int, rank: int = 0,
         tensor_logs, host_logs = {}, {}
         for _ in range(n_steps):
             with mesh.data_parallel(rank, world, rows or 0):
-                state, logs = train_step(state, sample_fn(g_data), g_step)
+                with span("train.sample"):
+                    batch = sample_fn(g_data)
+                state, logs = train_step(state, batch, g_step)
             for k, v in logs.items():
                 (tensor_logs if isinstance(v, torch.Tensor)
                  else host_logs).setdefault(k, []).append(v)
