@@ -85,6 +85,16 @@ non-zero without printing a result:
    `scaled_dot_product_attention` (both clocks), and the device time of
    the two-pass tile on the same inputs, with the bound counted from K1's
    work at every pack (the masked blocks add nothing);
+3d. K6 (BatchNorm forward and backward) at the stl10_bince ResNet-18's
+   stem and layer-4 shapes (channels_last bf16) and the banana MLP's
+   (1024, 1024) fp32 (`K6_CHECKS`), training mode: y, dx, dscale, dbias
+   and the running statistics each at most twice the eager fp32 chain's
+   error against the chain in float64 (plus 1e-6 of the largest entry),
+   two calls bit-equal, one launch a forward and one a backward; both
+   directions' CUDA-event and device ms beside the bound by bytes (6 and
+   8 B an element at bf16 x, 8 and 12 at fp32) and the eager chain's
+   times and kernels; phase 14 asserts 40 forward and 40 backward
+   launches a stl10_bince step;
 4. the encode/decode path at full width: a seeded random CLIP ViT-B/32
    tower in bf16 with seeded entropy-bottleneck params, `compress_dataset`
    over 8 batches of 256 raw uint8 96x96 images, then `decompress_dataset`.
@@ -357,6 +367,10 @@ NO_K5 = {"fused_attention_packed": 0, "fused_attention_headbatched": 0}
 # SOFTMAX_DTYPE=bfloat16 (phase 16a)
 NO_BF16 = {"fused_attention_bf16_softmax": 0,
            "fused_attention_cls_bf16_softmax": 0}
+# K6, BatchNorm's forward and backward: launched wherever a model holds a
+# BatchNorm (the image encoders, the MLPs with norm_layer="batchnorm", the
+# probes), none on the ViT paths
+NO_K6 = {"batchnorm": 0, "batchnorm_bwd": 0}
 TRAIN_OVERRIDES = ["rate.eb_use_pallas=True",
                    "encoder.arch_kwargs.mlp_impl=pallas",
                    "trainer.log_every=5"]
@@ -1189,7 +1203,8 @@ def main_path(card: str) -> dict:
     # the encode path's MLPs are torch ops and it computes no likelihood
     want = {"fused_attention": (n_layers - 1) * N_BATCHES,
             "fused_attention_cls": N_BATCHES, "fused_mlp_block": 0,
-            "eb_likelihood": 0, "eb_likelihood_bwd": 0, **NO_K5, **NO_BF16}
+            "eb_likelihood": 0, "eb_likelihood_bwd": 0, **NO_K5, **NO_BF16,
+            **NO_K6}
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
     if rans._get_lib()._name != str(_build.library_path("rans")):
@@ -1991,29 +2006,227 @@ def check_k3_k4() -> dict:
     return results
 
 
+# Phase 3d's K6 shapes: the ResNet-18 stem (and layer 1) and layer 4 of
+# one view of stl10_bince (256 images of 96 px), channels_last bf16; the
+# banana MLP's (1024, 1024) fp32
+K6_CHECKS = [((256, 64, 96, 96), "bfloat16"), ((256, 512, 12, 12), "bfloat16"),
+             ((1024, 1024), "float32")]
+# the least bytes an element a call moves: forward x in and y (fp32) out,
+# backward x and dy (fp32) in and dx out, at bf16 and fp32 x
+K6_BYTES = {"bfloat16": (6, 8), "float32": (8, 12)}
+K6_STEP_LAUNCHES = 40     # BatchNorm calls a stl10_bince step: 20 a view
+
+
+def k6_inputs(shape, dtype: str, seed: int):
+    """x (channels innermost) and an fp32 cotangent of its shape, seeded,
+    made on the card."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    fmt = (torch.channels_last if len(shape) == 4
+           else torch.contiguous_format)
+
+    def draw():
+        t = torch.randn(shape, generator=g, device="cuda") * 1.5 + 0.3
+        return t.contiguous(memory_format=fmt)
+
+    return draw().to(getattr(torch, dtype)), draw()
+
+
+def k6_module(C: int, seed: int):
+    """A BatchNorm on the card with seeded parameters and statistics."""
+    import torch
+
+    from lossyless_tpu_torch.nn.layers import BatchNorm
+
+    bn = BatchNorm(C).cuda()
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        bn.scale.copy_(torch.rand(C, generator=g, device="cuda") + 0.5)
+        bn.bias.copy_(torch.randn(C, generator=g, device="cuda"))
+        bn.mean.copy_(torch.randn(C, generator=g, device="cuda") * 0.2)
+        bn.var.copy_(torch.rand(C, generator=g, device="cuda") + 0.5)
+    return bn
+
+
+def k6_run(bn, x, dy, path: str, training: bool = True) -> dict:
+    """One call of `path` ("kernel": the module on the card, "eager":
+    `BatchNorm.eager`) on x as it is laid out, with its backward: y, dx,
+    dscale, dbias and the running statistics after it."""
+    xi = x.detach().requires_grad_()
+    bn.zero_grad()
+    y = bn(xi, training=training) if path == "kernel" else bn.eager(
+        xi, training=training)
+    y.backward(dy)
+    return dict(y=y.detach(), dx=xi.grad, dscale=bn.scale.grad.clone(),
+                dbias=bn.bias.grad.clone(), mean=bn.mean.clone(),
+                var=bn.var.clone())
+
+
+def k6_float64(bn, x, dy, training: bool = True) -> dict:
+    """The chain of `BatchNorm.eager` in float64, and the running
+    statistics it leaves."""
+    from lossyless_tpu_torch.nn import layers
+
+    xd = x.detach().double().requires_grad_()
+    s = bn.scale.detach().double().requires_grad_()
+    b = bn.bias.detach().double().requires_grad_()
+    rm, rv = bn.mean.double(), bn.var.double()
+    if training:
+        mean, var = layers._fast_stats(xd, layers._stat_dims(xd))
+    else:
+        mean, var = (layers._per_channel(v, xd) for v in (rm, rv))
+    y = (xd - mean) * (var + bn.eps).rsqrt() * layers._per_channel(s, xd) \
+        + layers._per_channel(b, xd)
+    y.backward(dy.double())
+    if training:
+        m = layers.BN_MOMENTUM
+        rm = rm * m + (1 - m) * mean.detach().reshape(-1)
+        rv = rv * m + (1 - m) * var.detach().reshape(-1)
+    return dict(y=y.detach(), dx=xd.grad, dscale=s.grad, dbias=b.grad,
+                mean=rm, var=rv)
+
+
+def check_k6() -> dict:
+    """Phase 3d: K6 (BatchNorm forward and backward) at `K6_CHECKS`: each
+    output's error against the float64 chain at most twice the eager fp32
+    chain's (plus 1e-6 of its largest entry), two calls bit-equal, one
+    launch a forward and one a backward; then the kernels' event and
+    device ms a call, forward and backward, beside the bound by bytes and
+    the eager chain's (`plain`) times."""
+    import torch
+
+    from lossyless_tpu_torch.nn import bn_kernel
+
+    results = {}
+    for i, (shape, dtype) in enumerate(K6_CHECKS):
+        x, dy = k6_inputs(shape, dtype, seed=60 + i)
+        C = shape[1]
+        rows = x.numel() // C
+        ref = k6_float64(k6_module(C, i), x, dy)
+        before = dict(bn_kernel.LAUNCHES)
+        got = [k6_run(k6_module(C, i), x, dy, "kernel") for _ in range(2)]
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in bn_kernel.LAUNCHES.items()}
+        eager = k6_run(k6_module(C, i), x, dy, "eager")
+        errs = {k: (float((got[0][k].double() - want).abs().max()),
+                    float((eager[k].double() - want).abs().max()))
+                for k, want in ref.items()}
+        bad = [k for k, (ek, ee) in errs.items()
+               if not ek <= 2 * ee + 1e-6 * float(ref[k].abs().max())]
+        unequal = [k for k in got[0] if not torch.equal(got[0][k], got[1][k])]
+        plan = bn_kernel.bn_plan(rows, C, dtype, True,
+                                 bn_kernel._sm_count(x.device))
+        print(f"check batchnorm {shape} {dtype} ({plan}): max abs err "
+              f"(kernel, eager) against float64 {errs}; launches "
+              f"{launched}; two calls bit-equal: {not unequal}", flush=True)
+        if bad or unequal or launched != {"batchnorm": 2, "batchnorm_bwd": 2}:
+            raise AssertionError(f"K6 at {shape} {dtype}: off float64 in "
+                                 f"{bad}, unequal {unequal}, launches "
+                                 f"{launched}")
+        del ref, got, eager
+        # timings: the forward (no graph kept) and the backward of one kept
+        # graph, kernel and eager chain
+        bn = k6_module(C, i)
+        xi = x.detach().requires_grad_()
+        params = [xi, bn.scale, bn.bias]
+        timed = {}
+        for path in ("kernel", "eager"):
+            call = bn if path == "kernel" else bn.eager
+
+            def fwd():
+                with torch.no_grad():
+                    call(x, training=True)
+
+            y = call(xi, training=True)
+
+            def bwd():
+                torch.autograd.grad(y, params, dy, retain_graph=True)
+
+            timed[path] = {}
+            for key, fn in (("fwd", fwd), ("bwd", bwd)):
+                timed[path].update({f"{key}_ms": median_ms(fn),
+                                    f"{key}_kernels": device_kernel_count(fn)})
+                if path == "kernel":   # and the split by kernel
+                    split = device_ms_by_kernel(fn, ("lossyless_bn",))
+                    timed[path][f"{key}_by_kernel"] = split
+                    timed[path][f"{key}_device_ms"] = sum(split.values()) \
+                        or None
+                else:
+                    timed[path][f"{key}_device_ms"] = device_ms(fn)
+            del y
+        k, e = timed["kernel"], timed["eager"]
+        per_el = K6_BYTES[dtype]
+        for name, key, nbytes in (("batchnorm", "fwd", per_el[0]),
+                                  ("batchnorm_bwd", "bwd", per_el[1])):
+            bound_ms = x.numel() * nbytes / HBM_BYTES_PER_S * 1e3
+            dev = k[f"{key}_device_ms"]
+            row = dict(ms=k[f"{key}_ms"], device_ms=dev,
+                       device_ms_by_kernel=k[f"{key}_by_kernel"],
+                       kernels_per_call=k[f"{key}_kernels"],
+                       bound_ms=bound_ms, bound_by="bytes",
+                       bound_share=bound_share(bound_ms, dev),
+                       plain_ms=e[f"{key}_ms"],
+                       plain_device_ms=e[f"{key}_device_ms"],
+                       plain_kernels=e[f"{key}_kernels"],
+                       max_abs_err=errs, library_ms=None)
+            results.setdefault(name, {})[f"{shape}_{dtype}"] = row
+            print(f"time {name} {shape} {dtype}: kernel {row['ms']!r} ms "
+                  f"(device {dev!r} ms, {row['kernels_per_call']!r} "
+                  f"kernels: {row['device_ms_by_kernel']}), bound "
+                  f"{bound_ms!r} ms (bytes: "
+                  f"{nbytes} B an element), share {row['bound_share']!r}; "
+                  f"eager chain {row['plain_ms']!r} ms (device "
+                  f"{row['plain_device_ms']!r} ms, "
+                  f"{row['plain_kernels']!r} kernels)", flush=True)
+    return results
+
+
 def reset_launches():
     from lossyless_tpu_torch.coding import eb_kernel
+    from lossyless_tpu_torch.nn import bn_kernel
     from lossyless_tpu_torch.nn import flash_attn as fa
 
-    for counts in (fa.LAUNCHES, eb_kernel.LAUNCHES):
+    for counts in (fa.LAUNCHES, eb_kernel.LAUNCHES, bn_kernel.LAUNCHES):
         for key in counts:
             counts[key] = 0
 
 
 def read_launches() -> dict:
     from lossyless_tpu_torch.coding import eb_kernel
+    from lossyless_tpu_torch.nn import bn_kernel
     from lossyless_tpu_torch.nn import flash_attn as fa
 
-    return {**fa.LAUNCHES, **eb_kernel.LAUNCHES}
+    return {**fa.LAUNCHES, **eb_kernel.LAUNCHES, **bn_kernel.LAUNCHES}
 
 
-def check_launches(launches: dict, what: str):
-    """K3 and its backward launched, nothing else."""
-    others = {k: v for k, v in launches.items()
-              if not k.startswith("eb_likelihood") and v}
-    if launches["eb_likelihood"] < 1 or \
-            launches["eb_likelihood_bwd"] < 1 or others:
+def check_launches(launches: dict, what: str, batchnorm: bool,
+                   k3: bool = True):
+    """K3 and its backward launched (with `k3=False`, a plain run's: not
+    launched); K6's forward and backward launched where the run trains a
+    BatchNorm (`batchnorm`), else not; nothing else."""
+    counted = ("eb_likelihood", "eb_likelihood_bwd", *NO_K6)
+    others = {k: v for k, v in launches.items() if k not in counted and v}
+    k3_ok = min(launches["eb_likelihood"], launches["eb_likelihood_bwd"]) \
+        >= 1 if k3 else not (launches["eb_likelihood"]
+                             or launches["eb_likelihood_bwd"])
+    k6_ok = min(launches["batchnorm"], launches["batchnorm_bwd"]) >= 1 \
+        if batchnorm else not any(launches[k] for k in NO_K6)
+    if not (k3_ok and k6_ok) or others:
         raise AssertionError(f"{what} launches {launches}")
+
+
+def count_batchnorms(model) -> int:
+    """The BatchNorm modules of `model`: K6's forward launches a forward
+    of it."""
+    from lossyless_tpu_torch.nn.layers import BatchNorm
+
+    return sum(isinstance(m, BatchNorm) for m in model.modules())
+
+
+def k6_per_step(run_: dict) -> dict:
+    """K6's launches a step of a `timed_main` run's fused epochs."""
+    return {k: run_["fused_launches"][k] / run_["steps"] for k in NO_K6}
 
 
 def train_images(n: int, seed: int, batch: int = TRAIN_BATCH):
@@ -2084,7 +2297,7 @@ def train_path(card: str):
             "fused_attention_cls": TRAIN_STEPS,
             "fused_mlp_block": (L - 1) * TRAIN_STEPS,
             "eb_likelihood": TRAIN_STEPS, "eb_likelihood_bwd": TRAIN_STEPS,
-            **NO_K5, **NO_BF16}
+            **NO_K5, **NO_BF16, **NO_K6}
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
     logs = {k: float(v) for k, v in last.items()}
@@ -2127,7 +2340,8 @@ def train_ab(cfg, batches, plain=CLIP_PLAIN,
     `plain` overrides, the MLP on K4's plain version), from the same
     weights and the same noise; the record printed under `label`. The
     kernels run must launch each kernel of `need` at least once a step,
-    the plain run nothing."""
+    the plain run nothing but K6 (BatchNorm has no plain switch), K6 as
+    often in both runs."""
     import contextlib
     import copy
 
@@ -2135,7 +2349,7 @@ def train_ab(cfg, batches, plain=CLIP_PLAIN,
     from lossyless_tpu_torch.pipeline.run import build_state, run_featurizer
 
     plain_cfg = config.apply_overrides(cfg, list(plain))
-    runs = {}
+    runs, k6 = {}, {}
     init = None
     for name, c in (("kernels", cfg), ("plain", plain_cfg)):
         state = build_state(config.apply_precision(copy.deepcopy(c)),
@@ -2152,7 +2366,9 @@ def train_ab(cfg, batches, plain=CLIP_PLAIN,
                                {k: float(lg[k]) for k in
                                 ("loss", "rate", "distortion")}))
         launched = read_launches()
-        if name == "plain" and any(launched.values()):
+        k6[name] = {k: launched[k] for k in NO_K6}
+        if name == "plain" and any(v for k, v in launched.items()
+                                   if k not in NO_K6):
             raise AssertionError(f"the plain run launched {launched}")
         if name == "kernels":
             kernel_launches = {k: v for k, v in launched.items() if v}
@@ -2162,11 +2378,14 @@ def train_ab(cfg, batches, plain=CLIP_PLAIN,
                     f"{label}: the kernels run launched {launched}, fewer "
                     f"than one a step of {short}")
         runs[name] = logs
+    if k6["kernels"] != k6["plain"]:
+        raise AssertionError(f"{label}: K6 launched {k6}")
     worst = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
                 for a, b in zip(runs["kernels"], runs["plain"]) for k in a)
     out = dict(steps=len(batches), kernels=runs["kernels"],
                plain=runs["plain"], kernels_run_launches=kernel_launches,
-               max_rel_diff=worst, tolerance=1e-2)
+               k6_launches_each_run=k6["kernels"], max_rel_diff=worst,
+               tolerance=1e-2)
     print(json.dumps({label: out}), flush=True)
     if not worst <= 1e-2:
         raise AssertionError(f"{label}: kernels vs plain training logs "
@@ -2250,7 +2469,7 @@ def slice_path(card: str) -> dict:
     per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
     want = {"fused_attention": L - 1, "fused_attention_cls": 1,
             "eb_likelihood": 1, "eb_likelihood_bwd": 1, "fused_mlp_block": 0,
-            **NO_K5, **NO_BF16}
+            **NO_K5, **NO_BF16, **NO_K6}
     if per_step != want:
         raise AssertionError(f"launches per step {per_step}, expected {want}")
     keys = ("loss", "rate", "H_q_S", "H_q_ZlS", "distortion")
@@ -2927,12 +3146,14 @@ BANANA_REDUCED = {
 
 class CaptureEpochs:
     """Wraps `run.make_generative_epoch`: each fused epoch's stacked logs,
-    its wall time (ending in a synchronize) and its steps."""
+    its wall time (ending in a synchronize) and its steps; the kernels'
+    launches inside the fused epochs, summed."""
 
     def __enter__(self):
         from lossyless_tpu_torch.pipeline import run
 
         self.logs, self.seconds, self.steps = [], [], 0
+        self.launches = dict.fromkeys(read_launches(), 0)
         self.saved = run.make_generative_epoch
 
         def make(sample_fn, n_steps, *args):
@@ -2940,10 +3161,13 @@ class CaptureEpochs:
 
             def timed(state, seed):
                 sync()
+                before = read_launches()
                 t0 = time.perf_counter()
                 state, logs = epoch(state, seed)
                 sync()
                 self.seconds.append(time.perf_counter() - t0)
+                for k, v in read_launches().items():
+                    self.launches[k] += v - before[k]
                 self.logs.append(logs)
                 self.steps += n_steps
                 return state, logs
@@ -2999,8 +3223,8 @@ MAIN_KEYS = ("test/feat/loss", "test/comm/n_bits", "test/pred/loss")
 
 def timed_main(cfg, precision: dict, need=MAIN_KEYS) -> dict:
     """`main(cfg)` on the card with its epochs timed; the metrics (those
-    of `need` finite), the wall time, ms a step (the last epoch's) and
-    the fused epochs' logs."""
+    of `need` finite), the wall time, ms a step (the last epoch's), the
+    fused epochs' logs and the launches inside them."""
     from lossyless_tpu_torch.pipeline import run
 
     with CaptureEpochs() as fused, TimeHostEpochs() as host:
@@ -3021,7 +3245,8 @@ def timed_main(cfg, precision: dict, need=MAIN_KEYS) -> dict:
     return dict(wall_s=wall, steps=timer.steps,
                 fused=bool(fused.steps), epoch_s=timer.seconds,
                 ms_per_step=timer.seconds[-1] * 1e3 / per_epoch,
-                metrics=keep, logs=fused.logs)
+                metrics=keep, logs=fused.logs,
+                fused_launches=fused.launches)
 
 
 def first_steps(logs: list, n: int) -> list:
@@ -3116,16 +3341,16 @@ def banana_path(card: str) -> dict:
         plain = timed_main(cfg_of("banana_viz_VIC", SHORT_VIC, "plain"),
                             precision)
         plain_launches = read_launches()
-        if any(plain_launches.values()):
-            raise AssertionError(f"the plain banana run launched "
-                                 f"{plain_launches}")
+        check_launches(plain_launches, "the plain banana run",
+                       batchnorm=True, k3=False)
 
-        # the main path: K3 and its backward, nothing else
+        # the main path: K3 and its backward, K6 (the MLPs' BatchNorms),
+        # nothing else
         k3_cfg = cfg_of("banana_viz_VIC", BANANA_OVERRIDES, "k3")
         reset_launches()
         kernels = timed_main(k3_cfg, precision)
         launches = read_launches()
-        check_launches(launches, "banana path")
+        check_launches(launches, "banana path", batchnorm=True)
         a = first_steps(kernels.pop("logs"), BANANA_AB_STEPS)
         b = first_steps(plain.pop("logs"), BANANA_AB_STEPS)
         worst = max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-12)
@@ -3230,7 +3455,8 @@ IMAGE_REDUCED = {
 
 def image_path(card: str) -> dict:
     """Phase 13: `main(preset("mnist_vic"))` at full width with K3 on (the
-    launches counted on that run: K3 and its backward, nothing else),
+    launches counted on that run: K3, K6 and their backwards, nothing
+    else),
     through the fused epoch (batches drawn and augmented on the card);
     a plain-K3 run of the same featurizer whose first steps' logs the
     kernels' must equal to rtol 1e-2; the fused epoch and the host-fed
@@ -3260,7 +3486,7 @@ def image_path(card: str) -> dict:
         reset_launches()
         kernels = timed_main(k3_cfg, precision)
         launches = read_launches()
-        check_launches(launches, "image path")
+        check_launches(launches, "image path", batchnorm=True)
         if not kernels["fused"]:
             raise AssertionError("the image path did not take the fused "
                                  "epoch")
@@ -3272,9 +3498,8 @@ def image_path(card: str) -> dict:
         plain = timed_main(cfg_of("mnist_vic", IMAGE_OVERRIDES + [
             "rate.eb_use_pallas=False", "is_only_feat=True"], "plain"),
             precision, need=("test/feat/loss",))
-        if any(read_launches().values()):
-            raise AssertionError(f"the plain image run launched "
-                                 f"{read_launches()}")
+        check_launches(read_launches(), "the plain image run",
+                       batchnorm=True, k3=False)
         a = first_steps(logs, IMAGE_AB_STEPS)
         b = first_steps(plain.pop("logs"), IMAGE_AB_STEPS)
         worst = max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-12)
@@ -3442,13 +3667,14 @@ def spatial_communication(cfg, n: int = 256,
 
 def stl10_path(card: str) -> dict:
     """Phase 14: `main(preset("stl10_bince"))` at full width with K3 on
-    (the launches counted on that run: K3 and its backward, nothing
-    else; the peak device memory), through the fused epoch (the anchor
-    and its positive drawn and augmented on the card by the STL10 chain);
+    (the launches counted on that run: K3 and its backward, K6 40 + 40 a
+    step of its fused epochs, nothing else; the peak device memory),
+    through the fused epoch (the anchor and its positive drawn and
+    augmented on the card by the STL10 chain);
     the same featurizer on the plain likelihood, whose first steps' logs
     the kernels' must equal to rtol 1e-2; a profiled fused epoch;
     `stl10_understand_VIC` and `stl10_balle` through `main` at full width
-    (K3 and its backward, nothing else), `stl10_balle`'s communication
+    (K3, K6 and their backwards, nothing else), `stl10_balle`'s communication
     through `SpatialHyperpriorCoder`; `stl10_rate_variation` and
     `stl10_dist_variation` at a small depth, `stl10_action_dist_shift`
     through the experiment CLI in a subprocess. Returns the launch counts
@@ -3482,7 +3708,12 @@ def stl10_path(card: str) -> dict:
         reset_launches()
         bince = timed_main(bince_cfg, precision)
         launches = read_launches()
-        check_launches(launches, "stl10_bince")
+        check_launches(launches, "stl10_bince", batchnorm=True)
+        # K6 a training step, counted inside this run's fused epochs
+        bn_step = k6_per_step(bince)
+        if bn_step != {k: K6_STEP_LAUNCHES for k in NO_K6}:
+            raise AssertionError(f"stl10_bince's fused epochs launched K6 "
+                                 f"{bn_step} a step")
         check_test_metrics(bince["metrics"], "stl10_bince")
         if not bince["fused"]:
             raise AssertionError("stl10_bince did not take the fused epoch")
@@ -3497,9 +3728,8 @@ def stl10_path(card: str) -> dict:
         reset_launches()
         plain = timed_main(cfg_of("stl10_bince", BINCE_STL10 + plain_overrides(
             bince["steps"]), "plain"), precision, need=("test/feat/loss",))
-        if any(read_launches().values()):
-            raise AssertionError(f"the plain STL10 run launched "
-                                 f"{read_launches()}")
+        check_launches(read_launches(), "the plain STL10 run",
+                       batchnorm=True, k3=False)
         a = first_steps(logs, STL10_AB_STEPS)
         b = first_steps(plain.pop("logs"), STL10_AB_STEPS)
         worst = max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-12)
@@ -3518,7 +3748,7 @@ def stl10_path(card: str) -> dict:
             reset_launches()
             run_ = timed_main(cfg, precision)
             launches = read_launches()
-            check_launches(launches, name)
+            check_launches(launches, name, batchnorm=True)
             check_test_metrics(run_["metrics"], name)
             run_.pop("logs")
             run_["launches"] = launches
@@ -3534,7 +3764,7 @@ def stl10_path(card: str) -> dict:
             run_ = timed_main(cfg_of(name, SHORT_STL10, name), precision)
             run_.pop("logs")
             run_["launches"] = read_launches()
-            check_launches(run_["launches"], name)
+            check_launches(run_["launches"], name, batchnorm=True)
             check_test_metrics(run_["metrics"], name)
             record(name, run_)
             add(run_["launches"])
@@ -3561,6 +3791,7 @@ def stl10_path(card: str) -> dict:
                            wall_s=time.perf_counter() - t0, jobs=jobs))
     out["wall_s"] = time.perf_counter() - t_phase
     out["launches"] = total
+    total.update({f"{k}_per_bince_step": v for k, v in bn_step.items()})
     print(json.dumps({"stl10_path": {k: out[k] for k in (
         "card", "matmul_precision", "launches", "kernels_vs_plain",
         "wall_s")}}), flush=True)
@@ -3842,8 +4073,12 @@ def ssl_path(card: str) -> dict:
                                    log=lambda _: None, device=DEVICE)
         launches = read_launches()
         per_step = {k: v / SSL_STEPS for k, v in launches.items()}
+        # K6: a forward a BatchNorm of the frozen tower (one tower forward
+        # a step, under no_grad: no backward)
+        tower_bns = count_batchnorms(state.model)
         want = {**dict.fromkeys(launches, 0), "fused_attention_cls": 1,
-                "eb_likelihood": 1, "eb_likelihood_bwd": 1}
+                "eb_likelihood": 1, "eb_likelihood_bwd": 1,
+                "batchnorm": tower_bns}
         if per_step != want:
             raise AssertionError(f"ssl launches per step {per_step}, "
                                  f"expected {want}")
@@ -3885,7 +4120,10 @@ def ssl_path(card: str) -> dict:
                                on_step=lambda st, s, lg: got.append(
                                    {k: float(lg[k]) for k in keys}))
             n = read_launches()
-            if (name == "plain") == any(n.values()):
+            if (name == "plain") == any(v for k, v in n.items()
+                                        if k not in NO_K6) or \
+                    n["batchnorm"] != tower_bns * SSL_AB_STEPS or \
+                    n["batchnorm_bwd"]:
                 raise AssertionError(f"the {name} A/B run launched {n}")
             rows[name] = got
         worst = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
@@ -3936,7 +4174,8 @@ def ssl_path(card: str) -> dict:
             n = read_launches()
             per = {k: v / SSL_TOWER_STEPS for k, v in n.items()}
             if per != {**dict.fromkeys(n, 0), "eb_likelihood": 1,
-                       "eb_likelihood_bwd": 1}:
+                       "eb_likelihood_bwd": 1,
+                       "batchnorm": count_batchnorms(st.model)}:
                 raise AssertionError(f"{arch} launches per step {per}")
             if not all(np.isfinite(v) for r in got for v in r.values()):
                 raise AssertionError(f"{arch}: non-finite logs {got}")
@@ -3959,8 +4198,11 @@ def ssl_path(card: str) -> dict:
         if (launches["fused_attention_cls"] != fw.n or fw.n == 0
                 or any(v for k, v in launches.items()
                        if not k.startswith(("eb_likelihood",
-                                            "fused_attention_cls")))
-                or not launches["eb_likelihood_bwd"]):
+                                            "fused_attention_cls",
+                                            "batchnorm")))
+                or not launches["eb_likelihood_bwd"]
+                or launches["batchnorm"] != tower_bns * fw.n
+                or launches["batchnorm_bwd"]):
             raise AssertionError(f"linear eval launches {launches} over "
                                  f"{fw.n} tower forwards")
         check_test_metrics(run_["metrics"], "ssl_bottleneck_linear_eval")
@@ -4563,7 +4805,8 @@ def distributed_path(card: str) -> dict:
                 raise AssertionError(f"{name}: the data-parallel step in a "
                                      f"world of one changed the logs: "
                                      f"{differ}")
-            check_launches(grp["launches"], f"{name} in a world of one")
+            check_launches(grp["launches"], f"{name} in a world of one",
+                           batchnorm=True)
     print(json.dumps({"distributed_path": out}), flush=True)
     return out
 
@@ -4626,11 +4869,11 @@ EXTERNAL_REDUCED = {
 GALAXY_LAUNCHER = (
     "import json, sys; from lossyless_tpu_torch import cli; "
     "from lossyless_tpu_torch.coding import eb_kernel; "
-    "from lossyless_tpu_torch.nn import flash_attn as fa; "
+    "from lossyless_tpu_torch.nn import bn_kernel, flash_attn as fa; "
     "m = cli.main(sys.argv[1:]); "
     "print(json.dumps({'galaxy_cli': {'metrics': {k: v for k, v in m.items() "
-    "if isinstance(v, (int, float, str))}, "
-    "'launches': {**fa.LAUNCHES, **eb_kernel.LAUNCHES}}}))")
+    "if isinstance(v, (int, float, str))}, 'launches': {**fa.LAUNCHES, "
+    "**eb_kernel.LAUNCHES, **bn_kernel.LAUNCHES}}}))")
 
 
 def _smooth_image(rng, h: int, w: int):
@@ -4821,7 +5064,7 @@ def coco_path(card: str, tmp: Path) -> dict:
                   launches_per_tower_forward={
                       k: launches[k] / max(1, fw.n)
                       for k in ("fused_attention", "fused_attention_cls")})
-    want_zero = ("fused_mlp_block", *NO_K5)
+    want_zero = ("fused_mlp_block", *NO_K5, *NO_K6)
     if any(launches[k] for k in want_zero) or fw.n == 0 or \
             launches["fused_attention"] != 11 * fw.n or \
             launches["fused_attention_cls"] != fw.n or \
@@ -4901,7 +5144,7 @@ def galaxy_path(card: str, tmp: Path) -> dict:
                cli.stdout.splitlines() if line.startswith('{"galaxy_cli"'))
     rec["wall_s"] = time.perf_counter() - t0
     launches = rec["launches"]
-    check_launches(launches, "galaxy_regression")
+    check_launches(launches, "galaxy_regression", batchnorm=True)
     metrics = rec["metrics"]
     check_test_metrics({k: v for k, v in metrics.items()
                         if isinstance(v, float)}, "galaxy_regression")
@@ -5502,6 +5745,7 @@ def main() -> int:
     timings = phase("3 (K1, K2)", check_kernels)
     timings.update(phase("3b (K3, K4)", check_k3_k4))
     timings.update(phase("3c (K5a, K5b)", check_k5))
+    k6 = phase("3d (K6)", check_k6)
     encode_launches = phase("4 (encode)", main_path, card)
     with tempfile.TemporaryDirectory() as OUT_DIR:
         state, train_launches = phase("5 (training)", train_path, card)
@@ -5593,6 +5837,30 @@ def main() -> int:
                             ptxas["eb_likelihood"].items()
                             if ("eb_likelihood_bwd_kernel" in fn) == bwd}
         kernels.append(row)
+    # K6: BatchNorm's forward and backward at phase 3d's shapes, launched
+    # wherever a model holds a BatchNorm; a step of stl10_bince counted in
+    # phase 14's main run
+    for name in NO_K6:
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="lossyless_tpu_torch/nn/csrc/batchnorm.cu",
+            replaces="none (flax nn.BatchNorm, lossyless_tpu/nn/layers.py: "
+                     "XLA fusions on the TPU)",
+            launches_per_stl10_bince_step=stl10_launches[
+                f"{name}_per_bince_step"],
+            launches_on_encode_path=encode_launches[name],
+            launches_on_training_path=train_launches[name],
+            launches_on_slice_path=slice_launches[name],
+            launches_on_pipeline_path=pipeline_launches[name],
+            launches_on_banana_path=banana_launches[name],
+            launches_on_image_path=image_launches[name],
+            launches_on_stl10_path=stl10_launches[name],
+            launches_on_ssl_path=ssl_launches.get(name, 0),
+            launches_on_coco_path=external["coco"][name],
+            launches_on_galaxy_path=external["galaxy"][name],
+            launches_on_example_path=example[name],
+            at=k6[name], ptxas={fn: info for fn, info in
+                                ptxas["batchnorm"].items()}))
     # phase 16: K1's and K2's bf16-softmax instantiations, launched on the
     # encode under SOFTMAX_DTYPE=bfloat16
     bf16_launches = knobs["encode"]["bf16_softmax"]["launches"]

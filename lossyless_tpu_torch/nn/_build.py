@@ -5,6 +5,8 @@ Shared libraries with plain C interfaces, loaded with ctypes:
 * ``attention`` — ``nn/csrc/attention.cu``, the attention kernels K1, K2,
   K5a and K5b;
 * ``mlp_block`` — ``nn/csrc/mlp_block.cu``, the fused MLP half-block K4;
+* ``batchnorm`` — ``nn/csrc/batchnorm.cu``, BatchNorm's forward and
+  backward kernels K6;
 * ``eb_likelihood`` — ``coding/csrc/eb_likelihood.cu``, the
   entropy-bottleneck likelihood K3;
 * ``rans`` — ``coding/csrc/rans.cpp``, the host rANS codec.
@@ -13,7 +15,7 @@ A ``.cu`` source is compiled with nvcc for ``sm_90a``, a ``.cpp`` one with
 g++ for the build host's ISA. All go into ``lossyless_tpu_torch/_build/``
 at first use, under a file name keyed on a hash of the sources, the
 headers they include (``HEADERS``: ``nn/csrc/hopper.cuh``, the Hopper
-helpers both ``.cu`` sources of ``nn/`` share) and the compile command
+helpers ``attention.cu`` and ``mlp_block.cu`` share) and the compile command
 (plus the host's ISA for the ``-march=native`` codec), so an edited source
 or header, or another CPU, never picks up a stale library. Each build
 writes a per-pid temp file and ``os.replace``s it into place: processes
@@ -39,6 +41,7 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = {
     "attention": (_PKG / "nn" / "csrc" / "attention.cu",),
     "mlp_block": (_PKG / "nn" / "csrc" / "mlp_block.cu",),
+    "batchnorm": (_PKG / "nn" / "csrc" / "batchnorm.cu",),
     "eb_likelihood": (_PKG / "coding" / "csrc" / "eb_likelihood.cu",),
     "rans": (_PKG / "coding" / "csrc" / "rans.cpp",),
 }

@@ -46,8 +46,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from .flash_attn import attention_cls_plain, fused_attention_cls
-from .layers import (LECUN_NORMAL, BatchNorm, Conv, numpy_state_dict,
-                     params_from_flax)
+from .layers import (LECUN_NORMAL, BatchNorm, Conv, conv_input,
+                     numpy_state_dict, params_from_flax)
 from .mlp import Dense, _dtype
 
 
@@ -191,7 +191,7 @@ class ClipResNet(nn.Module):
 
     def forward(self, x, *, training: bool = False):
         d = self.dtype
-        x = x.permute(0, 3, 1, 2).to(d)          # NHWC -> its NCHW view
+        x = conv_input(x.permute(0, 3, 1, 2), d)   # NHWC -> its NCHW view
         for i in (1, 2, 3):
             x = getattr(self, f"conv{i}")(x)
             x = F.relu(getattr(self, f"bn{i}")(x, training=training)).to(d)

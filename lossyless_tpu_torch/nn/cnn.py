@@ -31,8 +31,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import (Conv, ConvTranspose, apply_norm, make_activation,
-                     make_norm, norm_uses_bias)
+from .layers import (Conv, ConvTranspose, apply_norm, conv_input,
+                     make_activation, make_norm, norm_uses_bias)
 from .mlp import Dense, _dtype
 
 
@@ -88,7 +88,7 @@ class CNNEncoder(nn.Module):
         x = x.permute(0, 3, 1, 2)
         if self.resize:
             x = _resize(x, self.size)
-        x = x.to(self.dtype)
+        x = conv_input(x, self.dtype)
         for conv, norm, act in zip(self.convs, self.norms, self.acts):
             x = apply_norm(norm, conv(x), training=training)
             x = act(x).to(self.dtype)
@@ -188,7 +188,7 @@ class BalleEncoder(nn.Module):
         x = x.permute(0, 3, 1, 2)
         if self.resize:
             x = _resize(x, self.size)
-        x = x.to(self.dtype)
+        x = conv_input(x, self.dtype)
         for i, conv in enumerate(self.convs):
             x = conv(x)
             if i < len(self.norms):

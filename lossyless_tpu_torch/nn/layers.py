@@ -9,7 +9,9 @@ Counterpart of `lossyless_tpu/nn/layers.py`: the initializers
 E[x]^2; batch norm eps 1e-5 with running averages at momentum 0.9; group
 norm 8 groups where the channels divide by 8, else 1, and layer norm, both
 eps 1e-6) so that JAX params and statistics carry over. Every norm takes
-the channels on dim 1: (batch, features) or an NCHW view.
+the channels on dim 1: (batch, features) or an NCHW view. On the card
+BatchNorm runs the kernel pair K6 (`bn_kernel`), which needs the channels
+innermost in memory (`conv_input`).
 
 `Conv` and `ConvTranspose` are flax's `nn.Conv` / `nn.ConvTranspose` on
 that NCHW view (the NHWC tensors of the JAX layout, permuted: a
@@ -32,6 +34,7 @@ from torch import nn
 from ..core import mesh
 from ..core.math import lower_bound
 from ..core.profiling import span
+from . import bn_kernel
 
 BN_MOMENTUM = 0.9
 
@@ -168,7 +171,12 @@ def _per_channel(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 class BatchNorm(nn.Module):
     """flax `nn.BatchNorm(momentum=0.9)` over every dim but the channels'
     (1): params `scale`, `bias`; running `mean`, `var` (biased) as
-    buffers. fp32 out, whatever the input's dtype."""
+    buffers. fp32 out, whatever the input's dtype.
+
+    On a CUDA tensor, K6 (`bn_kernel.batch_norm`: the hand-written kernel
+    pair, fp32 arithmetic, the same fast variance; the channels must be
+    innermost in memory, as every convolution here gives them); on the
+    CPU, the eager fp32 chain (`eager`)."""
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -179,6 +187,16 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(features))
 
     def forward(self, x, *, training: bool):
+        if x.device.type == "cuda":
+            with span("nn.batchnorm"):
+                return bn_kernel.batch_norm(
+                    x, self.scale, self.bias, self.mean, self.var,
+                    training=training, eps=self.eps, momentum=BN_MOMENTUM)
+        return self.eager(x, training=training)
+
+    def eager(self, x, *, training: bool):
+        """The eager fp32 chain: the CPU's BatchNorm, and on the card the
+        plain version K6 is held to."""
         with span("nn.batchnorm"):
             xf = x.float()
             if training:
@@ -271,6 +289,17 @@ def make_norm(norm_layer: str | None, features: int) -> nn.Module | None:
 def apply_norm(norm: nn.Module | None, x, *, training: bool):
     """Apply a norm from `make_norm` (None is the identity)."""
     return x if norm is None else norm(x, training=training)
+
+
+def conv_input(x: torch.Tensor, dtype) -> torch.Tensor:
+    """An image batch's NCHW view in `dtype`, for `Conv`. On the card the
+    channels are made innermost in memory (a copy only where the view is
+    of NCHW memory, as the augmentations' resampling leaves it): cuDNN's
+    NHWC convolutions then keep that layout through the network, and K6
+    takes no other. On the CPU the view as it is."""
+    if x.is_cuda:
+        return x.to(dtype, memory_format=torch.channels_last)
+    return x.to(dtype)
 
 
 def _as_pair(v) -> tuple:

@@ -10,10 +10,13 @@ over through `layers.params_from_flax`.
 
 NHWC in, as JAX; inside, the NCHW view of the NHWC tensor (a
 `torch.channels_last` tensor, cuDNN's layout for bf16 tensor-core
-convolutions). Under `dtype=bfloat16` flax's rounding points are kept:
-each conv bf16 in and out, BatchNorm fp32 params and fp32 out, ReLU then
-a cast to bf16, the residual add in fp32, the pool and the head fp32.
-BatchNorm: momentum 0.9 in flax's sense (torch's 0.1), eps 1e-5.
+convolutions; on the card made so in memory by `layers.conv_input`, so
+every activation keeps its channels innermost). Under `dtype=bfloat16`
+flax's rounding points are kept: each conv bf16 in and out, BatchNorm
+fp32 params and fp32 out, ReLU then a cast to bf16, the residual add in
+fp32, the pool and the head fp32. BatchNorm: momentum 0.9 in flax's sense
+(torch's 0.1), eps 1e-5; on the card the kernel pair K6 (fp32 arithmetic,
+`nn/csrc/batchnorm.cu`), on the CPU the eager fp32 chain.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import LECUN_NORMAL, BatchNorm, Conv
+from .layers import LECUN_NORMAL, BatchNorm, Conv, conv_input
 from .mlp import Dense, _dtype
 
 
@@ -129,7 +132,7 @@ class ResNet(nn.Module):
 
     def forward(self, x, *, training: bool = False):
         d = self.dtype
-        x = x.permute(0, 3, 1, 2).to(d)          # NHWC -> its NCHW view
+        x = conv_input(x.permute(0, 3, 1, 2), d)   # NHWC -> its NCHW view
         x = F.relu(self.BatchNorm_0(self.Conv_0(x), training=training))
         if not self.small_input:
             x = F.max_pool2d(x, 3, 2, 1)
